@@ -9,29 +9,48 @@ What it does, in order (any failure exits non-zero before the last line):
 
 1. Device: requires CUDA (no CPU path); prints the card's name and power
    limit (``nvidia-smi``), ``torch.version.cuda`` and the kernel build time.
-2. Kernels: builds the three CUDA kernels from ``csrc/`` and holds each
-   against its plain PyTorch version on the card at the main path's shapes
-   (bitwise for the two int8 kernels, 1e-5 for the bf16 rescore), timing
-   kernel and plain version with CUDA events beside the least time the
-   card could take (bytes over 3.35 TB/s or operations over the peak rate
-   of their type).
-3. Small-input reference: the same small partitioned index served on the
+   A child process starts writing the case store (below) at once.
+2. Small-input reference: the same small partitioned index served on the
    CPU (plain versions) and on the card (kernels) must agree.
-4. Slice: a 5,242,880-chunk partition-major corpus (P=5120, m=1024,
+3. Slice: a 5,242,880-chunk partition-major corpus (P=5120, m=1024,
    D=384, int8 blocks + bf16 rescore segments; clustered, 10% duplicates)
    generated on the card from ``--seed``, court/date columns, a trie over
    synthetic case names, and the MiniLM-L6 encoder at full width with
    seeded weights.
+4. Kernels: builds the four CUDA kernels from ``csrc/`` and holds each
+   against its plain PyTorch version on the card at the main path's shapes
+   (bitwise for the three int8 kernels, 1e-5 for the bf16 rescore), timing
+   kernel and plain version with CUDA events beside the least time the
+   card could take (bytes over 3.35 TB/s or operations over the peak rate
+   of their type). The int8 top-k runs first at the small shapes of the
+   CPU tests (k up to 128, ragged N, +-0 ties), then at B=256, k=32 over
+   the whole corpus viewed flat, then once through its own path, the
+   public op ``fused_int8_topk``, with the launch counts reset just before.
 5. Serve: encoded text batches through ``FusedHybridSearch.query_batch``
    with the engine's settings (k=32 and the search config's defaults:
    overfetch 4, recall target 0.97, flat escalation 0.01): B=8 and B=64
-   (probe), B=256 (stream) and a filtered B=64 batch. Every kernel's launch
-   counter must be above 0 after this run; recall@10 is reported against
-   the port's own exact stream (recall target 1.0).
+   (probe), B=256 (stream) and a filtered B=64 batch. Every serving
+   kernel's launch counter must be above 0 after this run; recall@10 is
+   reported against the port's own exact stream (recall target 1.0).
 6. Profile: each unfiltered batch once more under ``torch.profiler``:
    device time by kernel and the device's busy share.
+7. Engine: the 1,310,720 cases (names, citations, courts and dates of the
+   trie and columns; one sentence per chunk) written to a sqlite
+   ``StorageManager`` with ``store_cases_batch`` by the child process;
+   ``SearchEngine(..., device="cuda")`` over the same state, ``warmup``
+   (must leave ``is_warm``), then ``search_batch`` at B=8, 64, 256 and a
+   court + date filtered 64 on the fused path, B=8 (probe) and a partly
+   filtered B=64 (exact scan) on the staged path, and B=8 again from the
+   query cache. Each result must be hydrated, with a snippet, inside its
+   filters; name queries lead with a case-name or exact hit. Launch counts
+   are reset just before these batches and read just after. The store
+   build (one commit per row, as in the JAX package) takes longer than
+   every card phase before it, so this phase waits for it.
 
-The line before the last is a JSON object with one entry per kernel; the
+The line before the last is a JSON object with one entry per kernel:
+``launches`` counts the kernel on the path that reaches it (the
+``query_batch`` run for the three serving kernels, ``fused_int8_topk`` for
+the int8 top-k) and ``launches_by_path`` on each of the three paths. The
 last line is ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -42,8 +61,11 @@ import argparse
 import datetime as dt
 import functools
 import json
+import math
+import multiprocessing
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import uuid
@@ -58,6 +80,13 @@ BF16_FLOPS = 989e12
 P_PARTS, M_SLOTS, DIM = 5120, 1024, 384
 #: the engine's fused k for any max_results <= 24 (its warmed k bucket)
 K = 32
+#: chunks per case; case names in the trie
+CHUNKS_PER_CASE, N_NAMES = 4, 20_000
+COURTS = ["", *[f"Court {i}" for i in range(15)]]
+WORDS = [f"w{i}" for i in range(500)] + ["state", "united", "people", "ohio"]
+EPOCH = dt.date(1970, 1, 1)
+#: the kernels of the serving paths (query_batch and SearchEngine)
+SERVING_KERNELS = ("fused_scan", "probe_candidates", "gather_rescore")
 
 
 @functools.lru_cache(maxsize=1)
@@ -181,29 +210,24 @@ def build_search(torch, np, device, P, m, D, seed, n_names, num_probes, gen_devi
     ann.part_rows = torch.arange(N, dtype=torch.int32, device=device).reshape(P, m)
     ann.num_vectors = N
 
-    n_cases = N // 4  # four chunks per case
+    n_cases = N // CHUNKS_PER_CASE
     rows = np.arange(N, dtype=np.int32)
-    refs = np.stack([rows // 4, rows % 4], axis=1)
-    courts = ["", *[f"Court {i}" for i in range(15)]]
-    case = np.arange(n_cases, dtype=np.int64)
+    refs = np.stack([rows // CHUNKS_PER_CASE, rows % CHUNKS_PER_CASE], axis=1)
+    court_ids, dates = case_columns(np, n_cases)
     columns = MetadataColumns(
-        case_ids=[uuid.UUID(int=int(i) + 1) for i in case],
-        court_ids=(case % 16).astype(np.int32),
-        dates=(-7305 + (case * 7919) % 25000).astype(np.int32),
-        court_vocab={c: i for i, c in enumerate(courts)},
+        case_ids=[uuid.UUID(int=i + 1) for i in range(n_cases)],
+        court_ids=court_ids,
+        dates=dates,
+        court_vocab={c: i for i, c in enumerate(COURTS)},
     )
-    rng = np.random.default_rng(seed)
-    words = [f"w{i}" for i in range(500)] + ["state", "united", "people", "ohio"]
-    named = rng.choice(n_cases, min(n_names, n_cases), replace=False)
-    names = {int(c): f"{rng.choice(words)} {rng.choice(words)} v. {rng.choice(words)} {c}"
-             for c in named}
+    names = case_names(np, n_cases, n_names, seed)
     trie = TrieIndex(device=device)
     for c, name in names.items():
         trie.insert_case_name(name, c)
-        trie.insert_citation(f"{c % 900} U.S. {c % 7000} ({1950 + c % 70})", c)
+        trie.insert_citation(citation(c), c)
         trie.insert_content(name.split()[:3] + ["held", "that"], c, 0)
     trie.freeze()
-    vocab = train_wordpiece_vocab(list(names.values()) + words, vocab_size=4096, min_frequency=1)
+    vocab = train_wordpiece_vocab(list(names.values()) + WORDS, vocab_size=4096, min_frequency=1)
     model = MiniLM(MiniLMConfig(), device=device, seed=seed)
     emb = Embedder(tokenizer=WordPieceTokenizer(vocab), model=model, device=device)
     vi = VectorIndex(cfg, embedder=emb, device=device)
@@ -211,7 +235,70 @@ def build_search(torch, np, device, P, m, D, seed, n_names, num_probes, gen_devi
     # zero-stride view stands for the 8 GB f32 store
     vi.set_frozen(refs, np.broadcast_to(np.zeros((1, D), np.float32), (N, D)), ann)
     fused = FusedHybridSearch(trie, vi, columns, ann_mode=ann_mode, flat_escalate_eps=serving_settings()[2])
-    return fused, vi, names, words, courts
+    return fused, vi, names, WORDS, COURTS
+
+
+def case_columns(np, n_cases: int):
+    """Court id (into ``COURTS``; 0 = no court) and decision date (days
+    since 1970-01-01, over 68 years) of each case row."""
+    case = np.arange(n_cases, dtype=np.int64)
+    return (case % len(COURTS)).astype(np.int32), (-7305 + (case * 7919) % 25000).astype(np.int32)
+
+
+def case_names(np, n_cases: int, n_names: int, seed: int) -> dict[int, str]:
+    """Case row → name, for the ``n_names`` cases the trie indexes."""
+    rng = np.random.default_rng(seed)
+    named = rng.choice(n_cases, min(n_names, n_cases), replace=False)
+    return {int(c): f"{rng.choice(WORDS)} {rng.choice(WORDS)} v. {rng.choice(WORDS)} {c}"
+            for c in named}
+
+
+def citation(c: int) -> str:
+    return f"{c % 900} U.S. {c % 7000} ({1950 + c % 70})"
+
+
+def case_text(c: int) -> str:
+    """One sentence per chunk, so a semantic hit on chunk j anchors its
+    snippet on sentence j."""
+    return " ".join(
+        f"In part {j} of case {c} the court held that w{(c * 7 + j) % 500} governs "
+        f"the w{(c + 13 * j) % 500} claim." for j in range(CHUNKS_PER_CASE)
+    )
+
+
+def build_store(db_path: str, n_cases: int, n_names: int, seed: int, batch: int = 1 << 15) -> None:
+    """Write every case (metadata and text) into a sqlite ``StorageManager``
+    with ``store_cases_batch``, consistent with the trie and the columns of
+    :func:`build_search`; the seconds it took go to ``<db_path>.seconds``.
+    Runs in a child process beside the card phases."""
+    sys.path.insert(0, str(HERE))
+    import numpy as np
+
+    from trie_semantic_search_tpu_torch.core.config import StorageConfig
+    from trie_semantic_search_tpu_torch.core.types import CaseMetadata
+    from trie_semantic_search_tpu_torch.storage.store import StorageManager
+
+    t0 = time.perf_counter()
+    names = case_names(np, n_cases, n_names, seed)
+    court_ids, dates = case_columns(np, n_cases)
+    store = StorageManager(StorageConfig(db_path=db_path))
+    for lo in range(0, n_cases, batch):
+        cases = []
+        for c in range(lo, min(lo + batch, n_cases)):
+            name = names.get(c)
+            text = case_text(c)
+            meta = CaseMetadata(
+                id=uuid.UUID(int=c + 1), name=name or f"Unindexed case {c}",
+                citation=citation(c) if name else "", court=COURTS[court_ids[c]],
+                decision_date=EPOCH + dt.timedelta(days=int(dates[c])),
+                word_count=len(text.split()),
+            )
+            cases.append((meta, text))
+        stored, errors = store.store_cases_batch(cases)
+        if stored != len(cases) or errors:
+            raise RuntimeError(f"store_cases_batch stored {stored} of {len(cases)}: {errors[:3]}")
+    store.close()
+    Path(db_path + ".seconds").write_text(str(time.perf_counter() - t0))
 
 
 def texts_for(rng, names, words, B):
@@ -340,6 +427,111 @@ def kernel_phases(torch, np, fused, vi, report):
     )
     report(out["gather_rescore"])
     return out
+
+
+#: small int8 top-k cases (B, D, N, k, share of scale-0 rows, duplicate
+#: stride), drawn as the CPU tests draw theirs: k past one warp slot and
+#: up to 128, ragged N, a part query tile, scale-0 rows with signed dots
+#: (+-0 ties); a share of 1.0 leaves only row 0 a nonzero scale (see
+#: :func:`int8_case`)
+INT8_CASES = (
+    (8, 32, 2048, 8, 1.0, 0),
+    (4, 32, 256, 8, 0.9, 0),
+    (12, 32, 384, 33, 0.5, 7),
+    (8, 32, 300, 12, 0.0, 11),
+    (8, 48, 777, 128, 0.0, 9),
+    (8, 48, 130, 128, 0.0, 0),
+    (8, 32, 256, 40, 0.0, 0),
+    (64, 384, 100_003, 128, 0.3, 13),
+)
+
+
+def int8_case(np, B, D, N, seed, zero_rows, dup_every):
+    """Seeded int8 top-k inputs as the CPU tests draw them: ``(q8 [B, D],
+    q_scale [B, 1], corpus [N, D], corpus_scale [N, 1])``."""
+    rng = np.random.default_rng(seed)
+    q8 = rng.integers(-127, 127, (B, D)).astype(np.int8)
+    qs = (rng.random((B, 1)) * 0.01 + 1e-3).astype(np.float32)
+    cq = rng.integers(-127, 127, (N, D)).astype(np.int8)
+    cs = (rng.random((N, 1)) * 0.01 + 1e-3).astype(np.float32)
+    if dup_every:  # exact duplicate rows: equal scores, the lower row first
+        cq[dup_every::dup_every] = cq[0]
+        cs[dup_every::dup_every] = cs[0]
+    if zero_rows >= 1.0:
+        # every score but row 0's is +0.0 or -0.0; query 0 dots positive
+        # with rows 1-3 and negative with the rest, so its list ends in
+        # -0.0 values (no +0.0 row after them); the other queries' zeros
+        # read +0.0 from a +0.0 row in a later row range
+        cs[1:] = 0.0
+        qs[:] = np.abs(qs)
+        dots = cq.astype(np.int32) @ q8[0].astype(np.int32)
+        flip = np.where(np.arange(N) < 4, dots < 0, dots > 0)
+        cq[flip & (np.arange(N) > 0)] *= -1
+    elif zero_rows:
+        cs[rng.random(N) < zero_rows] = 0.0
+        qs[::2] *= -1
+    return q8, qs, cq, cs
+
+
+def int8_topk_phase(torch, np, vi, report) -> dict:
+    """The int8 top-k kernel against its plain version, bitwise: first the
+    small cases of ``INT8_CASES``, then B=256, k=32 over the main path's
+    int8 blocks viewed flat (pad slots have scale 0); then its own path,
+    the public op ``fused_int8_topk``, with the launch counts set to 0
+    just before and read just after."""
+    from trie_semantic_search_tpu_torch.ops import fused_int8_topk
+    from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
+    from trie_semantic_search_tpu_torch.ops.hybrid import quantize_queries
+
+    def bitwise(a, b):
+        return torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)) and torch.equal(a[1], b[1])
+
+    for B, D, N, k, zero_rows, dup in INT8_CASES:
+        data = int8_case(np, B, D, N, B + N + k, zero_rows, dup)
+        q8, qs, cq, cs = (torch.from_numpy(a).to(vi.device) for a in data)
+        args = (q8, qs.reshape(B), cq, cs.reshape(N), k)
+        got, want = sk.int8_topk_cuda(*args), sk.int8_topk_plain(*args)
+        torch.cuda.synchronize()
+        if not bitwise(got, want):
+            raise AssertionError(f"int8 top-k differs from plain at B={B} D={D} N={N} k={k}")
+        zeros = want[0] == 0
+        log(f"  int8_topk B={B} D={D} N={N} k={k}: bitwise equal ({int(zeros.sum())} zero scores, "
+            f"{int((zeros & torch.signbit(want[0])).sum())} of them -0.0)")
+
+    ann = vi.ann
+    P, m, D = ann.part_int8.shape
+    N, B = P * m, 256
+    g = torch.Generator(device=vi.device).manual_seed(13)
+    q = torch.randn((B, D), generator=g, device=vi.device)
+    q8, qs = quantize_queries(q / q.norm(dim=-1, keepdim=True))
+    corpus, scale = ann.part_int8.view(N, D), ann.part_scale.view(N, 1)
+    args = (q8, qs.reshape(B), corpus, scale.reshape(N), K)
+    kv, ki = sk.int8_topk_cuda(*args)
+    pv, pi = sk.int8_topk_plain(*args)
+    torch.cuda.synchronize()
+    if not bitwise((kv, ki), (pv, pi)):
+        bad = (kv.view(torch.int32) != pv.view(torch.int32)) | (ki != pi)
+        raise AssertionError(f"int8 top-k differs from plain: {int(bad.sum())} of {bad.numel()} entries")
+    ms = cuda_ms(torch, lambda: sk.int8_topk_cuda(*args), 5)
+    plain_ms = cuda_ms(torch, lambda: sk.int8_topk_plain(*args), 2)
+    b_ms, b_by = bound(N * D + N * 4 + B * (D + 4) + B * K * 8, 2.0 * B * N * D, INT8_OPS)
+
+    sk.reset_launch_counts()
+    v, i = fused_int8_topk(q8, qs, corpus, scale, K)
+    torch.cuda.synchronize()
+    launches = dict(sk.LAUNCHES)
+    if launches["int8_topk"] <= 0:
+        raise AssertionError(f"fused_int8_topk launched no int8 top-k kernel: {launches}")
+    if not bitwise((v, i), (pv, pi)):
+        raise AssertionError("fused_int8_topk differs from the compared kernel result")
+    rec = dict(
+        name="int8_topk", route="cuda", source="trie_semantic_search_tpu_torch/csrc/int8_topk.cu",
+        replaces="trie_semantic_search_tpu/ops/pallas_scan.py:160", launches=launches["int8_topk"],
+        max_abs_err=float((kv - pv)[torch.isfinite(pv)].abs().max()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, shape=f"B={B} k={K} N={N} D={D}",
+    )
+    report(rec)
+    return rec, launches
 
 
 def small_reference(torch, np, seed, devices=("cpu", "cuda")):
@@ -484,6 +676,134 @@ def check_and_recall(np, fused, rec):
     return float(np.mean(hits)) if hits else 1.0
 
 
+#: batch sizes the engine's warmup covers
+WARM_SIZES = (8, 64)
+#: the engine's batches: (path, B, filtered); B=8 on the staged path
+#: probes, B=64 there scans exactly (the vector index's rule)
+ENGINE_PLAN = (("fused", 8, False), ("fused", 64, False), ("fused", 256, False),
+               ("fused", 64, True), ("staged", 8, False), ("staged", 64, True))
+
+
+def check_results(MatchType, names: set, qs, res) -> int:
+    """Every result hydrated, with a snippet, in score order and inside its
+    filters; unfiltered queries fill their limit; a name query has a
+    case-name or exact hit first and finds its case. Returns the count."""
+    if len(res) != len(qs):
+        raise AssertionError(f"{len(res)} result lists for {len(qs)} queries")
+    n = 0
+    for q, rs in zip(qs, res):
+        scores = [r.score for r in rs]
+        if not all(map(math.isfinite, scores)) or scores != sorted(scores, reverse=True):
+            raise AssertionError(f"{q.query!r}: scores not finite and descending: {scores}")
+        if q.court_filter is None and q.date_range is None and len(rs) != q.config.max_results:
+            raise AssertionError(f"{q.query!r}: {len(rs)} results, limit {q.config.max_results}")
+        for r in rs:
+            m = r.case_metadata
+            if m is None or not m.name or not r.snippet:
+                raise AssertionError(f"{q.query!r}: a result without metadata or snippet")
+            if q.court_filter and m.court not in q.court_filter:
+                raise AssertionError(f"{q.query!r}: court {m.court!r} outside {q.court_filter}")
+            if q.date_range and not q.date_range[0] <= m.decision_date <= q.date_range[1]:
+                raise AssertionError(f"{q.query!r}: date {m.decision_date} outside {q.date_range}")
+        if q.query in names and q.court_filter is None and q.date_range is None:
+            if rs[0].match_type not in (MatchType.CASE_NAME, MatchType.EXACT):
+                raise AssertionError(f"name query {q.query!r} led by a {rs[0].match_type} hit")
+            if not any(r.case_metadata.name == q.query for r in rs):
+                raise AssertionError(f"name query {q.query!r} missed its case")
+        n += len(rs)
+    return n
+
+
+def engine_phase(torch, np, fused, vi, names, db_path: str, seed: int):
+    """The entry point users call: ``SearchEngine`` over the same state,
+    hydrating from the sqlite store. Warmup at ``WARM_SIZES`` (must leave
+    ``is_warm``), the batches of ``ENGINE_PLAN``, then the first batch again, which the query cache
+    must serve without a launch. Returns the warmup seconds, per-batch
+    records and the launch counts of exactly these batches."""
+    from trie_semantic_search_tpu_torch.core.config import Config
+    from trie_semantic_search_tpu_torch.core.metrics import metrics
+    from trie_semantic_search_tpu_torch.core.types import SearchConfig
+    from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
+    from trie_semantic_search_tpu_torch.search.engine import MatchType, SearchEngine, SearchQuery
+    from trie_semantic_search_tpu_torch.storage.columns import date_to_int
+    from trie_semantic_search_tpu_torch.storage.store import StorageManager
+
+    sync = torch.cuda.synchronize if vi.device.type == "cuda" else (lambda: None)
+    cols = fused.columns
+    config = Config()
+    config.storage.db_path = db_path
+    storage = StorageManager(config.storage)
+    if storage.get_stats().total_cases != len(cols):
+        raise AssertionError(f"store holds {storage.get_stats().total_cases} cases, columns {len(cols)}")
+    rng = np.random.default_rng(seed + 2)
+    sample = rng.choice(len(cols), min(512, len(cols)), replace=False)
+    got = storage.get_case_metadata_many([cols.case_ids[r] for r in sample])
+    for r in sample:
+        meta = got[str(cols.case_ids[r])]
+        if meta.court != COURTS[cols.court_ids[r]] or date_to_int(meta.decision_date) != cols.dates[r]:
+            raise AssertionError(f"store and columns disagree on case row {r}")
+
+    engine = SearchEngine(config, storage, fused.trie_index, vi, cols, device=vi.device)
+    t0 = time.perf_counter()
+    engine.warmup(batch_sizes=WARM_SIZES)
+    warm_s = time.perf_counter() - t0
+    if not engine.is_warm:
+        raise AssertionError("SearchEngine.warmup left is_warm False: a warmup batch failed")
+
+    def queries(B, filtered):
+        out = []
+        for i, text in enumerate(texts_for(rng, names, WORDS, B)):
+            cf = [COURTS[1 + i % 15], COURTS[2 + (i + 3) % 14]] if filtered and i % 2 == 0 else None
+            dr = (dt.date(1960, 1, 1), dt.date(1990, 12, 31)) if filtered and i % 3 != 1 else None
+            # every semantic hit passes: the seeded encoder's cosines to the
+            # synthetic corpus lie near 0, under the default 0.5
+            out.append(SearchQuery(query=text, court_filter=cf, date_range=dr,
+                                   config=SearchConfig(min_similarity=-1.0)))
+        return out
+
+    batches = [(path, B, filtered, queries(B, filtered)) for path, B, filtered in ENGINE_PLAN]
+    name_set = set(names.values())
+    records = []
+    sk.reset_launch_counts()
+    for path, B, filtered, qs in batches:
+        engine.config.search.use_fused_device_path = path == "fused"
+        split0 = {n: metrics.histogram(n).total_ms for n in ("fused_embed", "fused_device")}
+        before = dict(sk.LAUNCHES)
+        sync()
+        t0 = time.perf_counter()
+        res = engine.search_batch(qs)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        split = {n: metrics.histogram(n).total_ms - v for n, v in split0.items()}
+        records.append(dict(
+            path=path, B=B, filtered=filtered, wall_ms=wall,
+            embed_ms=split["fused_embed"] if path == "fused" else None,
+            device_ms=split["fused_device"] if path == "fused" else None,
+            results=check_results(MatchType, name_set, qs, res),
+            launches={k: v - before[k] for k, v in sk.LAUNCHES.items()},
+            json=[[r.to_json() for r in rs] for rs in res],
+        ))
+    engine.config.search.use_fused_device_path = True
+    hits, before = engine.query_cache.get_stats().hits, dict(sk.LAUNCHES)
+    path, B, filtered, qs = batches[0]
+    t0 = time.perf_counter()
+    again = engine.search_batch(qs)
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = dict(sk.LAUNCHES)
+    if engine.query_cache.get_stats().hits - hits != B or launches != before:
+        raise AssertionError("the repeated batch was not served from the query cache")
+    if [[r.to_json() for r in rs] for rs in again] != records[0]["json"]:
+        raise AssertionError("the cached batch differs from the first")
+    records.append(dict(path="cache", B=B, filtered=filtered, wall_ms=wall, embed_ms=None,
+                        device_ms=None, results=sum(map(len, again)), launches={}, json=None))
+    engine.health_check()
+    stats = engine.get_stats()
+    storage.close()
+    for rec in records:
+        del rec["json"]
+    return warm_s, records, launches, stats
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -502,6 +822,21 @@ def main() -> int:
 
     from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        db_path = str(Path(tmp) / "cases.sqlite")
+        n_cases = P_PARTS * M_SLOTS // CHUNKS_PER_CASE
+        store = multiprocessing.get_context("spawn").Process(
+            target=build_store, args=(db_path, n_cases, N_NAMES, args.seed))
+        store.start()
+        try:
+            return run(torch, np, sk, args.seed, db_path, store)
+        finally:
+            if store.is_alive():
+                store.terminate()
+            store.join()
+
+
+def run(torch, np, sk, seed: int, db_path: str, store) -> int:
     t_start = time.perf_counter()
     card = gpu_line()
     log(f"gpu: {card}")
@@ -516,14 +851,14 @@ def main() -> int:
               "build_seconds": lib.build_seconds, "build_log": lib.log}
 
     log("phase: small-input reference (CPU plain versions vs card kernels)")
-    detail["small_reference_max_score_diff"] = small_reference(torch, np, args.seed)
+    detail["small_reference_max_score_diff"] = small_reference(torch, np, seed)
     log(f"  agree; max score difference {detail['small_reference_max_score_diff']:.3g}")
 
     log(f"phase: build state on the card (P={P_PARTS} m={M_SLOTS} D={DIM})")
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     fused, vi, names, words, courts = build_search(
-        torch, np, dev, P_PARTS, M_SLOTS, DIM, args.seed, 20_000, 64
+        torch, np, dev, P_PARTS, M_SLOTS, DIM, seed, N_NAMES, 64
     )
     if fused.ann_mode != "partitioned":
         raise AssertionError(f"auto mode picked {fused.ann_mode} at {vi.ann.num_vectors} chunks")
@@ -532,20 +867,24 @@ def main() -> int:
     log(f"  {vi.ann.num_vectors} chunks, mode {fused.ann_mode}, nprobe {vi.ann.default_nprobe}, "
         f"{len(vi.ann.corpus_bf16)} rescore segments, {detail['build_state_s']:.1f} s")
 
-    log("phase: kernels vs plain versions at the main path's shapes")
-    kernels = kernel_phases(torch, np, fused, vi, lambda r: log(
-        f"  {r['name']}: {r['shape']} max_abs_err={r['max_abs_err']:.3g} "
-        f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
-    ))
+    def report(r):
+        log(f"  {r['name']}: {r['shape']} max_abs_err={r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms "
+            f"plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
-    log("phase: serve (counts reset just before, read just after)")
-    records, launches = serve(torch, np, fused, vi, names, words, courts, args.seed)
-    log(f"  launches on the main path: {launches}")
-    missing = [k for k, n in launches.items() if n <= 0]
+    log("phase: kernels vs plain versions at the main path's shapes")
+    kernels = kernel_phases(torch, np, fused, vi, report)
+    log("phase: int8 top-k vs plain, then its path fused_int8_topk (counts reset just before)")
+    kernels["int8_topk"], i8launches = int8_topk_phase(torch, np, vi, report)
+    log(f"  launches on the fused_int8_topk path: {i8launches}")
+
+    log("phase: serve through query_batch (counts reset just before, read just after)")
+    records, launches = serve(torch, np, fused, vi, names, words, courts, seed)
+    log(f"  launches on the query_batch path: {launches}")
+    missing = [k for k in SERVING_KERNELS if launches[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
-    for k, n in launches.items():
-        kernels[k]["launches"] = n
+        raise AssertionError(f"kernels not launched on the query_batch path: {missing}")
+    for k in SERVING_KERNELS:
+        kernels[k]["launches"] = launches[k]
 
     log("phase: checks and recall@10 vs the exact stream")
     detail["batches"] = []
@@ -557,8 +896,6 @@ def main() -> int:
         log(f"  B={rec['B']} {rec['mode']} filtered={rec['filtered']}: encode ms {rec['encode_ms']} "
             f"query ms {rec['query_ms']} recall@10 vs exact {r10:.4f}")
     detail["escalated"] = fused.escalated
-    detail["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
-    detail["kernels"] = kernels
     out_dir = Path.cwd() / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     log("phase: profile (device time by kernel)")
@@ -568,13 +905,44 @@ def main() -> int:
             f"{row['device_ms']:.2f} ms (busy {row['busy_share']:.3f})")
         for name, ms, count in row["top"]:
             log(f"    {ms:9.3f} ms  x{count:<5} {name}")
+
+    log("phase: case store (built with store_cases_batch in a child process)")
+    t0 = time.perf_counter()
+    store.join()
+    if store.exitcode != 0:
+        raise AssertionError(f"the store build failed with exit code {store.exitcode}")
+    detail["store_build_s"] = float(Path(db_path + ".seconds").read_text())
+    log(f"  {len(fused.columns)} cases in {detail['store_build_s']:.1f} s "
+        f"(waited {time.perf_counter() - t0:.1f} s for it here)")
+
+    log("phase: SearchEngine (counts reset just before the batches, read just after)")
+    warm_s, erecs, elaunches, stats = engine_phase(torch, np, fused, vi, names, db_path, seed)
+    log(f"  warmup(batch_sizes={WARM_SIZES}) {warm_s:.1f} s, is_warm True")
+    for r in erecs:
+        split = "" if r["embed_ms"] is None else (
+            f" = embed {r['embed_ms']:.2f} + device step {r['device_ms']:.2f} + hydration and "
+            f"snippets {r['wall_ms'] - r['embed_ms'] - r['device_ms']:.2f}")
+        log(f"  {r['path']} B={r['B']} filtered={r['filtered']}: {r['wall_ms']:.2f} ms{split}; "
+            f"{r['results']} results; launches {r['launches']}")
+    log(f"  launches on the SearchEngine path: {elaunches}; queries served {stats.queries_served}, "
+        f"cache hits {stats.cache_stats.hits}, escalated {stats.escalated_queries}")
+    missing = [k for k in SERVING_KERNELS if elaunches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the SearchEngine path: {missing}")
+    detail["engine"] = dict(warmup_s=warm_s, batches=erecs)
+    paths = {"query_batch": launches, "SearchEngine": elaunches, "fused_int8_topk": i8launches}
+    for n, rec in kernels.items():
+        rec["launches_by_path"] = {p: counts[n] for p, counts in paths.items()}
+
+    detail["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    detail["kernels"] = kernels
     detail["seconds"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
     log(f"escalated {fused.escalated}; peak memory {detail['peak_mem_gb']:.1f} GiB; "
         f"{detail['seconds']:.1f} s")
     log(f"gpu: {card}")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kernels[n][k] for k in keys} for n in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

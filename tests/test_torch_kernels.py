@@ -1,16 +1,21 @@
 """The port's kernel wrappers (their plain versions on the CPU) against the
 JAX package's Pallas kernels in interpret mode, on the same numpy inputs.
 
-Tolerances: the two int8 kernels are compared bitwise (values and rows or
-slots: int32 dots and the same f32 multiply order on both sides); the
+Tolerances: the three int8 kernels are compared bitwise (values and rows
+or slots: int32 dots and the same f32 multiply order on both sides); the
 rescore within 1e-5 (bf16 products are exact in f32, only the order of the
 f32 sum differs).
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from trie_semantic_search_tpu.ops import pallas_scan as ps
 from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
@@ -179,6 +184,160 @@ def test_layout_helpers_match_jax():
     assert (sk.TILE_N, sk.TILE_N_BIG, sk.TILE_B) == (ps.TILE_N, ps.TILE_N_BIG, ps.TILE_B)
 
 
+def _pallas_int8_topk(q8, qs, cq, cs, k, tile_b, tile_n):
+    """``pallas_int8_topk``'s ``pallas_call`` in interpret mode (as
+    ``tests/test_pallas.py`` runs it), at any tiling."""
+    B, D = q8.shape
+    N = cq.shape[0]
+    if B % tile_b:
+        tile_b = B
+    vmem = dict(memory_space=pltpu.VMEM)
+    return pl.pallas_call(
+        functools.partial(ps._scan_kernel, k=k, tile_n=tile_n),
+        grid=(B // tile_b, N // tile_n),
+        in_specs=[
+            pl.BlockSpec((tile_b, D), lambda b, n: (b, 0), **vmem),
+            pl.BlockSpec((tile_b, 1), lambda b, n: (b, 0), **vmem),
+            pl.BlockSpec((tile_n, D), lambda b, n: (n, 0), **vmem),
+            pl.BlockSpec((tile_n, 1), lambda b, n: (n, 0), **vmem),
+        ],
+        out_specs=(
+            pl.BlockSpec((tile_b, k), lambda b, n: (b, 0), **vmem),
+            pl.BlockSpec((tile_b, k), lambda b, n: (b, 0), **vmem),
+        ),
+        out_shape=(jax.ShapeDtypeStruct((B, k), jnp.float32),
+                   jax.ShapeDtypeStruct((B, k), jnp.int32)),
+        scratch_shapes=[pltpu.VMEM((tile_b, k), jnp.float32), pltpu.VMEM((tile_b, k), jnp.int32)],
+        interpret=True,
+    )(*(jnp.asarray(a) for a in (q8, qs, cq, cs)))
+
+
+def _int8_data(B, D, N, seed, zero_rows=0.0, dup_every=0):
+    rng = np.random.default_rng(seed)
+    q8 = rng.integers(-127, 127, (B, D)).astype(np.int8)
+    qs = (rng.random((B, 1)) * 0.01 + 1e-3).astype(np.float32)
+    cq = rng.integers(-127, 127, (N, D)).astype(np.int8)
+    cs = (rng.random((N, 1)) * 0.01 + 1e-3).astype(np.float32)
+    if dup_every:  # exact duplicate rows: equal scores, the lower row first
+        cq[dup_every::dup_every] = cq[0]
+        cs[dup_every::dup_every] = cs[0]
+    if zero_rows:  # scale-0 rows (pad slots): +0.0 and -0.0 scores
+        cs[rng.random(N) < zero_rows] = 0.0
+        qs[::2] *= -1
+    return q8, qs, cq, cs
+
+
+def _port_int8_topk(q8, qs, cq, cs, k):
+    v, i = sk.int8_topk(*(torch.from_numpy(a) for a in (q8, qs, cq, cs)), k)
+    return v.numpy(), i.numpy()
+
+
+def _assert_bitwise(got, want):
+    np.testing.assert_array_equal(got[0].view(np.int32), np.asarray(want[0]).view(np.int32))
+    np.testing.assert_array_equal(got[1], np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("B,N,tile_b,tile_n,k,zero_rows,dup", [
+    (8, 512, 8, 128, 10, 0.0, 0),     # several tiles
+    (16, 256, 8, 64, 7, 0.0, 5),      # two query tiles, equal scores
+    (8, 256, 8, 32, 40, 0.0, 0),      # k above a tile's row count
+    (4, 256, 4, 64, 8, 0.9, 0),       # mostly scale-0 rows: +-0 ties
+    (12, 384, 256, 128, 33, 0.5, 7),  # single query tile (B % tile_b), all of it
+])
+def test_int8_topk_matches_pallas_kernel(B, N, tile_b, tile_n, k, zero_rows, dup):
+    data = _int8_data(B, 32, N, seed=B + N + k, zero_rows=zero_rows, dup_every=dup)
+    want = _pallas_int8_topk(*data, k, tile_b, tile_n)
+    _assert_bitwise(_port_int8_topk(*data, k), want)
+
+
+@pytest.mark.parametrize("chunk,k", [(32, 40), (100, 12), (256, 128)])
+def test_int8_topk_plain_chunk_merge_matches_pallas_kernel(monkeypatch, chunk, k):
+    """The plain version's running list across row chunks (one chunk for
+    every other N here) keeps the kernel's order and its +-0 values, with
+    chunks shorter than k and not aligned to its tiles."""
+    monkeypatch.setattr(sk, "INT8_TOPK_PLAIN_CHUNK", chunk)
+    data = _int8_data(8, 32, 768, seed=chunk, zero_rows=0.6, dup_every=9)
+    _assert_bitwise(_port_int8_topk(*data, k), _pallas_int8_topk(*data, k, 8, 128))
+
+
+@pytest.mark.parametrize("N,tile_n,k", [(300, 128, 12), (200, 64, 40), (77, 32, 77)])
+def test_int8_topk_ragged_n_matches_pallas_kernel(N, tile_n, k):
+    """N not a multiple of the tile: the Pallas kernel runs over the corpus
+    padded to whole tiles with rows that score -inf (a positive dot times a
+    -inf scale), the port over the N real rows."""
+    q8, qs, cq, cs = _int8_data(8, 32, N, seed=N + k, dup_every=11)
+    q8[:, 0] = np.clip(np.abs(q8[:, 0].astype(np.int32)), 1, 127)
+    n_pad = -N % tile_n
+    cq_pad = np.concatenate([cq, np.zeros((n_pad, 32), np.int8)])
+    cq_pad[N:, 0] = 127
+    cs_pad = np.concatenate([cs, np.full((n_pad, 1), -np.inf, np.float32)])
+    want = _pallas_int8_topk(q8, qs, cq_pad, cs_pad, k, 8, tile_n)
+    _assert_bitwise(_port_int8_topk(q8, qs, cq, cs, k), want)
+
+
+@pytest.mark.parametrize("N,k,dup", [(256, 10, 0), (1000, 17, 0), (777, 128, 9), (130, 128, 0)])
+def test_int8_topk_matches_xla_without_signed_zeros(N, k, dup):
+    """Without +-0 ties the public op's two JAX paths agree, and so does the
+    port at any N (no tile divisibility) and its ``xla_int8_topk``."""
+    data = _int8_data(8, 48, N, seed=N + k, dup_every=dup)
+    jd = [jnp.asarray(a) for a in data]
+    want = ps.xla_int8_topk(*jd, k)
+    _assert_bitwise(_port_int8_topk(*data, k), want)
+    _assert_bitwise(_port_int8_topk(*data, k), ps.fused_int8_topk(*jd, k))
+    t = [torch.from_numpy(a) for a in data]
+    for fn in (sk.fused_int8_topk, sk.xla_int8_topk):
+        v, i = fn(*t, k)
+        _assert_bitwise((v.numpy(), i.numpy()), want)
+
+
+def test_int8_topk_signed_zero_ties_follow_the_kernel():
+    """Scale-0 rows and negative dots give +0.0 and -0.0 scores.
+    ``lax.top_k`` ranks +0.0 above -0.0, the Pallas kernel ties them to the
+    lower row: the two JAX paths differ, and the port follows the kernel
+    (``fused_int8_topk`` on the accelerator returns the kernel's result)."""
+    B, D, N, k = 8, 32, 256, 8
+    q8, qs, cq, cs = _int8_data(B, D, N, seed=0)
+    cs[1:] = 0.0  # pad rows: every score but row 0's is +0.0 or -0.0,
+    qs[:] = np.abs(qs)  # signed as the row's dot
+    kernel = _pallas_int8_topk(q8, qs, cq, cs, k, 8, 64)
+    xla = ps.xla_int8_topk(*(jnp.asarray(a) for a in (q8, qs, cq, cs)), k)
+    assert not np.array_equal(np.asarray(kernel[1]), np.asarray(xla[1]))
+    _assert_bitwise(_port_int8_topk(q8, qs, cq, cs, k), kernel)
+    v, i = sk.xla_int8_topk(*(torch.from_numpy(a) for a in (q8, qs, cq, cs)), k)
+    _assert_bitwise((v.numpy(), i.numpy()), xla)
+
+
+def test_int8_topk_negative_zero_values_follow_the_kernel():
+    """A query whose zero scores turn -0.0 after its last +0.0 row: the
+    kernel writes -0.0 there and +0.0 before, and so does the port."""
+    B, D, N, k = 8, 32, 512, 8
+    q8, qs, cq, cs = _int8_data(B, D, N, seed=3)
+    cs[1:] = 0.0
+    qs[:] = np.abs(qs)
+    dots = cq.astype(np.int32) @ q8[0].astype(np.int32)
+    flip = np.where(np.arange(N) < 4, dots < 0, dots > 0) & (np.arange(N) > 0)
+    cq[flip] *= -1  # query 0: rows 1-3 score +0.0, rows 4 on -0.0
+    kernel = _pallas_int8_topk(q8, qs, cq, cs, k, 8, 128)
+    assert np.signbit(np.asarray(kernel[0])[0]).sum() >= 4
+    _assert_bitwise(_port_int8_topk(q8, qs, cq, cs, k), kernel)
+
+
+def test_int8_topk_wrapper_refuses_bad_input():
+    q8, qs, cq, cs = (torch.from_numpy(a) for a in _int8_data(4, 32, 300, seed=1))
+    with pytest.raises(ValueError, match="k="):
+        sk.int8_topk(q8, qs, cq, cs, 129)
+    with pytest.raises(ValueError, match="k="):
+        sk.int8_topk(q8, qs, cq[:20], cs[:20], 21)
+    with pytest.raises(TypeError):
+        sk.int8_topk(q8.float(), qs, cq, cs, 5)
+    with pytest.raises(TypeError):
+        sk.int8_topk(q8, qs.double(), cq, cs, 5)
+    with pytest.raises(ValueError):
+        sk.int8_topk(q8, qs, cq[:, :16], cs, 5)
+    with pytest.raises(ValueError):
+        sk.int8_topk(q8, qs[:3], cq, cs, 5)
+
+
 def test_cuda_path_refuses_cpu_build_absent():
     """On a CUDA tensor a wrapper launches its kernel or raises; on the CPU
     it never touches the kernel library (this box has no nvcc)."""
@@ -187,4 +346,6 @@ def test_cuda_path_refuses_cpu_build_absent():
     q8 = torch.zeros((2, 32), dtype=torch.int8)
     seg = torch.zeros((64, 32), dtype=torch.bfloat16)
     sk.gather_rescore_rows(q8.float(), (seg,), torch.zeros((2, 3), dtype=torch.int32))
+    sk.int8_topk(q8, torch.ones((2, 1)), torch.zeros((64, 32), dtype=torch.int8),
+                 torch.ones((64, 1)), 4)
     assert sk._library is None and sum(sk.LAUNCHES.values()) == 0

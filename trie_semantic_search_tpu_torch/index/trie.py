@@ -218,6 +218,15 @@ class FrozenTrie:
     def num_postings(self) -> int:
         return len(self.post_case)
 
+    def nbytes(self) -> int:
+        """Bytes of the traversal and posting arrays (the JAX package's
+        count: ``subtree_post_end`` is left out there too)."""
+        return sum(
+            getattr(self, name).nbytes
+            for name in self._ARRAY_FIELDS
+            if name != "subtree_post_end"
+        )
+
     def encode_queries(
         self, token_seqs: Sequence[Sequence[str]], max_len: int
     ) -> np.ndarray:
@@ -493,6 +502,22 @@ class TrieIndex:
         rows = torch.cat(outs_r, dim=1).to(torch.int32).cpu().numpy()
         valid = torch.cat(outs_v, dim=1).cpu().numpy()
         return rows[:B], valid[:B]
+
+    def get_stats(self) -> dict:
+        """Nodes, edges, postings and bytes of each of the three tries."""
+        return {
+            name: {
+                "nodes": trie.num_nodes,
+                "edges": trie.num_edges,
+                "postings": trie.num_postings,
+                "bytes": trie.nbytes(),
+            }
+            for name, trie in (
+                ("name", self.name_trie),
+                ("content", self.content_trie),
+                ("citation", self.citation_trie),
+            )
+        }
 
     def get_completions(self, prefix: str, limit: int = 10) -> list[str]:
         out: list[str] = []

@@ -98,6 +98,9 @@ class Embedder:
             ) from e
         return EmbeddingResult(out, (time.perf_counter() - t0) * 1000)
 
+    def embed_one(self, text: str) -> np.ndarray:
+        return self.embed([text]).embedding[0]
+
     def _embed_chunk(self, texts: list[str]) -> np.ndarray:
         enc = [self.tokenizer.encode(t, self.config.max_sequence_length) for t in texts]
         true_len = max(max(sum(m) for _, m in enc), 2)

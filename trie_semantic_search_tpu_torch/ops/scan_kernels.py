@@ -1,16 +1,19 @@
-"""Hopper kernels of the serving path, their plain versions and layouts.
+"""Hopper kernels of the search path, their plain versions and layouts.
 
-Port of ``trie_semantic_search_tpu/ops/pallas_scan.py``. Three of its four
-Pallas kernels run on the serving path; each became a CUDA C++ kernel for
-``sm_90a`` under ``csrc/``:
+Port of ``trie_semantic_search_tpu/ops/pallas_scan.py``. Each of its four
+Pallas kernels became a CUDA C++ kernel for ``sm_90a`` under ``csrc/``:
 
 ==========================  ====================================  ======================
 wrapper here                TPU kernel it replaces                source
 ==========================  ====================================  ======================
+:func:`int8_topk`           ``pallas_int8_topk`` (:140-187)       ``csrc/int8_topk.cu``
 :func:`fused_scan_topk`     ``pallas_fused_topk`` (:206-444)      ``csrc/fused_scan.cu``
 :func:`probe_candidates`    ``pallas_probe_candidates`` (:447)    ``csrc/probe.cu``
 :func:`gather_rescore_rows` ``pallas_gather_rescore`` (:636-809)  ``csrc/gather_rescore.cu``
 ==========================  ====================================  ======================
+
+The last three run on the serving path; the first is reached only through
+the public op :func:`fused_int8_topk`, as in the JAX package.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 PyTorch version beside it (``*_plain``) for CPU tensors; there is no
@@ -75,7 +78,7 @@ GATHER_SEG_BYTES = 1 << 31
 GATHER_ROW_ALIGN_LCM = 32
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
-LAUNCHES = {"fused_scan": 0, "probe_candidates": 0, "gather_rescore": 0}
+LAUNCHES = {"int8_topk": 0, "fused_scan": 0, "probe_candidates": 0, "gather_rescore": 0}
 
 
 def reset_launch_counts() -> None:
@@ -173,7 +176,7 @@ def split_rescore_corpus(v, to_device=None) -> tuple:
 # ---------------------------------------------------------------------------
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("fused_scan.cu", "probe.cu", "gather_rescore.cu")
+_SOURCES = ("int8_topk.cu", "fused_scan.cu", "probe.cu", "gather_rescore.cu")
 _HEADERS = ("common.cuh",)
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _CFLAGS = _ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -192,6 +195,8 @@ class KernelLibrary:
         self.log = log
         self.lib = ctypes.CDLL(str(path))
         P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+        self.lib.tss_int8_topk.argtypes = [P] * 9 + [I] * 6 + [P]
+        self.lib.tss_int8_topk.restype = I
         self.lib.tss_fused_scan.argtypes = [P] * 15 + [I] * 8 + [P]
         self.lib.tss_fused_scan.restype = I
         self.lib.tss_fused_scan_smem_bytes.argtypes = [I, I]
@@ -298,6 +303,148 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} failed with cudaError_t {err}")
+
+
+# ---------------------------------------------------------------------------
+# 0. Unfiltered int8 scan with an exact top-k (pallas_int8_topk)
+# ---------------------------------------------------------------------------
+
+#: largest k of :func:`int8_topk` (the engine's largest k bucket)
+INT8_TOPK_MAX_K = 128
+#: corpus rows the plain version scores at a time (bounds its ``[B, rows]``
+#: score block)
+INT8_TOPK_PLAIN_CHUNK = 1 << 18
+
+
+def int8_topk_plain(
+    q8, q_scale, corpus_q, corpus_scale, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the int8 top-k kernel: ``score = (f32(q8·row) *
+    q_scale) * row_scale`` and, per query, the k best rows by (score desc,
+    row asc) with floats compared as ``>``/``==`` (``+0.0 == -0.0``, so the
+    lower row wins), over row chunks with a running list.
+
+    Output values are the Pallas kernel's: it writes each round's maximum,
+    which is ``+0.0`` for a zero whenever a ``+0.0`` row lies at or after
+    the selected row, so a ``-0.0`` row before the last ``+0.0`` row of its
+    query reads ``+0.0``."""
+    exact_float32()
+    B = q8.shape[0]
+    N = corpus_q.shape[0]
+    dev = q8.device
+    qf = q8.to(torch.float32)
+    qs = q_scale.reshape(B, 1).to(torch.float32)
+    cs = corpus_scale.reshape(N).to(torch.float32)
+    run_v = torch.empty((B, 0), dtype=torch.float32, device=dev)
+    run_i = torch.empty((B, 0), dtype=torch.int64, device=dev)
+    last_pos_zero = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    for lo in range(0, N, INT8_TOPK_PLAIN_CHUNK):
+        hi = min(lo + INT8_TOPK_PLAIN_CHUNK, N)
+        s = (qf @ corpus_q[lo:hi].to(torch.float32).T) * qs * cs[lo:hi].reshape(1, -1)
+        rows = torch.arange(lo, hi, device=dev).expand(B, -1)
+        pos_zero = (s == 0) & ~torch.signbit(s)
+        last_pos_zero = torch.maximum(
+            last_pos_zero, torch.where(pos_zero, rows, -1).amax(dim=1)
+        )
+        v = torch.cat([run_v, s], dim=1)
+        i = torch.cat([run_i, rows], dim=1)
+        # + 0.0 turns -0.0 into +0.0, so zeros tie; the stable sort keeps
+        # the running rows (lower) and then this chunk's in row order
+        order = torch.sort(-(v + 0.0), dim=1, stable=True).indices[:, :k]
+        run_v, run_i = torch.gather(v, 1, order), torch.gather(i, 1, order)
+    signed_zero = (run_v == 0) & (run_i <= last_pos_zero[:, None])
+    run_v = torch.where(signed_zero, torch.zeros_like(run_v), run_v)
+    return run_v, run_i.to(torch.int32)
+
+
+def int8_topk_cuda(
+    q8, q_scale, corpus_q, corpus_scale, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/int8_topk.cu``: ``q8 [B, D]`` int8, ``q_scale [B]``
+    f32, ``corpus_q [N, D]`` int8, ``corpus_scale [N]`` f32 → ``([B, k]
+    values, [B, k] rows)``, the contract of :func:`int8_topk_plain`. The
+    wrapper :func:`int8_topk` checks dtypes, shapes and k."""
+    dev = q8.device
+    B, D = q8.shape
+    N = corpus_q.shape[0]
+    for t in (q_scale, corpus_q, corpus_scale):
+        if t.device != dev:
+            raise ValueError(f"int8 top-k inputs lie on {t.device} and {dev}")
+    if D % 16 or q8.data_ptr() % 16 or corpus_q.data_ptr() % 16:
+        raise ValueError(f"int8 top-k kernel needs D % 16 == 0 and 16-byte aligned rows, got D={D}")
+    lib = load_library()
+    # about eight blocks of (8 queries, row range) per SM of 132, whole
+    # 256-row chunks per range
+    q_tiles = -(-B // 8)
+    n_ranges = max(1, min(-(-N // 256), -(-1056 // q_tiles), 65535))
+    rows_per_range = -(-(-(-N // n_ranges)) // 256) * 256
+    n_ranges = -(-N // rows_per_range)
+    part_v = torch.empty((n_ranges, B, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((n_ranges, B, k), dtype=torch.int32, device=dev)
+    part_z = torch.empty((n_ranges, B), dtype=torch.int32, device=dev)
+    out_v = torch.empty((B, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
+    err = lib.lib.tss_int8_topk(
+        _ptr(q8), _ptr(q_scale), _ptr(corpus_q), _ptr(corpus_scale),
+        _ptr(part_v), _ptr(part_i), _ptr(part_z), _ptr(out_v), _ptr(out_i),
+        B, D, N, k, n_ranges, rows_per_range, _stream(dev),
+    )
+    _raise_on(err, "int8 top-k kernel")
+    LAUNCHES["int8_topk"] += 1
+    return out_v, out_i
+
+
+def int8_topk(
+    q8: torch.Tensor,  # [B, D] int8
+    q_scale: torch.Tensor,  # [B, 1] f32
+    corpus_q: torch.Tensor,  # [N, D] int8, any N
+    corpus_scale: torch.Tensor,  # [N, 1] f32
+    k: int = 10,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Port of ``pallas_int8_topk`` → ``([B, k] f32, [B, k] int32)``: the
+    kernel for CUDA tensors, the plain version for CPU tensors. Equal
+    scores go to the lower row, ``+0.0 == -0.0`` included, as in the
+    Pallas kernel (``lax.top_k`` ranks ``+0.0`` first: see
+    :func:`xla_int8_topk`)."""
+    if q8.dtype != torch.int8 or corpus_q.dtype != torch.int8:
+        raise TypeError(f"q8 and corpus_q must be int8, got {q8.dtype} and {corpus_q.dtype}")
+    if q_scale.dtype != torch.float32 or corpus_scale.dtype != torch.float32:
+        raise TypeError("q_scale and corpus_scale must be float32")
+    if q8.dim() != 2 or corpus_q.dim() != 2 or q8.shape[1] != corpus_q.shape[1]:
+        raise ValueError(f"shapes {tuple(q8.shape)} and {tuple(corpus_q.shape)} are not [B, D] and [N, D]")
+    B, N = q8.shape[0], corpus_q.shape[0]
+    if q_scale.numel() != B or corpus_scale.numel() != N:
+        raise ValueError("q_scale must hold one scale per query and corpus_scale one per row")
+    if not 1 <= k <= min(N, INT8_TOPK_MAX_K):
+        raise ValueError(f"k={k} must lie in [1, min(N={N}, {INT8_TOPK_MAX_K})]")
+    if q8.is_cuda:
+        return int8_topk_cuda(
+            q8.contiguous(), q_scale.reshape(B).contiguous(), corpus_q.contiguous(),
+            corpus_scale.reshape(N).contiguous(), k,
+        )
+    return int8_topk_plain(q8, q_scale, corpus_q, corpus_scale, k)
+
+
+def xla_int8_topk(q8, q_scale, corpus_q, corpus_scale, k: int = 10):
+    """Port of ``xla_int8_topk``: the whole ``[B, N]`` score matrix, then a
+    top-k in ``lax.top_k``'s order (``+0.0`` above ``-0.0``)."""
+    from .topk import exact_topk
+
+    exact_float32()
+    B, N = q8.shape[0], corpus_q.shape[0]
+    s = (q8.to(torch.float32) @ corpus_q.to(torch.float32).T) * q_scale.reshape(B, 1).to(
+        torch.float32
+    ) * corpus_scale.reshape(1, N).to(torch.float32)
+    v, i = exact_topk(s, k)
+    return v, i.to(torch.int32)
+
+
+def fused_int8_topk(q8, q_scale, corpus_q, corpus_scale, k: int = 10):
+    """Port of the public op ``fused_int8_topk``: the scan that keeps the
+    ``[B, N]`` scores out of device memory (:func:`int8_topk`), at any N.
+    On the accelerator the JAX op returns the Pallas kernel's result, whose
+    tie order this follows."""
+    return int8_topk(q8, q_scale, corpus_q, corpus_scale, k)
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,1 @@
-"""Fused hybrid search and host caches."""
+"""Search engine, fused hybrid search, snippets and host caches."""

@@ -80,6 +80,8 @@ class FusedHybridSearch:
         t = lambda a: torch.tensor(np.asarray(a), device=dev)  # noqa: E731
         refs = np.asarray(vector_index.refs, np.int32)
         chunk_case = refs[:, 0]
+        #: paragraph of each chunk (host): the engine anchors snippets on it
+        self.chunk_para = refs[:, 1]
         # representative chunk per case: the FIRST chunk in ref order
         rep = np.full(len(columns), -1, np.int32)
         rep[chunk_case[::-1]] = np.arange(len(chunk_case) - 1, -1, -1, dtype=np.int32)
@@ -221,6 +223,28 @@ class FusedHybridSearch:
             for dst, s in zip(out, sub):
                 dst[sel] = s[: sel.size]
         return out
+
+    def warm_escalation(self, k: int, overfetch: int, recall_target: float) -> None:
+        """Run the two escalation streams (unfiltered and filtered, at
+        ``ESCALATE_BUCKET``) once with an inert query, as the JAX package's
+        warmup does to compile them; a no-op without escalation or outside
+        the partitioned mode."""
+        if self.flat_escalate_eps <= 0.0 or self.ann_mode != "partitioned":
+            return
+        D = int(self.ann.part_int8.shape[-1])
+        W = self.trie_index.search_batch_rows(["__warmup__"])[0].shape[1]
+        hostq = dict(
+            q=np.zeros((1, D), np.float32),
+            court_table=np.ones((1, self.num_courts), bool),
+            lo=np.full(1, np.iinfo(np.int32).min, np.int32),
+            hi=np.full(1, np.iinfo(np.int32).max, np.int32),
+            trie_rows=np.full((1, W), -1, np.int32),
+            trie_src=np.ascontiguousarray(self._trie_src(W)[None, :]),
+            min_sim=np.full(1, np.inf, np.float32),
+            exact_w=np.zeros(1, np.float32),
+        )
+        for filtered in (False, True):
+            self._stream_subset(hostq, np.array([0]), filtered, k, overfetch, recall_target)
 
     @staticmethod
     def _trie_src(width: int) -> np.ndarray:

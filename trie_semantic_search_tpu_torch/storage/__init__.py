@@ -1,1 +1,1 @@
-"""Metadata columns for on-device filtering."""
+"""Case storage and the metadata columns for on-device filtering."""
