@@ -17,15 +17,21 @@ What it does, in order (any failure exits non-zero before the last line):
    generated on the card from ``--seed``, court/date columns, a trie over
    synthetic case names, and the MiniLM-L6 encoder at full width with
    seeded weights.
-4. Kernels: builds the four CUDA kernels from ``csrc/`` and holds each
+4. Kernels: builds the CUDA kernels from ``csrc/`` and holds each
    against its plain PyTorch version on the card at the main path's shapes
-   (bitwise for the three int8 kernels, 1e-5 for the bf16 rescore), timing
+   (bitwise for the int8 kernels, 1e-5 for the bf16 rescore), timing
    kernel and plain version with CUDA events beside the least time the
    card could take (bytes over 3.35 TB/s or operations over the peak rate
-   of their type). The int8 top-k runs first at the small shapes of the
-   CPU tests (k up to 128, ragged N, +-0 ties), then at B=256, k=32 over
-   the whole corpus viewed flat, then once through its own path, the
-   public op ``fused_int8_topk``, with the launch counts reset just before.
+   of their type). The fused scan's tensor-core variant runs at T = 2, 3,
+   5 and its dp4a variant at T = 17, each at B = 8, 100
+   and 256, 16 and 40 courts, filters on and off, on one slab of the
+   B=256 stream, plus lane ties, a short last step and D=80; then the dp4a
+   variant once through its own path, ``fused_scan_topk`` at T=17;
+   ``torch._int_mm`` of the slab's int8 product is timed beside it. The
+   int8 top-k runs first at the small shapes of the CPU tests (k up to
+   128, ragged N, +-0 ties), then at B=256, k=32 over the whole corpus
+   viewed flat, then once through its own path, the public op
+   ``fused_int8_topk``. Launch counts are reset just before each path.
 5. Serve: encoded text batches through ``FusedHybridSearch.query_batch``
    with the engine's settings (k=32 and the search config's defaults:
    overfetch 4, recall target 0.97, flat escalation 0.01): B=8 and B=64
@@ -50,9 +56,15 @@ What it does, in order (any failure exits non-zero before the last line):
 The line before the last is a JSON object with one entry per kernel:
 ``launches`` counts the kernel on the path that reaches it (the
 ``query_batch`` run for the three serving kernels, ``fused_int8_topk`` for
-the int8 top-k) and ``launches_by_path`` on each of the three paths. The
-last line is ``{"ok": true, "device": {...}}``. Details go to
-``chiprun_out/chip_smoke.json``.
+the int8 top-k, ``fused_scan_topk`` at T=17 for the fused scan's dp4a
+variant, which the serving paths must not launch) and ``launches_by_path``
+on each path. The last line is ``{"ok": true, "device": {...}}``. Details
+go to ``chiprun_out/chip_smoke.json``.
+
+``python3 chip_smoke.py --only kernels`` runs phases 1, 2 and 4 (and the
+card state of 3) and skips serving, the profile, the store and the engine:
+about a minute, for iterating on a kernel. Its serving kernels print
+``"launches": null``.
 """
 
 from __future__ import annotations
@@ -317,12 +329,28 @@ def texts_for(rng, names, words, B):
 # ---------------------------------------------------------------------------
 
 
-def kernel_phases(torch, np, fused, vi, report):
-    """Each kernel against its plain version on the card at the main path's
-    shapes; times kernel, plain version and bound."""
+#: fused-scan check cases: lane list lengths (the engine's k buckets x
+#: overfetch 4 give T = 2, 3, 5; T = 17 is past the tensor-core lists and
+#: runs the dp4a variant), batch sizes (100: a ragged query tile), court
+#: counts (16 and 40: W = 1 and 2 words), filters on and off
+FUSED_T, FUSED_B, FUSED_COURTS = (2, 3, 5, 17), (8, 100, 256), (16, 40)
+#: the dp4a variant's own path: fused_scan_topk at this k and tile (T = 17)
+DP4A_K, DP4A_TILE = 128 * 16, 8192
+
+
+def fused_scan_phase(torch, np, fused, vi, report):
+    """The fused scan's two variants against its plain version, bitwise, on
+    one slab of the B=256 stream: every case of ``FUSED_T`` x ``FUSED_B`` x
+    ``FUSED_COURTS`` x filters on/off, plus equal rows in every lane (ties
+    the list update must resolve as the TPU kernel does), a slab of 1,021
+    tiles (a short last step of 8 tiles) and D=80 (a half-empty last
+    k-step). Times both variants, their plain version
+    and ``torch._int_mm`` of the same int8 product (a yardstick of the
+    tensor-core mainloop, not the same function); then the dp4a variant's
+    own path, ``fused_scan_topk`` at T=17, with the counts set to 0 just
+    before."""
     from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
     from trie_semantic_search_tpu_torch.ops.hybrid import pick_num_chunks, quantize_queries
-    from trie_semantic_search_tpu_torch.ops.topk import exact_topk
 
     dev = vi.device
     ann = vi.ann
@@ -330,47 +358,135 @@ def kernel_phases(torch, np, fused, vi, report):
     N = P * m
     g = torch.Generator(device=dev).manual_seed(11)
     q = torch.randn((256, D), generator=g, device=dev)
-    q = q / q.norm(dim=-1, keepdim=True)
-    flat_q = ann.part_int8.reshape(N, D)
-    flat_s = ann.part_scale.reshape(N)
-    nc = pick_num_chunks(N, 256, K * serving_settings()[0])
-    S = N // nc
-    q8, qs = quantize_queries(q)
-    n_keep = sk.fused_scan_n_keep(K * serving_settings()[0], sk.auto_tile_n(S))
-    out = {}
+    q8, qs = quantize_queries(q / q.norm(dim=-1, keepdim=True))
+    S = N // pick_num_chunks(N, 256, K * serving_settings()[0])
+    slab = ann.part_int8.reshape(N, D)[:S]
+    slab_scale = ann.part_scale.reshape(N)[:S]
+    columns = {16: fused._slot_court.reshape(N)[:S],  # the serving columns
+               40: torch.randint(-2, 70, (S,), generator=g, device=dev, dtype=torch.int32)}
+    slab_date = fused._part_cols[2].reshape(N)[:S]
+    lo = torch.full((256,), -(2**31), dtype=torch.int32, device=dev)
+    hi = torch.full((256,), 2**31 - 1, dtype=torch.int32, device=dev)
+    lo[::2], hi[::2] = 0, 15000
+    mins = torch.zeros(256, device=dev)
+    mins[1::3], mins[2::3] = -1.0, 0.05
+    tables = {V: torch.rand((256, V), generator=g, device=dev) < 0.6 for V in FUSED_COURTS}
 
-    # 1. fused scan: one slab of the B=256 stream, filtered and unfiltered
+    def args(B, V, corpus, scale, court, date, T, filt, qq=None):
+        qq = q8[:B] if qq is None else qq
+        inp = sk.fused_scan_inputs(qs[:B], court, date, tables[V][:B], lo[:B], hi[:B], mins[:B], scale)
+        return qq, dict(corpus_q=corpus, n_keep=T, use_court=filt, use_date=filt, **inp)
+
+    def check(what, qq, kw):
+        kv, ki = sk.fused_scan_cuda(qq, **kw)
+        pv, pi = sk.fused_scan_plain(qq, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(kv.view(torch.int32), pv.view(torch.int32)) and torch.equal(ki, pi)):
+            bad = (kv.view(torch.int32) != pv.view(torch.int32)) | (ki != pi)
+            raise AssertionError(f"fused scan differs from plain ({what}): {int(bad.sum())} entries")
+        fin = torch.isfinite(pv)
+        return float((kv[fin] - pv[fin]).abs().max()) if fin.any() else 0.0
+
+    err = {"wgmma": 0.0, "dp4a": 0.0}
+    cases = 0
+    for T in FUSED_T:
+        variant = sk.fused_scan_variant(D, T)
+        for B in FUSED_B:
+            for V in FUSED_COURTS:
+                for filt in (True, False):
+                    qq, kw = args(B, V, slab, slab_scale, columns[V], slab_date, T, filt)
+                    e = check(f"T={T} B={B} courts={V} filters={filt}", qq, kw)
+                    err[variant] = max(err[variant], e)
+                    cases += 1
+    # equal rows in every lane: tiles 5, 10, ... copy tile 0
+    tied = slab.clone().view(-1, 128, D)
+    tied[5::5] = tied[0]
+    tied_scale = slab_scale.clone().view(-1, 128)
+    tied_scale[5::5] = tied_scale[0]
+    for T in (2, 5):
+        qq, kw = args(256, 40, tied.view(S, D), tied_scale.view(S), columns[40], slab_date, T, True)
+        err["wgmma"] = max(err["wgmma"], check(f"lane ties T={T}", qq, kw))
+    # 1,021 tiles: the last step holds 5 of its 8 tiles
+    n_odd = 1021 * 128
+    qq, kw = args(256, 40, slab[:n_odd], slab_scale[:n_odd], columns[40][:n_odd], slab_date[:n_odd], 2, True)
+    err["wgmma"] = max(err["wgmma"], check("1,021 tiles", qq, kw))
+    # D=80: the third k32 step is half past the row
+    qq, kw = args(100, 16, slab[:37 * 128, :80].contiguous(), slab_scale[:37 * 128], columns[16][:37 * 128],
+                  slab_date[:37 * 128], 3, True, qq=q8[:100, :80].contiguous())
+    err["wgmma"] = max(err["wgmma"], check("D=80", qq, kw))
+    log(f"  fused scan: {cases + 4} cases bitwise equal to the plain version")
+    # the corpus's equal rows are neighbours, in different lanes, so on it
+    # the sequential lane update keeps each lane's (score desc, row asc)
+    # top-T, which a range split with an in-order merge also returns: the
+    # stream serves the same rows either way
+    qq, kw = args(256, 16, slab, slab_scale, columns[16], slab_date, 2, False)
+    pv, pi = sk.fused_scan_plain(qq, **kw)
+    s = (qq.float() @ slab.float().T) * kw["q_scale"][:, None] * slab_scale[None, :]
+    s = torch.where(s >= kw["mins"][:, None], s, torch.full_like(s, -float("inf")))
+    neg, order = torch.sort(-s.view(256, S // 128, 128), dim=1, stable=True)
+    rows = order[:, :2] * 128 + torch.arange(128, device=dev)
+    rows = torch.where(torch.isneginf(neg[:, :2]), torch.full_like(rows, -1), rows)
+    if not torch.equal(pi, rows.reshape(256, -1).to(torch.int32)):
+        raise AssertionError("the lane update and the (score, row) top-T differ on the slab")
+    log("  on the B=256 slab the lane update equals each lane's (score desc, row asc) top-2")
+
+    out = {}
+    for name, T in (("fused_scan", 2), ("fused_scan_dp4a", 17)):
+        qq, kw = args(256, 16, slab, slab_scale, columns[16], slab_date, T, False)
+        ms = cuda_ms(torch, lambda: sk.fused_scan_cuda(qq, **kw), 20 if T <= 16 else 3)
+        plain_ms = cuda_ms(torch, lambda: sk.fused_scan_plain(qq, **kw), 1)
+        nbytes = S * D + S * 4 + 256 * (D + 12) + 256 * T * 128 * 8
+        b_ms, b_by = bound(nbytes, 2.0 * 256 * S * D, INT8_OPS)
+        out[name] = dict(
+            name=name, route="cuda", source="trie_semantic_search_tpu_torch/csrc/fused_scan.cu",
+            replaces="trie_semantic_search_tpu/ops/pallas_scan.py:393",
+            max_abs_err=err["wgmma" if T <= 16 else "dp4a"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, shape=f"B=256 slab={S}x{D} T={T} (unfiltered timed)",
+        )
+    out["fused_scan"]["ms_by_T"] = {}
+    for T in (3, 5):
+        qq, kw = args(256, 16, slab, slab_scale, columns[16], slab_date, T, False)
+        out["fused_scan"]["ms_by_T"][T] = cuda_ms(torch, lambda: sk.fused_scan_cuda(qq, **kw), 20)
+    slab_t = slab.t()
+    out["fused_scan"]["int_mm_ms"] = cuda_ms(torch, lambda: torch._int_mm(q8, slab_t), 20)
+    report(out["fused_scan"])
+    log(f"    T=3 {out['fused_scan']['ms_by_T'][3]:.4f} ms, T=5 {out['fused_scan']['ms_by_T'][5]:.4f} ms; "
+        f"torch._int_mm of the same [256, {D}] x [{D}, {S}] product {out['fused_scan']['int_mm_ms']:.4f} ms")
+    report(out["fused_scan_dp4a"])
+
+    sk.reset_launch_counts()
+    v, i = sk.fused_scan_topk(q8, qs, slab, slab_scale, columns[16], slab_date, tables[16], lo, hi, mins,
+                              k=DP4A_K, tile_n=DP4A_TILE)
+    torch.cuda.synchronize()
+    launches = dict(sk.LAUNCHES)
+    if launches["fused_scan_dp4a"] <= 0 or launches["fused_scan"]:
+        raise AssertionError(f"fused_scan_topk at T=17 did not run the dp4a variant alone: {launches}")
+    if not (v.shape == (256, DP4A_K) and torch.isfinite(v[:, 0]).any()):
+        raise AssertionError("fused_scan_topk at T=17 returned no live row")
+    out["fused_scan_dp4a"]["launches"] = launches["fused_scan_dp4a"]
+    return out, launches
+
+
+def kernel_phases(torch, np, fused, vi, report):
+    """Each kernel against its plain version on the card at the main path's
+    shapes; times kernel, plain version and bound."""
+    from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
+    from trie_semantic_search_tpu_torch.ops.hybrid import quantize_queries
+    from trie_semantic_search_tpu_torch.ops.topk import exact_topk
+
+    dev = vi.device
+    ann = vi.ann
+    P, m, D = ann.part_int8.shape
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn((256, D), generator=g, device=dev)
+    q = q / q.norm(dim=-1, keepdim=True)
     V = fused.num_courts
     table = torch.rand((256, V), generator=g, device=dev) < 0.6
     lo = torch.full((256,), -(2**31), dtype=torch.int32, device=dev)
     hi = torch.full((256,), 2**31 - 1, dtype=torch.int32, device=dev)
     lo[::2], hi[::2] = 0, 15000
-    slab_court = fused._slot_court.reshape(N)[:S]
-    slab_date = fused._part_cols[2].reshape(N)[:S]
     mins = torch.full((256,), 0.0, device=dev)
-    err = 0.0
-    for use_f in (True, False):
-        inp = sk.fused_scan_inputs(qs, slab_court, slab_date, table, lo, hi, mins, flat_s[:S])
-        kw = dict(corpus_q=flat_q[:S], n_keep=n_keep, use_court=use_f, use_date=use_f, **inp)
-        kv, ki = sk.fused_scan_cuda(q8, **kw)
-        pv, pi = sk.fused_scan_plain(q8, **kw)
-        torch.cuda.synchronize()
-        if not (torch.equal(kv.view(torch.int32), pv.view(torch.int32)) and torch.equal(ki, pi)):
-            bad = (kv != pv) | (ki != pi)
-            raise AssertionError(f"fused scan differs from plain (filters={use_f}): {int(bad.sum())} entries")
-        fin = torch.isfinite(pv)
-        err = max(err, float((kv[fin] - pv[fin]).abs().max()) if fin.any() else 0.0)
-    ms = cuda_ms(torch, lambda: sk.fused_scan_cuda(q8, **kw), 20)
-    plain_ms = cuda_ms(torch, lambda: sk.fused_scan_plain(q8, **kw), 2)
-    nbytes = S * D + S * 4 + 256 * (D + 16) + 256 * n_keep * 128 * 8
-    b_ms, b_by = bound(nbytes, 2.0 * 256 * S * D, INT8_OPS)
-    out["fused_scan"] = dict(
-        name="fused_scan", route="cuda", source="trie_semantic_search_tpu_torch/csrc/fused_scan.cu",
-        replaces="trie_semantic_search_tpu/ops/pallas_scan.py:393", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"B=256 slab={S}x{D} T={n_keep} (unfiltered timed)",
-    )
-    report(out["fused_scan"])
+    out = {}
 
     # 2. probe: B=64 queries x nprobe probes, the serving columns
     B = 64
@@ -637,8 +753,10 @@ def profile_batches(torch, fused, vi, records, out_dir: Path) -> list[dict]:
         (out_dir / f"profile_B{B}.txt").write_text(
             events.table(sort_by="self_cuda_time_total", row_limit=25)
         )
+        scan_ms = sum(dev_us(e) for e in on_dev if "fused_scan" in e.key) / 1e3
         rows.append(dict(B=B, mode=rec["mode"], wall_ms=wall_ms, device_ms=device_ms,
-                         busy_share=device_ms / wall_ms,
+                         busy_share=device_ms / wall_ms, fused_scan_ms=scan_ms,
+                         fused_scan_share=scan_ms / device_ms if device_ms else 0.0,
                          top=[(e.key[:60], dev_us(e) / 1e3, e.count) for e in top]))
     return rows
 
@@ -807,6 +925,9 @@ def engine_phase(torch, np, fused, vi, names, db_path: str, seed: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=["kernels"],
+                    help="kernels: the device, build, small-reference and kernel phases only "
+                         "(no serving, profile, store or engine)")
     args = ap.parse_args()
     try:
         import torch
@@ -822,6 +943,8 @@ def main() -> int:
 
     from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
 
+    if args.only == "kernels":
+        return run(torch, np, sk, args.seed, "", None, only_kernels=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         db_path = str(Path(tmp) / "cases.sqlite")
         n_cases = P_PARTS * M_SLOTS // CHUNKS_PER_CASE
@@ -836,7 +959,7 @@ def main() -> int:
             store.join()
 
 
-def run(torch, np, sk, seed: int, db_path: str, store) -> int:
+def run(torch, np, sk, seed: int, db_path: str, store, only_kernels: bool = False) -> int:
     t_start = time.perf_counter()
     card = gpu_line()
     log(f"gpu: {card}")
@@ -871,18 +994,30 @@ def run(torch, np, sk, seed: int, db_path: str, store) -> int:
         log(f"  {r['name']}: {r['shape']} max_abs_err={r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms "
             f"plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
-    log("phase: kernels vs plain versions at the main path's shapes")
-    kernels = kernel_phases(torch, np, fused, vi, report)
+    log("phase: fused scan vs plain (both variants), then the dp4a variant's path fused_scan_topk "
+        "at T=17 (counts reset just before)")
+    kernels, dp4a_launches = fused_scan_phase(torch, np, fused, vi, report)
+    log(f"  launches on the fused_scan_topk T=17 path: {dp4a_launches}")
+    log("phase: probe and rescore kernels vs plain versions at the main path's shapes")
+    kernels.update(kernel_phases(torch, np, fused, vi, report))
     log("phase: int8 top-k vs plain, then its path fused_int8_topk (counts reset just before)")
     kernels["int8_topk"], i8launches = int8_topk_phase(torch, np, vi, report)
     log(f"  launches on the fused_int8_topk path: {i8launches}")
+    paths = {"fused_int8_topk": i8launches, "fused_scan_topk T=17": dp4a_launches}
+    out_dir = Path.cwd() / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    if only_kernels:
+        for k in SERVING_KERNELS:
+            kernels[k]["launches"] = None
+        return finish(torch, detail, kernels, paths, out_dir, card, t_start)
 
     log("phase: serve through query_batch (counts reset just before, read just after)")
     records, launches = serve(torch, np, fused, vi, names, words, courts, seed)
     log(f"  launches on the query_batch path: {launches}")
     missing = [k for k in SERVING_KERNELS if launches[k] <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the query_batch path: {missing}")
+    if missing or launches["fused_scan_dp4a"]:
+        raise AssertionError(f"kernels not launched on the query_batch path: {missing}, or the "
+                             f"dp4a fused scan launched: {launches}")
     for k in SERVING_KERNELS:
         kernels[k]["launches"] = launches[k]
 
@@ -896,13 +1031,12 @@ def run(torch, np, sk, seed: int, db_path: str, store) -> int:
         log(f"  B={rec['B']} {rec['mode']} filtered={rec['filtered']}: encode ms {rec['encode_ms']} "
             f"query ms {rec['query_ms']} recall@10 vs exact {r10:.4f}")
     detail["escalated"] = fused.escalated
-    out_dir = Path.cwd() / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     log("phase: profile (device time by kernel)")
     detail["profile"] = profile_batches(torch, fused, vi, records, out_dir)
     for row in detail["profile"]:
         log(f"  B={row['B']} {row['mode']}: wall {row['wall_ms']:.2f} ms, device "
-            f"{row['device_ms']:.2f} ms (busy {row['busy_share']:.3f})")
+            f"{row['device_ms']:.2f} ms (busy {row['busy_share']:.3f}); fused scan "
+            f"{row['fused_scan_ms']:.3f} ms ({row['fused_scan_share']:.3f} of device time)")
         for name, ms, count in row["top"]:
             log(f"    {ms:9.3f} ms  x{count:<5} {name}")
 
@@ -927,23 +1061,28 @@ def run(torch, np, sk, seed: int, db_path: str, store) -> int:
     log(f"  launches on the SearchEngine path: {elaunches}; queries served {stats.queries_served}, "
         f"cache hits {stats.cache_stats.hits}, escalated {stats.escalated_queries}")
     missing = [k for k in SERVING_KERNELS if elaunches[k] <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the SearchEngine path: {missing}")
+    if missing or elaunches["fused_scan_dp4a"]:
+        raise AssertionError(f"kernels not launched on the SearchEngine path: {missing}, or the "
+                             f"dp4a fused scan launched: {elaunches}")
     detail["engine"] = dict(warmup_s=warm_s, batches=erecs)
-    paths = {"query_batch": launches, "SearchEngine": elaunches, "fused_int8_topk": i8launches}
+    paths = {"query_batch": launches, "SearchEngine": elaunches, **paths}
+    return finish(torch, detail, kernels, paths, out_dir, card, t_start)
+
+
+def finish(torch, detail, kernels, paths, out_dir: Path, card: str, t_start: float) -> int:
+    """Write the details and print the kernel line and the last line."""
     for n, rec in kernels.items():
         rec["launches_by_path"] = {p: counts[n] for p, counts in paths.items()}
-
     detail["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     detail["kernels"] = kernels
     detail["seconds"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
-    log(f"escalated {fused.escalated}; peak memory {detail['peak_mem_gb']:.1f} GiB; "
-        f"{detail['seconds']:.1f} s")
+    log(f"peak memory {detail['peak_mem_gb']:.1f} GiB; {detail['seconds']:.1f} s")
     log(f"gpu: {card}")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kernels[n][k] for k in keys} for n in kernels]}))
+    print(json.dumps({"kernels": [
+        {k: rec[k] for k in keys + ("int_mm_ms",) if k in rec} for rec in kernels.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -53,10 +53,18 @@ def _filtered_data(B, D, N, V, seed, dup_every=0):
         (128, 32, 40, 12, False, True, 0),  # court mask dropped
         (64, 32, 16, 9, True, False, 3),    # ties and signed zeros
         (256, 128, 70, 20, True, True, 2),  # serving lane count, three words
+        # the serving lane count at the engine's k buckets x overfetch 4
+        # (k = 128, 256, 512: T = 2, 3, 5), with and without equal rows
+        (1024, 128, 16, 128, True, True, 0),
+        (1024, 128, 40, 128, True, True, 3),
+        (1024, 128, 40, 256, True, False, 0),
+        (1024, 128, 16, 256, True, True, 3),
+        (1024, 128, 16, 512, False, True, 0),
+        (1024, 128, 40, 512, True, True, 3),
     ],
 )
 def test_fused_scan_matches_pallas(tile_n, lanes, V, k, use_court, use_date, dup):
-    B, D, N = 8, 64, 512
+    B, D, N = 8, 64, max(512, 2 * tile_n)
     q8, qs, cq, cs, court, date, table, lo, hi, ms = _filtered_data(
         B, D, N, V, seed=tile_n + V + k, dup_every=dup
     )
@@ -77,6 +85,47 @@ def test_fused_scan_matches_pallas(tile_n, lanes, V, k, use_court, use_date, dup
         tv.numpy().view(np.int32), np.asarray(jv).view(np.int32)
     )
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("D,T,variant", [
+    (384, 2, "wgmma"),   # the B=256 stream's slab
+    (384, 3, "wgmma"),   # the engine's k=64 bucket
+    (384, 5, "wgmma"),   # the engine's k=128 bucket
+    (80, 1, "wgmma"),    # D % 32 == 16
+    (896, 16, "wgmma"),  # the longest list and widest row it takes
+    (384, 17, "dp4a"),   # T beyond the tensor-core lists
+    (912, 2, "dp4a"),    # a row wider than two ring stages
+    (1024, 64, "dp4a"),  # the longest list the wrapper takes
+])
+def test_fused_scan_variant(D, T, variant):
+    """The CUDA fused scan picks its variant from the row width and the
+    lane list length alone (explicitly; a failed launch raises)."""
+    assert sk.fused_scan_variant(D, T) == variant
+
+
+@pytest.mark.parametrize("T", [2, 3])
+def test_fused_scan_plain_lane_update_is_sequential(T):
+    """The plain version runs the TPU kernel's sequential list update, in
+    which a tie carried down by a higher score does not pass its equal:
+    rows 0 and 128 score 5.0, row 256 scores 6.0 (all lane 0); at T=2 the
+    list keeps rows 256 and 128, not the (score, row) top-2 256 and 0; at
+    T=3 all three stay, in the slot order the update leaves."""
+    D, N = 32, 512
+    cq = np.zeros((N, D), np.int8)
+    cq[[0, 128], 0] = 5
+    cq[256, 0] = 6
+    t = torch.from_numpy
+    inp = sk.fused_scan_inputs(
+        torch.ones(1), t(np.zeros(N, np.int32)), t(np.zeros(N, np.int32)),
+        torch.ones((1, 16), dtype=torch.bool), torch.zeros(1, dtype=torch.int32),
+        torch.zeros(1, dtype=torch.int32), torch.full((1,), 1.0), torch.ones(N),
+    )
+    q8 = torch.zeros((1, D), dtype=torch.int8)
+    q8[0, 0] = 1
+    v, i = sk.fused_scan_plain(q8, corpus_q=t(cq), n_keep=T, use_court=False, use_date=False, **inp)
+    lane0 = i[0, :: sk.LANES].tolist()
+    assert lane0 == ([256, 128] if T == 2 else [256, 128, 0])
+    assert v[0, :: sk.LANES].tolist() == [6.0, 5.0] + [5.0] * (T - 2)
 
 
 def _probe_data(B, D, P, m, NP, V, seed):

@@ -3,6 +3,8 @@ numpy inputs: query quantisation, the top-k family's tie order (signed
 zeros included), the lexical side list, merge + dedup, and the hybrid
 steps at op level."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,8 +12,10 @@ import pytest
 import torch
 
 from trie_semantic_search_tpu.ops import hybrid as jh
+from trie_semantic_search_tpu.ops import pallas_scan as jps
 from trie_semantic_search_tpu.ops import topk as jt
 from trie_semantic_search_tpu_torch.ops import hybrid as th
+from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
 from trie_semantic_search_tpu_torch.ops import topk as tt
 
 torch.set_num_threads(1)
@@ -225,3 +229,50 @@ def test_pick_num_chunks_and_resolve_probe_kernel(monkeypatch):
     assert th.use_scan_kernel(4096, 0.97) and not th.use_scan_kernel(4096, 1.0)
     assert not th.use_scan_kernel(4000, 0.97)
     assert jax.default_backend() == "cpu"
+
+
+def test_stream_hoists_the_scan_inputs(monkeypatch):
+    """The slab walk makes the fused scan's per-query inputs once per batch
+    and slices its per-row inputs per slab: the split inputs equal
+    ``fused_scan_inputs``'s, the court words are packed once, and the walk
+    returns bitwise what the JAX package's returns (its Pallas kernel in
+    interpret mode)."""
+    rng = np.random.default_rng(12)
+    B, D, N, V, nc = 4, 32, 4 * 2048, 40, 4
+    q8 = rng.integers(-127, 127, (B, D)).astype(np.int8)
+    qs = (rng.random((B, 1)) * 0.01 + 1e-3).astype(np.float32)
+    cq = rng.integers(-127, 127, (N, D)).astype(np.int8)
+    cq[384::512] = cq[0]  # equal scores in one lane
+    cs = (rng.random((N, 1)) * 0.01 + 1e-3).astype(np.float32)
+    cs[384::512] = cs[0]
+    court = rng.integers(0, V, N).astype(np.int32)
+    date = rng.integers(0, 100, N).astype(np.int32)
+    table = rng.random((B, V)) < 0.7
+    lo = np.array([-(2**31), 10, 0, 5], np.int32)
+    hi = np.array([2**31 - 1, 90, 99, 60], np.int32)
+    ms = np.array([-1e30, 0.0, -1e30, -1e30], np.float32)
+    args = (q8, qs, cq, cs, court, date, table, lo, hi, ms)
+
+    whole = sk.fused_scan_inputs(T(qs), T(court), T(date), T(table), T(lo), T(hi), T(ms), T(cs))
+    split = {**sk.fused_scan_query_inputs(T(qs), T(table), T(lo), T(hi), T(ms)),
+             **sk.fused_scan_row_inputs(T(court), T(date), T(cs))}
+    assert split.keys() == whole.keys()
+    for name in whole:
+        assert torch.equal(split[name], whole[name]), name
+
+    packs = []
+    real_pack = sk.pack_court_words
+    monkeypatch.setattr(sk, "pack_court_words", lambda t: packs.append(1) or real_pack(t))
+    kw = dict(ksem=24, num_chunks=nc, recall_target=0.97, use_court=True, use_date=True)
+    tv, ti = th._chunked_semantic_scan(*(T(a) for a in args), **kw)
+    assert len(packs) == 1
+    monkeypatch.setattr(jh, "_use_pallas", lambda n, rt: rt < 1.0 and n % 2048 == 0)
+    monkeypatch.setattr(jh, "pallas_fused_topk", functools.partial(jps.pallas_fused_topk, interpret=True))
+    jax.clear_caches()
+    try:
+        jv, ji = jh._chunked_semantic_scan(*(jnp.asarray(a) for a in args), **kw)
+    finally:
+        monkeypatch.undo()
+        jax.clear_caches()
+    np.testing.assert_array_equal(_bits(tv.numpy()), _bits(jv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))

@@ -8,83 +8,486 @@
 // (that multiply order, each product rounded to f32), kept only when
 // s >= min_sim[b], the court bit is set (word cword[r], bit pattern
 // cbit[r], int32 two's complement) and the f32 date lies in [lo, hi].
-// For each lane l = r % 128 it keeps the T best kept rows by (score desc,
-// row asc): a strict '>' bubble insert over rows taken in ascending order,
-// as the TPU kernel does. Dead slots stay (-inf, -1).
+// For each lane l = r % 128 it runs the TPU kernel's list update over the
+// lane's rows in ascending order: a strict '>' bubble insert into T slots
+// sorted by score. Dead slots stay (-inf, -1).
 //
-// What bounds it on an H100: the int8 products. A 256-query batch against
-// one 163,840-row slab is 16.1 G multiply-adds; the slab itself is 63 MB.
-// The TPU kernel runs them on the MXU; this first version runs them as
-// __dp4a (4 products per instruction, exact in int32) on the CUDA cores,
-// so it is bound by integer issue rate, well above the tensor-core bound.
-// A wgmma int8 version is later work.
+// That update is sequential, not a top-T that can be merged: on a tie the
+// carried entry does not pass its equal, so a higher score arriving after
+// two equal ones drops the LOWER row (rows 0 and 128 at 5.0, then row 256
+// at 6.0, keep rows 256 and 128 at T=2; split before row 128 and merged,
+// they would keep rows 256 and 0). So every lane's rows go through one
+// thread, in row order, as the TPU grid walks them; nothing is merged.
 //
-// Design: one block of 128 threads per (8-query tile, row range). Thread l
-// reads its own rows (16-byte loads) and keeps each query's lane list in
-// shared memory; the 8 queries sit in shared memory and are read as
-// broadcasts. The top-T per lane is associative, so a second kernel merges
-// the per-range lists in range order without changing the result. Query
-// tiles vary fastest in the grid so that neighbouring blocks read the same
-// rows out of L2.
+// Two variants. The caller picks one by T and D (fused_scan_variant in
+// ops/scan_kernels.py), explicitly and never as a fallback:
+//
+// * tss_fused_scan_wgmma, T <= 16 and D <= 896 (every serving T: the
+//   engine's k buckets give T = 2, 3, 5). The products run on the int8
+//   tensor cores (wgmma m64n64k32 .s32.s8.s8).
+// * tss_fused_scan_dp4a, any T up to 64: products as __dp4a on CUDA cores
+//   (4 multiply-adds per instruction), one thread per lane and query tile.
+//
+// What bounds it on an H100: a 256-query batch against one 163,840-row
+// slab at D=384 is 63 MB of rows (18.8 us at 3.35 TB/s) and 16.1 G
+// multiply-adds (16.3 us at 1,979 T int8 op/s): bytes and tensor-core
+// operations about equally. The list update (scale, filter, bubble) is
+// 42 M (row, query) elements of a few dependent CUDA-core instructions
+// each, and it, not the products, is what the design has to hide.
+//
+// Design of the wgmma variant. A block owns 64 queries and one group of 8
+// lanes and walks all N/128 row tiles of the call, 8 tiles (64 rows) a
+// step; the grid is (ceil(B / 64) query tiles, 16 lane groups), query
+// tiles fastest, so the blocks that read one lane group's rows run
+// together and re-read them from L2 (64 blocks for B=256, about one per
+// SM). Three roles, 672 threads:
+//
+// * loader (warp 4): one thread loads the query tile once and streams the
+//   steps through a ring of 2-6 stages in shared memory with TMA. A step's
+//   box is 8 tiles x 8 lanes x 128 bytes of K (128B swizzle; bytes past D
+//   and tiles past N/128 read 0), so shared row c = 8 j + i holds lane
+//   l0 + i of tile 8 step + j; the row columns (scale, court word and
+//   bit, date) come with it, 8 x 8 values each.
+// * scorers (warps 0-3, one warpgroup): wgmma multiplies the 64 queries
+//   (operand A, K-major as they lie) by the 64 rows (operand B, K-major as
+//   the corpus lies) in ceil(D/32) k32 steps into 32 int32 registers a
+//   thread, and writes them raw, with the step's row columns, into one of
+//   two buffers in shared memory; then the stage goes back to the loader.
+// * list updaters (warps 5-20): thread u keeps the list of query u / 8 and
+//   lane l0 + u % 8 in registers and takes its 8 products of each step in
+//   row order: scale, filter (a dropped row scores -inf) and a strict '>'
+//   bubble through the T slots, as selects. Named barriers pass the two
+//   buffers between scorers and updaters.
+//
+// Why so: with the lists in the scorers' own registers (one warp per
+// scheduler) the dependent bubble chains ran at a fraction of the issue
+// rate and the kernel took 0.44-0.57 ms at T=2; sixteen updater warps hide
+// them. A branch per element that some lane takes diverges, and its
+// convergence barrier cost more than the bubble itself, so the filters
+// are branch-free and the only branches are warp votes: a tile whose
+// scores beat no tail of the warp's 32 lists (the tail only rises; about
+// T ln(tiles / T) insertions per list over a call) skips the bubble.
+// Reading the accumulators only in convergent code keeps ptxas from
+// serialising the wgmma. The lists go straight to the [B, T*128] output:
+// no partial lists, no merge kernel.
 #include "common.cuh"
+
+#include <cuda.h>  // CUtensorMap and its enums (header only; no libcuda link)
 
 namespace {
 
-constexpr int QB = 8;       // queries per block
-constexpr int MAX_T = 64;   // longest lane list the merge keeps in registers
+constexpr int MAX_T = 64;       // longest lane list of the dp4a variant
+constexpr int DP4A_QB = 8;      // queries per block of the dp4a variant
 
-__global__ void fused_scan_ranges(
+constexpr int WG_MAX_T = 16;    // longest lane list the wgmma variant holds
+constexpr int WG_MAX_D = 896;   // widest row two ring stages hold
+constexpr int QT = 64;          // queries per block (wgmma M)
+constexpr int LG = 8;           // lanes per block
+constexpr int TPS = 8;          // row tiles per step (wgmma N = LG * TPS = 64)
+constexpr int KBOX = 128;       // bytes of K per TMA box (the 128B swizzle span)
+constexpr int BOX_BYTES = 64 * KBOX;  // 64 rows (queries, or one step's rows) x 128 B
+constexpr int COL_BYTES = TPS * LG * 4;   // one row column of a step: 8 tiles x 8 lanes
+constexpr int COLS_BYTES = 4 * COL_BYTES;  // scale, court word, court bit, date
+constexpr int MAX_STAGES = 6;
+constexpr int SCORERS = 128;          // the wgmma warpgroup
+constexpr int UPDATERS = QT * LG;     // one thread per (query, lane) list
+constexpr int WG_THREADS = SCORERS + 32 + UPDATERS;
+constexpr int SROW = TPS * LG + 8;    // words per query row of the product buffer (padded)
+constexpr int SCORE_BYTES = QT * SROW * 4 + COLS_BYTES;  // products, then the row columns
+constexpr int NBUF = 2;               // score buffers between the scorers and the updaters
+constexpr int SMEM_LIMIT = 232448;
+
+// ---------------------------------------------------------------------------
+// PTX helpers: shared addresses, mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed (the
+// loop inside the asm, so the compiler sees no divergent branch).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      "WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// TMA boxes into shared memory, their bytes counted on `bar`
+// (coordinates innermost first, in elements).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major operand in the 128B swizzle
+// layout TMA wrote: rows of 128 bytes, 8-row groups 1024 bytes apart.
+// Advancing the start address by 32 bytes steps one k32 slice along K.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Named barriers 1 to 2 NBUF between the scorers and the list updaters.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving accumulator accesses across the
+// asynchronous products.
+__device__ __forceinline__ void fence_regs(int (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// D[64 x 64] (+)= A[64 x 32] . B[64 x 32]^T, int8 operands in shared
+// memory, int32 accumulators; `accumulate` = 0 overwrites D.
+__device__ __forceinline__ void mma_64x64x32(int (&d)[32], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// ---------------------------------------------------------------------------
+// wgmma variant
+// ---------------------------------------------------------------------------
+
+// Ring stages that fit beside the query tile (0: the width does not fit).
+__host__ __device__ inline int wgmma_stages(int D) {
+  const int kb = (D + KBOX - 1) / KBOX;
+  const int fixed = 1024 /* alignment */ + 256 /* barriers */ + kb * BOX_BYTES + NBUF * SCORE_BYTES;
+  const int s = (SMEM_LIMIT - fixed) / (kb * BOX_BYTES + COLS_BYTES);
+  return s < 2 ? 0 : (s > MAX_STAGES ? MAX_STAGES : s);
+}
+
+__host__ __device__ inline size_t wgmma_smem_bytes(int D, int stages) {
+  const int kb = (D + KBOX - 1) / KBOX;
+  return 1024 + 256 + (size_t)kb * BOX_BYTES + NBUF * SCORE_BYTES +
+         (size_t)stages * (kb * BOX_BYTES + COLS_BYTES);
+}
+
+// One step's products into `acc`: the query tile times the 64 rows of
+// ring stage `stage`.
+__device__ __forceinline__ void issue_step(int (&acc)[32], uint32_t q_base, uint32_t stage,
+                                           int ksteps) {
+  wgmma_fence();
+  fence_regs(acc);
+  for (int k = 0; k < ksteps; ++k) {
+    const uint32_t off = (k >> 2) * BOX_BYTES + (k & 3) * 32;
+    mma_64x64x32(acc, sw128_desc(q_base + off), sw128_desc(stage + off), k > 0);
+  }
+  wgmma_commit();
+}
+
+// One step's accumulators (raw int32; the list updaters scale and filter
+// them) and its row columns into score buffer it % NBUF, once the updaters
+// have read the step that used the buffer before. `cols` is the step's
+// ring stage of columns, of which `ncols` are loaded.
+__device__ __forceinline__ void dump_step(const int (&acc)[32], int* __restrict__ sbuf,
+                                          const unsigned char* cols, int ncols, int it, int warp,
+                                          int lane) {
+  if (it >= NBUF) named_bar_sync(1 + NBUF + it % NBUF, SCORERS + UPDATERS);
+  int* buf = sbuf + (it % NBUF) * (SCORE_BYTES / 4);
+  int* out = buf + (16 * warp + lane / 4) * SROW + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < TPS; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<int2*>(out + 8 * h * SROW + j * LG) =
+          make_int2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+  const int t = 32 * warp + lane;  // 8 bytes of the columns a thread
+  if (t * 8 < ncols * COL_BYTES)
+    reinterpret_cast<int2*>(buf + QT * SROW)[t] = reinterpret_cast<const int2*>(cols)[t];
+  named_bar_arrive(1 + it % NBUF, SCORERS + UPDATERS);
+}
+
+template <int TM>
+__global__ void __launch_bounds__(WG_THREADS, 1) fused_scan_wgmma(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap cmap,
+    const __grid_constant__ CUtensorMap smap, const __grid_constant__ CUtensorMap wmap,
+    const __grid_constant__ CUtensorMap bmap, const __grid_constant__ CUtensorMap dmap,
+    const float* __restrict__ qscale, const int32_t* __restrict__ qwords,
+    const float* __restrict__ qdlo, const float* __restrict__ qdhi,
+    const float* __restrict__ qmins, float* __restrict__ out_v, int32_t* __restrict__ out_i,
+    int B, int D, int N, int W, int use_date, int T, int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const int kb = (D + KBOX - 1) / KBOX;
+  const int ksteps = (D + 31) / 32;
+  const uint32_t step_bytes = kb * BOX_BYTES;
+  const uint32_t q_base = base;                          // [kb][64 queries][128 B]
+  const uint32_t c_base = q_base + step_bytes;           // [stages][kb][64 rows][128 B]
+  const uint32_t s_base = c_base + stages * step_bytes;  // [stages][4 columns][8 tiles][8 lanes]
+  const uint32_t f_base = s_base + stages * COLS_BYTES;  // [NBUF] products and columns
+  const uint32_t bars = f_base + NBUF * SCORE_BYTES;     // full[s], empty[s], query
+  const uint32_t qbar = bars + 16 * stages;
+  const unsigned char* cols_generic = smem_raw + (s_base - raw);
+  int* sbuf = reinterpret_cast<int*>(smem_raw + (f_base - raw));
+  const bool filtered = W > 0 || use_date;
+
+  const int tid = threadIdx.x;
+  // the role broadcast from lane 0, so the compiler sees it warp-uniform
+  // and keeps the wgmma code on a convergent path
+  const int role = __shfl_sync(0xffffffffu, tid < SCORERS ? 0 : tid < SCORERS + 32 ? 1 : 2, 0);
+  const int b0 = blockIdx.x * QT;
+  const int l0 = blockIdx.y * LG;
+  const int nj = N / TSS_LANES;
+  const int nsteps = (nj + TPS - 1) / TPS;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(bars + 8 * s, 1);  // full: the loader's arrival + bytes
+      mbar_init(bars + 8 * (stages + s), SCORERS / 32);  // empty: one per scorer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (role == 1) {
+    // loader: the query tile once, then every step of this lane group
+    if (tid == SCORERS) {
+      mbar_expect_tx(qbar, step_bytes);
+      for (int c = 0; c < kb; ++c) tma_load_2d(q_base + c * BOX_BYTES, &qmap, qbar, c * KBOX, b0);
+      for (int it = 0; it < nsteps; ++it) {
+        const int s = it % stages;
+        if (it >= stages) mbar_wait(bars + 8 * (stages + s), ((it / stages) & 1) ^ 1);
+        const uint32_t full = bars + 8 * s;
+        const uint32_t cols = s_base + s * COLS_BYTES;
+        mbar_expect_tx(full, step_bytes + (filtered ? COLS_BYTES : COL_BYTES));
+        for (int c = 0; c < kb; ++c)
+          tma_load_3d(c_base + s * step_bytes + c * BOX_BYTES, &cmap, full, c * KBOX, l0,
+                      it * TPS);
+        tma_load_2d(cols, &smap, full, l0, it * TPS);
+        if (filtered) {
+          tma_load_2d(cols + COL_BYTES, &wmap, full, l0, it * TPS);
+          tma_load_2d(cols + 2 * COL_BYTES, &bmap, full, l0, it * TPS);
+          tma_load_2d(cols + 3 * COL_BYTES, &dmap, full, l0, it * TPS);
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  if (role == 2) {
+    // list updaters: thread u keeps the list of query u / 8, lane l0 + u % 8;
+    // per step it scales its 8 products, drops filtered rows to -inf and
+    // bubbles the scores in row order (strict '>', as selects)
+    const int u = tid - SCORERS - 32;
+    const int q = u / LG, l = u % LG;
+    const int b = b0 + q;
+    const bool ok = b < B;
+    const float qs = ok ? qscale[b] : 0.0f;
+    const float mins = ok ? qmins[b] : __int_as_float(0x7f800000);  // past the batch: none
+    const float lo = ok ? qdlo[b] : 0.0f, hi = ok ? qdhi[b] : 0.0f;
+    const int32_t* words = qwords + (size_t)(ok ? b : 0) * W;
+    // T itself where the instantiation is exact (TM <= 5), so the slot
+    // tests fold away
+    const int Tk = TM <= 5 ? TM : T;
+    float lv[TM], tail = tss_neg_inf();  // slots t >= T stay -inf; tail is slot T - 1
+    int li[TM];
+#pragma unroll
+    for (int t = 0; t < TM; ++t) {
+      lv[t] = tss_neg_inf();
+      li[t] = -1;
+    }
+    for (int it = 0; it < nsteps; ++it) {
+      const int buf = it % NBUF;
+      named_bar_sync(1 + buf, SCORERS + UPDATERS);  // the step's products written
+      const int* a = sbuf + buf * (SCORE_BYTES / 4) + q * SROW + l;
+      const float* cols = reinterpret_cast<const float*>(sbuf + buf * (SCORE_BYTES / 4) + QT * SROW) + l;
+      // the step's 8 scores of this list, -inf where a filter or the
+      // threshold drops the row (one uniform branch a step; the filter
+      // tests have no branch: the court word load is always in bounds)
+      float v[TPS];
+#pragma unroll
+      for (int j = 0; j < TPS; ++j)
+        v[j] = __fmul_rn(__fmul_rn(__int2float_rn(a[j * LG]), qs), cols[j * LG]);
+      if (filtered) {
+#pragma unroll
+        for (int j = 0; j < TPS; ++j) {
+          const int cw = __float_as_int(cols[COL_BYTES / 4 + j * LG]);
+          const int cb = __float_as_int(cols[2 * COL_BYTES / 4 + j * LG]);
+          const float dt = cols[3 * COL_BYTES / 4 + j * LG];
+          const bool in = (unsigned)cw < (unsigned)W;
+          const bool court = (W == 0) | (in & ((__ldg(words + (in ? cw : 0)) & cb) != 0));
+          const bool date = !use_date | ((dt >= lo) & (dt <= hi));
+          v[j] = (v[j] >= mins) & court & date ? v[j] : tss_neg_inf();
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < TPS; ++j) v[j] = v[j] >= mins ? v[j] : tss_neg_inf();
+      }
+      if (it + NBUF < nsteps) named_bar_arrive(1 + NBUF + buf, SCORERS + UPDATERS);  // buffer read
+      // which of the step's tiles can change some list of the warp: the
+      // tail only rises within the step, so its value now decides (warp
+      // votes, so every branch below is uniform)
+      const int ntile = min(TPS, nj - it * TPS);
+      unsigned enter = 0;
+#pragma unroll
+      for (int j = 0; j < TPS; ++j)
+        enter |= (__any_sync(0xffffffffu, j < ntile && v[j] > tail) ? 1u : 0u) << j;
+#pragma unroll
+      for (int j = 0; j < TPS; ++j) {
+        if (enter >> j & 1u) {
+          float x = v[j];
+          int r = (it * TPS + j) * TSS_LANES + l0 + l;
+          // the new tail, slot T - 1, as the least of the first T slots (the
+          // list is sorted; a signed zero is equal either way in a '>' test)
+          tail = __int_as_float(0x7f800000);
+#pragma unroll
+          for (int t = 0; t < TM; ++t) {
+            const bool p = x > lv[t] && t < Tk;
+            const float cv = lv[t];
+            const int ci = li[t];
+            lv[t] = p ? x : cv;
+            li[t] = p ? r : ci;
+            x = p ? cv : x;
+            r = p ? ci : r;
+            if (t < Tk) tail = fminf(tail, lv[t]);
+          }
+        }
+      }
+    }
+    if (ok) {
+#pragma unroll
+      for (int t = 0; t < TM; ++t) {
+        if (t < Tk) {
+          const size_t o = ((size_t)b * T + t) * TSS_LANES + l0 + l;
+          out_v[o] = lv[t];
+          out_i[o] = li[t];
+        }
+      }
+    }
+    return;
+  }
+
+  // scorers (warpgroup 0): the products on the tensor cores, written out
+  // raw for the updaters
+  int acc[32] = {};
+  mbar_wait(qbar, 0);
+  for (int it = 0; it < nsteps; ++it) {
+    const int s = it % stages;
+    mbar_wait(bars + 8 * s, (it / stages) & 1);
+    issue_step(acc, q_base, c_base + s * step_bytes, ksteps);
+    wgmma_wait_all();
+    fence_regs(acc);
+    dump_step(acc, sbuf, cols_generic + s * COLS_BYTES, filtered ? 4 : 1, it, warp, lane);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (stages + s));  // products and columns taken
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dp4a variant: one block of 128 threads per 8-query tile; thread l walks
+// lane l's rows in order (16-byte loads) and keeps each query's lane list
+// in shared memory, the 8 queries read from shared memory as broadcasts.
+// ---------------------------------------------------------------------------
+
+__global__ void fused_scan_dp4a(
     const int8_t* __restrict__ q8, const float* __restrict__ qscale,
     const int32_t* __restrict__ qwords, const float* __restrict__ qdlo,
     const float* __restrict__ qdhi, const float* __restrict__ qmins,
     const int8_t* __restrict__ corpus, const float* __restrict__ cscale,
     const int32_t* __restrict__ cword, const int32_t* __restrict__ cbit,
-    const float* __restrict__ cdate, float* __restrict__ part_v,
-    int32_t* __restrict__ part_i, int B, int D, int N, int W, int use_date,
-    int T, int rows_per_range) {
+    const float* __restrict__ cdate, float* __restrict__ out_v,
+    int32_t* __restrict__ out_i, int B, int D, int N, int W, int use_date, int T) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int dw = D / 16;
-  int4* qs = reinterpret_cast<int4*>(smem);                 // [QB][dw]
-  float* lv = reinterpret_cast<float*>(smem + QB * D);      // [QB][T][128]
-  int32_t* li = reinterpret_cast<int32_t*>(lv + QB * T * TSS_LANES);
+  int4* qs = reinterpret_cast<int4*>(smem);                   // [QB][dw]
+  float* lv = reinterpret_cast<float*>(smem + DP4A_QB * D);   // [QB][T][128]
+  int32_t* li = reinterpret_cast<int32_t*>(lv + DP4A_QB * T * TSS_LANES);
 
   const int lane = threadIdx.x;
-  const int b0 = blockIdx.x * QB;
-  const int nq = min(QB, B - b0);
-  const int range = blockIdx.y;
+  const int b0 = blockIdx.x * DP4A_QB;
+  const int nq = min(DP4A_QB, B - b0);
 
-  for (int x = lane; x < QB * dw; x += TSS_LANES) {
+  for (int x = lane; x < DP4A_QB * dw; x += TSS_LANES) {
     const int q = x / dw, c = x % dw;
     qs[x] = q < nq
         ? reinterpret_cast<const int4*>(q8 + (size_t)(b0 + q) * D)[c]
         : make_int4(0, 0, 0, 0);
   }
-  for (int x = 0; x < QB * T; ++x) {
+  for (int x = 0; x < DP4A_QB * T; ++x) {
     lv[x * TSS_LANES + lane] = tss_neg_inf();
     li[x * TSS_LANES + lane] = -1;
   }
   __syncthreads();
 
-  const int nj = N / TSS_LANES;
-  const int j0 = range * rows_per_range;
-  const int j1 = min(j0 + rows_per_range, nj);
-  for (int j = j0; j < j1; ++j) {
+  for (int j = 0; j < N / TSS_LANES; ++j) {
     const long long row = (long long)j * TSS_LANES + lane;
     const int4* rp = reinterpret_cast<const int4*>(corpus + row * D);
-    int acc[QB];
+    int acc[DP4A_QB];
 #pragma unroll
-    for (int q = 0; q < QB; ++q) acc[q] = 0;
+    for (int q = 0; q < DP4A_QB; ++q) acc[q] = 0;
     for (int c = 0; c < dw; ++c) {
       const int4 r = __ldg(rp + c);
 #pragma unroll
-      for (int q = 0; q < QB; ++q) acc[q] = tss_dot16(r, qs[q * dw + c], acc[q]);
+      for (int q = 0; q < DP4A_QB; ++q) acc[q] = tss_dot16(r, qs[q * dw + c], acc[q]);
     }
     const float rs = cscale[row];
     const int cw = W ? cword[row] : 0;
     const int cb = W ? cbit[row] : 0;
     const float dt = use_date ? cdate[row] : 0.0f;
 #pragma unroll
-    for (int q = 0; q < QB; ++q) {
+    for (int q = 0; q < DP4A_QB; ++q) {
       if (q >= nq) break;
       const int b = b0 + q;
       float s = __fmul_rn(__fmul_rn(__int2float_rn(acc[q]), qscale[b]), rs);
@@ -111,81 +514,151 @@ __global__ void fused_scan_ranges(
 
   for (int q = 0; q < nq; ++q) {
     for (int t = 0; t < T; ++t) {
-      const size_t o = (((size_t)range * B + b0 + q) * T + t) * TSS_LANES + lane;
-      part_v[o] = lv[(q * T + t) * TSS_LANES + lane];
-      part_i[o] = li[(q * T + t) * TSS_LANES + lane];
+      const size_t o = ((size_t)(b0 + q) * T + t) * TSS_LANES + lane;
+      out_v[o] = lv[(q * T + t) * TSS_LANES + lane];
+      out_i[o] = li[(q * T + t) * TSS_LANES + lane];
     }
   }
 }
 
-// Merge the per-range lane lists in range order (= ascending rows), with
-// the same strict '>' insert: ties keep the earlier, lower row.
-__global__ void fused_scan_merge(const float* __restrict__ part_v,
-                                 const int32_t* __restrict__ part_i,
-                                 float* __restrict__ out_v,
-                                 int32_t* __restrict__ out_i, int B, int T,
-                                 int n_ranges) {
-  const int b = blockIdx.x, lane = threadIdx.x;
-  float v[MAX_T];
-  int ix[MAX_T];
-  for (int t = 0; t < T; ++t) {
-    v[t] = tss_neg_inf();
-    ix[t] = -1;
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
   }
-  for (int c = 0; c < n_ranges; ++c) {
-    for (int u = 0; u < T; ++u) {
-      const size_t o = (((size_t)c * B + b) * T + u) * TSS_LANES + lane;
-      float s = part_v[o];
-      // each range list is sorted, so the rest of it cannot enter either
-      if (!(s > v[T - 1])) break;
-      int r = part_i[o];
-      for (int t = 0; t < T; ++t) {
-        if (s > v[t]) {
-          const float cv = v[t];
-          const int ci = ix[t];
-          v[t] = s;
-          ix[t] = r;
-          s = cv;
-          r = ci;
-        }
-      }
-    }
-  }
-  for (int t = 0; t < T; ++t) {
-    out_v[((size_t)b * T + t) * TSS_LANES + lane] = v[t];
-    out_i[((size_t)b * T + t) * TSS_LANES + lane] = ix[t];
-  }
+  return fn;
+}
+
+// A tensor map: `rank` dims innermost first, strides (bytes) of dims 1..,
+// box in elements; zeros past every edge.
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
+              const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+              CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn != nullptr &&
+         fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct ScanArgs {
+  const float* qscale;
+  const int32_t* qwords;
+  const float *qdlo, *qdhi, *qmins;
+  float* out_v;
+  int32_t* out_i;
+  int B, D, N, W, use_date, T;
+};
+
+template <int TM>
+cudaError_t launch_wgmma(const CUtensorMap (&maps)[6], const ScanArgs& a, cudaStream_t st) {
+  const int stages = wgmma_stages(a.D);
+  const size_t smem = wgmma_smem_bytes(a.D, stages);
+  auto kernel = fused_scan_wgmma<TM>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.B + QT - 1) / QT, TSS_LANES / LG);
+  kernel<<<grid, WG_THREADS, smem, st>>>(maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
+                                         a.qscale, a.qwords, a.qdlo, a.qdhi, a.qmins, a.out_v,
+                                         a.out_i, a.B, a.D, a.N, a.W, a.use_date, a.T, stages);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared memory one block of fused_scan_ranges needs.
-extern "C" size_t tss_fused_scan_smem_bytes(int D, int T) {
-  return (size_t)QB * D + (size_t)QB * T * TSS_LANES * 8;
-}
-
-// part_v/part_i: [n_ranges, B, T, 128] scratch; out_v/out_i: [B, T*128]
-// with element (b, t*128 + l) the t-th best row of lane l.
-extern "C" int tss_fused_scan(
+// out_v/out_i: [B, T*128] with element (b, t*128 + l) slot t of lane l's
+// list. Grid (ceil(B / 64), 16). Returns a cudaError_t, or 1000 when a TMA
+// tensor map could not be made.
+extern "C" int tss_fused_scan_wgmma(
     const int8_t* q8, const float* qscale, const int32_t* qwords,
     const float* qdlo, const float* qdhi, const float* qmins,
     const int8_t* corpus, const float* cscale, const int32_t* cword,
-    const int32_t* cbit, const float* cdate, float* part_v, int32_t* part_i,
-    float* out_v, int32_t* out_i, int B, int D, int N, int W, int use_date,
-    int T, int n_ranges, int rows_per_range, void* stream) {
+    const int32_t* cbit, const float* cdate, float* out_v, int32_t* out_i,
+    int B, int D, int N, int W, int use_date, int T, void* stream) {
+  const void* cols[4] = {cscale, cword, cbit, cdate};
+  bool aligned = reinterpret_cast<uintptr_t>(q8) % 16 == 0 &&
+                 reinterpret_cast<uintptr_t>(corpus) % 16 == 0;
+  for (const void* c : cols) aligned = aligned && reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  if (T < 1 || T > WG_MAX_T || D % 16 || D > WG_MAX_D || N % TSS_LANES || N < TSS_LANES ||
+      B < 1 || !aligned)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nj = N / TSS_LANES;
+  // queries [B, D]; rows as [tiles, 128 lanes, D]; row columns as [tiles, 128]
+  const cuuint64_t qdims[2] = {(cuuint64_t)D, (cuuint64_t)B}, qstr[1] = {(cuuint64_t)D};
+  const cuuint32_t qbox[2] = {KBOX, QT};
+  const cuuint64_t cdims[3] = {(cuuint64_t)D, TSS_LANES, (cuuint64_t)nj};
+  const cuuint64_t cstr[2] = {(cuuint64_t)D, (cuuint64_t)D * TSS_LANES};
+  const cuuint32_t cbox[3] = {KBOX, LG, TPS};
+  const cuuint64_t sdims[2] = {TSS_LANES, (cuuint64_t)nj}, sstr[1] = {TSS_LANES * 4};
+  const cuuint32_t sbox[2] = {LG, TPS};
+  const CUtensorMapDataType col_type[4] = {
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_DATA_TYPE_INT32,
+      CU_TENSOR_MAP_DATA_TYPE_INT32, CU_TENSOR_MAP_DATA_TYPE_FLOAT32};
+  CUtensorMap maps[6];  // queries, rows, then scale, court word, court bit, date
+  bool ok = make_map(&maps[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q8, qdims, qstr, qbox,
+                     CU_TENSOR_MAP_SWIZZLE_128B) &&
+            make_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, corpus, cdims, cstr, cbox,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  for (int c = 0; c < 4; ++c)
+    ok = ok && make_map(&maps[2 + c], col_type[c], 2, cols[c], sdims, sstr, sbox,
+                        CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!ok) return 1000;
+  const ScanArgs a{qscale, qwords, qdlo, qdhi, qmins, out_v, out_i, B, D, N, W, use_date, T};
+  // list slots held: T itself for the engine's T = 2, 3, 5 (and 4), else
+  // the next of 8 and 16
+  switch (T) {
+    case 1:
+    case 2: return (int)launch_wgmma<2>(maps, a, st);
+    case 3: return (int)launch_wgmma<3>(maps, a, st);
+    case 4: return (int)launch_wgmma<4>(maps, a, st);
+    case 5: return (int)launch_wgmma<5>(maps, a, st);
+    default: return T <= 8 ? (int)launch_wgmma<8>(maps, a, st) : (int)launch_wgmma<16>(maps, a, st);
+  }
+}
+
+// Shared memory one block of the dp4a variant needs.
+extern "C" size_t tss_fused_scan_dp4a_smem_bytes(int D, int T) {
+  return (size_t)DP4A_QB * D + (size_t)DP4A_QB * T * TSS_LANES * 8;
+}
+
+// Same outputs as tss_fused_scan_wgmma; grid ceil(B / 8).
+extern "C" int tss_fused_scan_dp4a(
+    const int8_t* q8, const float* qscale, const int32_t* qwords,
+    const float* qdlo, const float* qdhi, const float* qmins,
+    const int8_t* corpus, const float* cscale, const int32_t* cword,
+    const int32_t* cbit, const float* cdate, float* out_v, int32_t* out_i,
+    int B, int D, int N, int W, int use_date, int T, void* stream) {
   if (T < 1 || T > MAX_T || D % 16 || N % TSS_LANES) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = tss_fused_scan_smem_bytes(D, T);
+  const size_t smem = tss_fused_scan_dp4a_smem_bytes(D, T);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_scan_ranges, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused_scan_dp4a, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((B + QB - 1) / QB, n_ranges);
-  fused_scan_ranges<<<grid, TSS_LANES, smem, st>>>(
+  fused_scan_dp4a<<<(B + DP4A_QB - 1) / DP4A_QB, TSS_LANES, smem, st>>>(
       q8, qscale, qwords, qdlo, qdhi, qmins, corpus, cscale, cword, cbit,
-      cdate, part_v, part_i, B, D, N, W, use_date, T, rows_per_range);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fused_scan_merge<<<B, TSS_LANES, 0, st>>>(part_v, part_i, out_v, out_i, B,
-                                           T, n_ranges);
+      cdate, out_v, out_i, B, D, N, W, use_date, T);
   return (int)cudaGetLastError();
 }

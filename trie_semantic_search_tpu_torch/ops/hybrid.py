@@ -36,6 +36,8 @@ from .scan_kernels import (
     TILE_N,
     court_word_bit,
     exact_float32,
+    fused_scan_query_inputs,
+    fused_scan_row_inputs,
     fused_scan_topk,
     gather_rescore_rows,
     pack_court_words,
@@ -260,13 +262,19 @@ def _chunked_semantic_scan(
     best_v = torch.full((B, ksem), _NEG_INF, device=dev)
     best_i = torch.full((B, ksem), -1, dtype=torch.int32, device=dev)
     scale = corpus_scale.reshape(N)
+    if slab_kernel:
+        # the kernel's inputs once per batch; each slab takes a row slice
+        query_inp = fused_scan_query_inputs(q_scale, court_table, date_lo, date_hi, min_similarity)
+        row_inp = fused_scan_row_inputs(chunk_court, chunk_date, scale)
     for c in range(num_chunks):
         lo, hi = c * S, (c + 1) * S
         if slab_kernel:
+            prepared = {**query_inp, **{n: t[lo:hi] for n, t in row_inp.items()}}
             v, i = fused_scan_topk(
                 q8, q_scale, corpus_q[lo:hi], scale[lo:hi], chunk_court[lo:hi],
                 chunk_date[lo:hi], court_table, date_lo, date_hi,
                 min_similarity, k=ksem, use_court=use_court, use_date=use_date,
+                prepared=prepared,
             )
             i = torch.clamp(i, min=0)
             if v.shape[1] < ksem:

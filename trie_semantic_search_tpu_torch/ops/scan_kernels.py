@@ -78,7 +78,10 @@ GATHER_SEG_BYTES = 1 << 31
 GATHER_ROW_ALIGN_LCM = 32
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
-LAUNCHES = {"int8_topk": 0, "fused_scan": 0, "probe_candidates": 0, "gather_rescore": 0}
+#: (``fused_scan`` is the fused scan's tensor-core variant,
+#: ``fused_scan_dp4a`` its variant for lane lists too long for it)
+LAUNCHES = {"int8_topk": 0, "fused_scan": 0, "fused_scan_dp4a": 0, "probe_candidates": 0,
+            "gather_rescore": 0}
 
 
 def reset_launch_counts() -> None:
@@ -197,10 +200,12 @@ class KernelLibrary:
         P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
         self.lib.tss_int8_topk.argtypes = [P] * 9 + [I] * 6 + [P]
         self.lib.tss_int8_topk.restype = I
-        self.lib.tss_fused_scan.argtypes = [P] * 15 + [I] * 8 + [P]
-        self.lib.tss_fused_scan.restype = I
-        self.lib.tss_fused_scan_smem_bytes.argtypes = [I, I]
-        self.lib.tss_fused_scan_smem_bytes.restype = S
+        self.lib.tss_fused_scan_wgmma.argtypes = [P] * 13 + [I] * 6 + [P]
+        self.lib.tss_fused_scan_wgmma.restype = I
+        self.lib.tss_fused_scan_dp4a.argtypes = [P] * 13 + [I] * 6 + [P]
+        self.lib.tss_fused_scan_dp4a.restype = I
+        self.lib.tss_fused_scan_dp4a_smem_bytes.argtypes = [I, I]
+        self.lib.tss_fused_scan_dp4a_smem_bytes.restype = S
         self.lib.tss_probe_candidates.argtypes = [P] * 15 + [I] * 6 + [P]
         self.lib.tss_probe_candidates.restype = I
         self.lib.tss_gather_rescore.argtypes = [P, P, P, I, P, P, I, I, I, P]
@@ -465,8 +470,13 @@ def fused_scan_plain(
     """Plain version of the fused-scan kernel on the prepared inputs
     (``q_scale/dlo/dhi/mins [B]`` f32, ``qwords [B, W]`` int32,
     ``corpus_scale/cdate [N]`` f32, ``cword/cbit [N]`` int32) →
-    ``([B, T*lanes] values, rows)``, element ``t*lanes + l`` the t-th best
-    row of lane ``l`` by (score desc, row asc); dead ``(-inf, -1)``."""
+    ``([B, T*lanes] values, rows)``, element ``t*lanes + l`` slot t of lane
+    ``l``'s list; dead ``(-inf, -1)``.
+
+    The TPU kernel's list update, row block by row block: each lane's
+    scores bubble in ascending row order into T slots with a strict ``>``.
+    It is not a top-T by (score desc, row asc): a tied entry carried down
+    by a higher score does not pass its equal, so the lower row drops."""
     exact_float32()
     B = q8.shape[0]
     N = corpus_q.shape[0]
@@ -482,13 +492,32 @@ def fused_scan_plain(
         keep &= (cdate.reshape(1, N) >= dlo.reshape(B, 1)) & (
             cdate.reshape(1, N) <= dhi.reshape(B, 1)
         )
-    s = torch.where(keep, s, torch.full_like(s, -float("inf")))
-    neg, order = torch.sort(-s.reshape(B, N // lanes, lanes), dim=1, stable=True)
-    v = -neg[:, :n_keep]
-    lane = torch.arange(lanes, device=s.device)
-    rows = order[:, :n_keep] * lanes + lane
-    rows = torch.where(torch.isneginf(v), torch.full_like(rows, -1), rows)
-    return v.reshape(B, n_keep * lanes), rows.to(torch.int32).reshape(B, n_keep * lanes)
+    s = torch.where(keep, s, torch.full_like(s, -float("inf"))).reshape(B, N // lanes, lanes)
+    v = [torch.full((B, lanes), -float("inf"), device=s.device) for _ in range(n_keep)]
+    ix = [torch.full((B, lanes), -1, dtype=torch.int32, device=s.device) for _ in range(n_keep)]
+    lane = torch.arange(lanes, dtype=torch.int32, device=s.device).expand(B, lanes)
+    for j in range(N // lanes):
+        sj, rj = s[:, j], lane + j * lanes
+        for t in range(n_keep):
+            gt = sj > v[t]
+            v[t], sj = torch.where(gt, sj, v[t]), torch.where(gt, v[t], sj)
+            ix[t], rj = torch.where(gt, rj, ix[t]), torch.where(gt, ix[t], rj)
+    return torch.cat(v, dim=1), torch.cat(ix, dim=1)
+
+
+#: longest lane list (T) and widest row (D, bytes) the tensor-core
+#: variant of the fused scan takes; beyond either the dp4a variant runs
+FUSED_SCAN_WGMMA_MAX_T = 16
+FUSED_SCAN_WGMMA_MAX_D = 896
+
+
+def fused_scan_variant(D: int, n_keep: int) -> str:
+    """The CUDA fused scan's variant for rows of D bytes and lane lists of
+    length ``n_keep``: ``"wgmma"`` (tensor cores) up to 16 slots and 896
+    bytes, ``"dp4a"`` beyond either."""
+    if n_keep <= FUSED_SCAN_WGMMA_MAX_T and D <= FUSED_SCAN_WGMMA_MAX_D:
+        return "wgmma"
+    return "dp4a"
 
 
 def fused_scan_cuda(
@@ -496,7 +525,8 @@ def fused_scan_cuda(
     cbit, cdate, n_keep: int, use_court: bool, use_date: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/fused_scan.cu`` on the prepared inputs (same contract
-    as :func:`fused_scan_plain`, lanes fixed at 128)."""
+    as :func:`fused_scan_plain`, lanes fixed at 128), the variant
+    :func:`fused_scan_variant` picks."""
     dev = q8.device
     B, D = q8.shape
     N = corpus_q.shape[0]
@@ -512,31 +542,58 @@ def fused_scan_cuda(
     _check(cword, "cword", i32, (N,), dev)
     _check(cbit, "cbit", i32, (N,), dev)
     _check(cdate, "cdate", f32, (N,), dev)
-    if D % 16 or N % LANES:
-        raise ValueError(f"fused scan needs D % 16 == 0 and N % 128 == 0, got D={D} N={N}")
+    if D % 16 or N % LANES or not N or any(
+        t.data_ptr() % 16 for t in (q8, corpus_q, corpus_scale, cword, cbit, cdate)
+    ):
+        raise ValueError(f"fused scan needs D % 16 == 0, N % 128 == 0 and 16-byte aligned "
+                         f"rows and columns, got D={D} N={N}")
+    variant = fused_scan_variant(D, n_keep)
     lib = load_library()
-    smem = lib.lib.tss_fused_scan_smem_bytes(D, n_keep)
-    if smem > 232_448 or n_keep > 64:
+    if variant == "dp4a" and (
+        n_keep > 64 or lib.lib.tss_fused_scan_dp4a_smem_bytes(D, n_keep) > 232_448
+    ):
         raise ValueError(f"lane list length {n_keep} too long for the kernel")
-    nj = N // LANES
-    q_tiles = -(-B // 8)
-    n_ranges = max(1, min(nj, -(-1056 // q_tiles), 65535))
-    rows_per_range = -(-nj // n_ranges)
-    n_ranges = -(-nj // rows_per_range)
-    part_v = torch.empty((n_ranges, B, n_keep, LANES), dtype=f32, device=dev)
-    part_i = torch.empty((n_ranges, B, n_keep, LANES), dtype=i32, device=dev)
     out_v = torch.empty((B, n_keep * LANES), dtype=f32, device=dev)
     out_i = torch.empty((B, n_keep * LANES), dtype=i32, device=dev)
-    err = lib.lib.tss_fused_scan(
+    args = (
         _ptr(q8), _ptr(q_scale), _ptr(qwords), _ptr(dlo), _ptr(dhi), _ptr(mins),
         _ptr(corpus_q), _ptr(corpus_scale), _ptr(cword), _ptr(cbit), _ptr(cdate),
-        _ptr(part_v), _ptr(part_i), _ptr(out_v), _ptr(out_i),
-        B, D, N, W if use_court else 0, int(use_date), n_keep, n_ranges,
-        rows_per_range, _stream(dev),
+        _ptr(out_v), _ptr(out_i), B, D, N, W if use_court else 0, int(use_date), n_keep,
+        _stream(dev),
     )
-    _raise_on(err, "fused scan kernel")
-    LAUNCHES["fused_scan"] += 1
+    if variant == "wgmma":
+        _raise_on(lib.lib.tss_fused_scan_wgmma(*args), "fused scan kernel")
+        LAUNCHES["fused_scan"] += 1
+    else:
+        _raise_on(lib.lib.tss_fused_scan_dp4a(*args), "fused scan kernel (dp4a)")
+        LAUNCHES["fused_scan_dp4a"] += 1
     return out_v, out_i
+
+
+def fused_scan_query_inputs(q_scale, court_table, date_lo, date_hi, min_sim) -> dict:
+    """The kernel's per-query inputs (``q_scale, qwords, dlo, dhi, mins``)
+    from the serving arrays: the same for every slab of a batch."""
+    B = court_table.shape[0]
+    f32 = torch.float32
+    return dict(
+        q_scale=q_scale.to(f32).reshape(B).contiguous(),
+        qwords=pack_court_words(court_table).contiguous(),
+        dlo=date_lo.to(f32).reshape(B).contiguous(),
+        dhi=date_hi.to(f32).reshape(B).contiguous(),
+        mins=min_sim.to(f32).reshape(B).contiguous(),
+    )
+
+
+def fused_scan_row_inputs(chunk_court, chunk_date, corpus_scale) -> dict:
+    """The kernel's per-row inputs (``corpus_scale, cword, cbit, cdate``);
+    those of a row range are the same slice of those of the whole corpus."""
+    cword, cbit = court_word_bit(chunk_court)
+    return dict(
+        corpus_scale=corpus_scale.to(torch.float32).reshape(-1).contiguous(),
+        cword=cword.contiguous(),
+        cbit=cbit.contiguous(),
+        cdate=chunk_date.to(torch.float32).reshape(-1).contiguous(),
+    )
 
 
 def fused_scan_inputs(
@@ -545,20 +602,10 @@ def fused_scan_inputs(
 ) -> dict:
     """The kernel's per-query and per-row inputs from the serving arrays
     (the conversions the TPU wrapper does before its ``pallas_call``)."""
-    B = court_table.shape[0]
-    f32 = torch.float32
-    cword, cbit = court_word_bit(chunk_court)
-    return dict(
-        q_scale=q_scale.to(f32).reshape(B).contiguous(),
-        qwords=pack_court_words(court_table).contiguous(),
-        dlo=date_lo.to(f32).reshape(B).contiguous(),
-        dhi=date_hi.to(f32).reshape(B).contiguous(),
-        mins=min_sim.to(f32).reshape(B).contiguous(),
-        corpus_scale=corpus_scale.to(f32).reshape(-1).contiguous(),
-        cword=cword.contiguous(),
-        cbit=cbit.contiguous(),
-        cdate=chunk_date.to(f32).reshape(-1).contiguous(),
-    )
+    return {
+        **fused_scan_query_inputs(q_scale, court_table, date_lo, date_hi, min_sim),
+        **fused_scan_row_inputs(chunk_court, chunk_date, corpus_scale),
+    }
 
 
 def fused_scan_topk(
@@ -577,17 +624,22 @@ def fused_scan_topk(
     lanes: int = LANES,
     use_court: bool = True,
     use_date: bool = True,
+    prepared: Optional[dict] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Port of ``pallas_fused_topk``: filtered int8 scan → top-T per lane
     (kernel on CUDA, plain version on the CPU) → composite (score, row)
-    top-k. Returns ``(values, rows) [B, k]``, dead slots ``(-inf, -1)``."""
+    top-k. Returns ``(values, rows) [B, k]``, dead slots ``(-inf, -1)``.
+
+    ``prepared`` holds the kernel inputs already made from these arrays
+    (:func:`fused_scan_inputs`, or its query part for the batch and a
+    slice of its row part); the arrays it replaces are then not read."""
     N = corpus_q.shape[0]
     if tile_n is None:
         tile_n = auto_tile_n(N)
     if N % tile_n or tile_n % lanes:
         raise ValueError(f"N={N} must divide by tile_n={tile_n}, tile_n by lanes={lanes}")
     n_keep = fused_scan_n_keep(k, tile_n, lanes)
-    inp = fused_scan_inputs(
+    inp = prepared if prepared is not None else fused_scan_inputs(
         q_scale, chunk_court, chunk_date, court_table, date_lo, date_hi,
         min_sim, corpus_scale,
     )
