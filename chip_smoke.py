@@ -19,10 +19,19 @@ What it does, in order (any failure exits non-zero before the last line):
    seeded weights.
 4. Kernels: builds the CUDA kernels from ``csrc/`` and holds each
    against its plain PyTorch version on the card at the main path's shapes
-   (bitwise for the int8 kernels, 1e-5 for the bf16 rescore), timing
-   kernel and plain version with CUDA events beside the least time the
-   card could take (bytes over 3.35 TB/s or operations over the peak rate
-   of their type). The fused scan's tensor-core variant runs at T = 2, 3,
+   (bitwise for the int8 kernels, 1e-5 for the bf16 rescore). Each kernel
+   gets two times: its device time (``device_ms``, also ``ms``: the CUDA
+   time of the kernels its C entry point launched, summed by
+   ``torch.profiler`` over many calls and divided by their number, so no
+   Python is in it) and its call time (``call_ms``: CUDA events around
+   back-to-back calls of the wrapper, what a caller pays); beside them the
+   plain version's time (events) and the least time the card could take
+   (bytes over 3.35 TB/s or operations over the peak rate of their type).
+   The probe is held bitwise at B = 8, 64 and 256, at B=64 with court and
+   date filters, with all 64 queries sharing one probe list, with
+   duplicated partition ids in a row and with min_sim cutting live slots;
+   the rescore at B=8 and 64 with a row every query asks for and rows on
+   both sides of a segment boundary. The fused scan's tensor-core variant runs at T = 2, 3,
    5 and its dp4a variant at T = 17, each at B = 8, 100
    and 256, 16 and 40 courts, filters on and off, on one slab of the
    B=256 stream, plus lane ties, a short last step and D=80; then the dp4a
@@ -37,7 +46,8 @@ What it does, in order (any failure exits non-zero before the last line):
    overfetch 4, recall target 0.97, flat escalation 0.01): B=8 and B=64
    (probe), B=256 (stream) and a filtered B=64 batch. Every serving
    kernel's launch counter must be above 0 after this run; recall@10 is
-   reported against the port's own exact stream (recall target 1.0).
+   reported against the port's own exact stream (recall target 1.0), and
+   for each probe batch the distinct partitions its queries probe.
 6. Profile: each unfiltered batch once more under ``torch.profiler``:
    device time by kernel and the device's busy share.
 7. Engine: the 1,310,720 cases (names, citations, courts and dates of the
@@ -128,6 +138,8 @@ def bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
+    """What a caller pays for one call of ``fn``: CUDA events around
+    ``reps`` back-to-back calls, the wrapper's Python included."""
     fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -137,6 +149,50 @@ def cuda_ms(torch, fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+#: a fragment of the name of every CUDA kernel each wrapper's C entry
+#: point launches (the kernel rows of the ``kernels`` line)
+KERNEL_SYMBOLS = {"fused_scan": "fused_scan_wgmma", "fused_scan_dp4a": "fused_scan_dp4a",
+                  "probe_candidates": "probe_", "gather_rescore": "gather_rescore",
+                  "int8_topk": "int8_topk_"}
+
+
+def dev_us(e) -> float:
+    """Self device time (µs) of a profiler event, across torch versions."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def on_device(e) -> bool:
+    return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+
+def device_ms(torch, fn, reps: int, name: str) -> tuple[float, dict]:
+    """The kernel's own time for one call of ``fn``: under
+    ``torch.profiler``, the device time of every kernel that ``reps`` calls
+    launched, summed and divided by ``reps``. Python, the wrapper and the
+    launch path are not in it. Every device event of the window must be a
+    kernel whose name holds ``KERNEL_SYMBOLS[name]``. Returns the ms and,
+    per kernel, its launches and ms per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, kernels = 0.0, {}
+    for e in prof.key_averages():
+        if not on_device(e):
+            continue
+        if KERNEL_SYMBOLS[name] not in e.key:
+            raise AssertionError(f"{name}: device event {e.key!r} in its timing window")
+        total += dev_us(e)
+        kernels[e.key[:80]] = dict(per_call=e.count / reps, ms=dev_us(e) / 1e3 / reps)
+    if not kernels or total <= 0:
+        raise AssertionError(f"{name}: the profiler recorded no device time")
+    return total / 1e3 / reps, kernels
 
 
 # ---------------------------------------------------------------------------
@@ -433,25 +489,30 @@ def fused_scan_phase(torch, np, fused, vi, report):
     out = {}
     for name, T in (("fused_scan", 2), ("fused_scan_dp4a", 17)):
         qq, kw = args(256, 16, slab, slab_scale, columns[16], slab_date, T, False)
-        ms = cuda_ms(torch, lambda: sk.fused_scan_cuda(qq, **kw), 20 if T <= 16 else 3)
+        reps = 20 if T <= 16 else 3
+        dev, kernels = device_ms(torch, lambda: sk.fused_scan_cuda(qq, **kw), reps, name)
+        call = cuda_ms(torch, lambda: sk.fused_scan_cuda(qq, **kw), reps)
         plain_ms = cuda_ms(torch, lambda: sk.fused_scan_plain(qq, **kw), 1)
         nbytes = S * D + S * 4 + 256 * (D + 12) + 256 * T * 128 * 8
         b_ms, b_by = bound(nbytes, 2.0 * 256 * S * D, INT8_OPS)
         out[name] = dict(
             name=name, route="cuda", source="trie_semantic_search_tpu_torch/csrc/fused_scan.cu",
             replaces="trie_semantic_search_tpu/ops/pallas_scan.py:393",
-            max_abs_err=err["wgmma" if T <= 16 else "dp4a"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None, shape=f"B=256 slab={S}x{D} T={T} (unfiltered timed)",
+            max_abs_err=err["wgmma" if T <= 16 else "dp4a"], ms=dev, device_ms=dev, call_ms=call,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            device_kernels=kernels, shape=f"B=256 slab={S}x{D} T={T} (unfiltered timed)",
         )
-    out["fused_scan"]["ms_by_T"] = {}
+    out["fused_scan"]["device_ms_by_T"] = {}
     for T in (3, 5):
         qq, kw = args(256, 16, slab, slab_scale, columns[16], slab_date, T, False)
-        out["fused_scan"]["ms_by_T"][T] = cuda_ms(torch, lambda: sk.fused_scan_cuda(qq, **kw), 20)
+        out["fused_scan"]["device_ms_by_T"][T] = device_ms(
+            torch, lambda: sk.fused_scan_cuda(qq, **kw), 20, "fused_scan")[0]
     slab_t = slab.t()
     out["fused_scan"]["int_mm_ms"] = cuda_ms(torch, lambda: torch._int_mm(q8, slab_t), 20)
     report(out["fused_scan"])
-    log(f"    T=3 {out['fused_scan']['ms_by_T'][3]:.4f} ms, T=5 {out['fused_scan']['ms_by_T'][5]:.4f} ms; "
-        f"torch._int_mm of the same [256, {D}] x [{D}, {S}] product {out['fused_scan']['int_mm_ms']:.4f} ms")
+    by_t = out["fused_scan"]["device_ms_by_T"]
+    log(f"    device ms T=3 {by_t[3]:.4f}, T=5 {by_t[5]:.4f}; torch._int_mm of the same "
+        f"[256, {D}] x [{D}, {S}] product {out['fused_scan']['int_mm_ms']:.4f} ms (events)")
     report(out["fused_scan_dp4a"])
 
     sk.reset_launch_counts()
@@ -467,9 +528,21 @@ def fused_scan_phase(torch, np, fused, vi, report):
     return out, launches
 
 
+#: probe check cases: (name, B, filtered, how top_p / min_sim are changed)
+PROBE_CASES = (("B=8", 8, False, None), ("B=64", 64, False, None), ("B=256", 256, False, None),
+               ("B=64 court + date filters", 64, True, None),
+               ("B=64 all queries share query 0's probe list", 64, True, "shared"),
+               ("B=64 rows with a duplicated partition id", 64, True, "duplicate"),
+               ("B=64 min_sim at each query's median live score", 64, False, "min_sim"))
+#: the probe case that is timed (the filtered B=64 batch)
+PROBE_TIMED = "B=64 court + date filters"
+
+
 def kernel_phases(torch, np, fused, vi, report):
-    """Each kernel against its plain version on the card at the main path's
-    shapes; times kernel, plain version and bound."""
+    """The probe and rescore kernels against their plain versions on the
+    card at the main path's shapes (the probe bitwise in every case of
+    ``PROBE_CASES``, the rescore within 1e-5 at B=8 and B=64); times kernel
+    (device and call), plain version and bound."""
     from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
     from trie_semantic_search_tpu_torch.ops.hybrid import quantize_queries
     from trie_semantic_search_tpu_torch.ops.topk import exact_topk
@@ -486,51 +559,143 @@ def kernel_phases(torch, np, fused, vi, report):
     hi = torch.full((256,), 2**31 - 1, dtype=torch.int32, device=dev)
     lo[::2], hi[::2] = 0, 15000
     mins = torch.full((256,), 0.0, device=dev)
+    everything = dict(qwords=sk.pack_court_words(torch.ones_like(table)),
+                      lo=torch.full_like(lo, -(2**31)), hi=torch.full_like(hi, 2**31 - 1),
+                      mins=torch.full_like(mins, -1.0))
+    filtered = dict(qwords=sk.pack_court_words(table), lo=lo, hi=hi, mins=mins)
+    NP = int(ann.default_nprobe)
+    _, top_all = exact_topk(q @ ann.centroids.T, NP)
+    top_all = top_all.to(torch.int32)
+    q8, qs = quantize_queries(q)
+    pcw, pcb, pdt = fused._part_cols
     out = {}
 
-    # 2. probe: B=64 queries x nprobe probes, the serving columns
-    B = 64
-    NP = int(ann.default_nprobe)
-    qb = q[:B]
-    _, top_p = exact_topk(qb @ ann.centroids.T, NP)
-    q8b, qsb = quantize_queries(qb)
-    pcw, pcb, pdt = fused._part_cols
-    qwords = sk.pack_court_words(table[:B])
-    args = (q8b, qsb.reshape(B), top_p.to(torch.int32), ann.part_int8, ann.part_scale,
-            ann.part_rows, pcw, pcb, pdt, qwords, lo[:B], hi[:B], mins[:B])
-    kv, ks = sk.probe_candidates_cuda(*args)
+    def probe_args(B, filt, top_p, mins_b=None):
+        f = filtered if filt else everything
+        return (q8[:B], qs[:B].reshape(B), top_p.contiguous(), ann.part_int8, ann.part_scale,
+                ann.part_rows, pcw, pcb, pdt, f["qwords"][:B], f["lo"][:B], f["hi"][:B],
+                f["mins"][:B] if mins_b is None else mins_b)
+
+    def check_probe(what, args, want=None):
+        """The kernel against ``want`` (default: the plain version on the
+        same inputs), bitwise: values as int32 bits, and slots. Returns the
+        plain values and the largest difference of the live ones."""
+        kv, ks = sk.probe_candidates_cuda(*args)
+        pv, ps = want if want is not None else sk.probe_candidates_plain(*args)
+        torch.cuda.synchronize()
+        kv, ks = kv.view(pv.shape), ks.view(ps.shape)
+        bad = (kv.view(torch.int32) != pv.view(torch.int32)) | (ks != ps)
+        if bad.any():
+            raise AssertionError(f"probe kernel differs from plain ({what}): {int(bad.sum())} entries")
+        fin = torch.isfinite(pv)
+        return pv, float((kv[fin] - pv[fin]).abs().max()) if fin.any() else 0.0
+
+    # 2. probe: every case of PROBE_CASES, timed by device time
+    err, timed, by_case = 0.0, None, {}
+    for what, B, filt, change in PROBE_CASES:
+        top_p = top_all[:B].clone()
+        mins_b, extra = None, ""
+        if change == "shared":
+            top_p[:] = top_p[0]
+        elif change == "duplicate":
+            top_p[3, 1] = top_p[3, 0]
+            top_p[5, NP - 1] = top_p[5, 0]
+            top_p[7, 2:6] = top_p[7, 2]
+        elif change == "min_sim":
+            pv, _ = sk.probe_candidates_plain(*probe_args(B, filt, top_p))
+            live = torch.isfinite(pv)
+            mins_b = torch.where(live, pv, torch.full_like(pv, float("nan"))).nanmedian(dim=1).values
+            before = int(live.sum())
+        args = probe_args(B, filt, top_p, mins_b)
+        pv, e = check_probe(what, args)
+        err = max(err, e)
+        live = int(torch.isfinite(pv).sum())
+        if change == "min_sim":
+            if not 0 < live < before:
+                raise AssertionError(f"min_sim left {live} of {before} live entries")
+            extra = f", min_sim kept {live} of {before}"
+        uniq = int(torch.unique(top_p).numel())
+        by_case[what] = device_ms(torch, lambda: sk.probe_candidates_cuda(*args), 10, "probe_candidates")[0]
+        log(f"  probe {what}: bitwise equal to the plain version ({uniq} distinct partitions, "
+            f"{live} live entries{extra}); device {by_case[what]:.4f} ms")
+        if what == PROBE_TIMED:
+            timed = (B, args, uniq)
+
+    # the most pairs the serving paths let through (B=3072 at nprobe 64):
+    # 12 copies of the B=256 batch, each held against the B=256 plain result
+    args = probe_args(256, False, top_all[:256])
     pv, ps = sk.probe_candidates_plain(*args)
-    torch.cuda.synchronize()
-    if not (torch.equal(kv.view(torch.int32), pv.view(torch.int32)) and torch.equal(ks, ps)):
-        raise AssertionError("probe kernel differs from plain")
-    fin = torch.isfinite(pv)
-    err = float((kv[fin] - pv[fin]).abs().max()) if fin.any() else 0.0
-    ms = cuda_ms(torch, lambda: sk.probe_candidates_cuda(*args), 20)
+    per_query = (0, 1, 2, 9, 10, 11, 12)
+    big = tuple(a.repeat(12, *[1] * (a.dim() - 1)).contiguous() if i in per_query else a
+                for i, a in enumerate(args))
+    extra_cases = [("B=3072 (12 copies of the B=256 batch)", big,
+                    (pv.expand(12, *pv.shape), ps.expand(12, *ps.shape)))]
+    # rows of 80 bytes (one part-filled TMA box) and 400 bytes (four boxes,
+    # the last part-filled, and three stages) over 256 partitions
+    P2 = 256
+    for D2 in (80, 400):
+        cut = lambda a: (a[..., :D2] if D2 <= D else torch.cat([a, a[..., :D2 - D]], -1)).contiguous()  # noqa: E731
+        a2 = (cut(q8[:64]), qs[:64].reshape(64), (top_all[:64] % P2).to(torch.int32).contiguous(),
+              cut(ann.part_int8[:P2]), ann.part_scale[:P2], ann.part_rows[:P2], pcw[:P2], pcb[:P2],
+              pdt[:P2], filtered["qwords"][:64], lo[:64], hi[:64], mins[:64])
+        extra_cases.append((f"D={D2}, B=64 over {P2} partitions", a2, None))
+
+    # 16,384 partitions of 128 slots (one sub-block each; the plan then
+    # keeps its counts in device memory), D=32, random rows and probes
+    g3 = torch.Generator(device=dev).manual_seed(12)
+    P3, m3, D3 = 16384, 128, 32
+    rows3 = torch.arange(P3 * m3, dtype=torch.int32, device=dev).reshape(P3, m3)
+    a3 = (torch.randint(-127, 128, (64, D3), generator=g3, device=dev, dtype=torch.int8),
+          qs[:64].reshape(64), torch.randint(0, P3, (64, NP), generator=g3, device=dev, dtype=torch.int32),
+          torch.randint(-127, 128, (P3, m3, D3), generator=g3, device=dev, dtype=torch.int8),
+          torch.rand((P3, m3), generator=g3, device=dev) * 0.01 + 1e-3, rows3,
+          torch.zeros_like(rows3), torch.ones_like(rows3), torch.zeros_like(rows3),
+          everything["qwords"][:64], everything["lo"][:64], everything["hi"][:64], everything["mins"][:64])
+    extra_cases.append((f"P={P3} m={m3} D={D3}, B=64", a3, None))
+    for what, a, want in extra_cases:
+        err = max(err, check_probe(what, a, want)[1])
+        log(f"  probe {what}: bitwise equal to the plain version")
+
+    B, args, uniq = timed
+    dev_t, kernels = device_ms(torch, lambda: sk.probe_candidates_cuda(*args), 20, "probe_candidates")
+    call = cuda_ms(torch, lambda: sk.probe_candidates_cuda(*args), 20)
     plain_ms = cuda_ms(torch, lambda: sk.probe_candidates_plain(*args), 2)
-    uniq = int(torch.unique(top_p).numel())
     nbytes = uniq * m * (D + 4 * 5) + B * (D + 16 + 4 * NP) + B * NP * 256 * 8
     b_ms, b_by = bound(nbytes, 2.0 * B * NP * m * D, INT8_OPS)
     out["probe_candidates"] = dict(
         name="probe_candidates", route="cuda", source="trie_semantic_search_tpu_torch/csrc/probe.cu",
         replaces="trie_semantic_search_tpu/ops/pallas_scan.py:601", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"B={B} nprobe={NP} block={m}x{D} unique_partitions={uniq}",
+        ms=dev_t, device_ms=dev_t, call_ms=call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, device_kernels=kernels, device_ms_by_case=by_case,
+        shape=f"B={B} nprobe={NP} block={m}x{D} unique_partitions={uniq} (court + date filters)",
     )
     report(out["probe_candidates"])
 
-    # 3. gather rescore: B=64 x C=512 candidates (the probe's), in the
-    # bf16 segments; rows drawn from the probed partitions
+    # 3. gather rescore: B x C=512 candidates (the probe's), in the bf16
+    # segments; rows drawn from the probed partitions, plus one row every
+    # query asks for and the rows on both sides of the first segment's end
     C = K * serving_settings()[0] * 4
-    slots = torch.randint(0, m, (B, C), generator=g, device=dev)
-    idx = ann.part_rows[top_p[:, torch.arange(C, device=dev) % NP], slots].to(torch.int32)
-    idx = idx.contiguous()
-    kr = sk.gather_rescore_cuda(qb.contiguous(), ann.corpus_bf16, idx)
-    pr = sk.gather_rescore_plain(qb, ann.corpus_bf16, idx)
-    torch.cuda.synchronize()
-    err = float((kr - pr).abs().max())
-    if not err <= 1e-5:
-        raise AssertionError(f"gather rescore differs from plain by {err}")
-    ms = cuda_ms(torch, lambda: sk.gather_rescore_cuda(qb.contiguous(), ann.corpus_bf16, idx), 20)
+    seg0 = int(ann.corpus_bf16[0].shape[0])
+    err = 0.0
+    for B in (8, 64):
+        slots = torch.randint(0, m, (B, C), generator=g, device=dev)
+        idx = ann.part_rows[top_all[:B, torch.arange(C, device=dev) % NP].long(), slots].to(torch.int32)
+        idx[:, 0] = idx[0, 1]
+        if len(ann.corpus_bf16) > 1:
+            idx[::2, 2], idx[::2, 3] = seg0 - 1, seg0
+        idx = idx.contiguous()
+        qb = q[:B].contiguous()
+        kr = sk.gather_rescore_cuda(qb, ann.corpus_bf16, idx)
+        pr = sk.gather_rescore_plain(qb, ann.corpus_bf16, idx)
+        torch.cuda.synchronize()
+        e = float((kr - pr).abs().max())
+        if not e <= 1e-5:
+            raise AssertionError(f"gather rescore differs from plain by {e} at B={B}")
+        err = max(err, e)
+        log(f"  rescore B={B} C={C}: within {e:.3g} of the plain version")
+    dev_t, kernels = device_ms(torch, lambda: sk.gather_rescore_cuda(qb, ann.corpus_bf16, idx), 50,
+                               "gather_rescore")
+    call = cuda_ms(torch, lambda: sk.gather_rescore_cuda(qb, ann.corpus_bf16, idx), 50)
     plain_ms = cuda_ms(torch, lambda: sk.gather_rescore_plain(qb, ann.corpus_bf16, idx), 2)
     uniq = int(torch.unique(idx).numel())
     nbytes = uniq * D * 2 + B * D * 4 + B * C * 8
@@ -538,7 +703,8 @@ def kernel_phases(torch, np, fused, vi, report):
     out["gather_rescore"] = dict(
         name="gather_rescore", route="cuda", source="trie_semantic_search_tpu_torch/csrc/gather_rescore.cu",
         replaces="trie_semantic_search_tpu/ops/pallas_scan.py:796", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ms=dev_t, device_ms=dev_t, call_ms=call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, device_kernels=kernels,
         shape=f"B={B} C={C} D={D} segments={len(ann.corpus_bf16)} unique_rows={uniq}",
     )
     report(out["gather_rescore"])
@@ -628,7 +794,8 @@ def int8_topk_phase(torch, np, vi, report) -> dict:
     if not bitwise((kv, ki), (pv, pi)):
         bad = (kv.view(torch.int32) != pv.view(torch.int32)) | (ki != pi)
         raise AssertionError(f"int8 top-k differs from plain: {int(bad.sum())} of {bad.numel()} entries")
-    ms = cuda_ms(torch, lambda: sk.int8_topk_cuda(*args), 5)
+    dev, kernels = device_ms(torch, lambda: sk.int8_topk_cuda(*args), 5, "int8_topk")
+    call = cuda_ms(torch, lambda: sk.int8_topk_cuda(*args), 5)
     plain_ms = cuda_ms(torch, lambda: sk.int8_topk_plain(*args), 2)
     b_ms, b_by = bound(N * D + N * 4 + B * (D + 4) + B * K * 8, 2.0 * B * N * D, INT8_OPS)
 
@@ -643,8 +810,9 @@ def int8_topk_phase(torch, np, vi, report) -> dict:
     rec = dict(
         name="int8_topk", route="cuda", source="trie_semantic_search_tpu_torch/csrc/int8_topk.cu",
         replaces="trie_semantic_search_tpu/ops/pallas_scan.py:160", launches=launches["int8_topk"],
-        max_abs_err=float((kv - pv)[torch.isfinite(pv)].abs().max()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, shape=f"B={B} k={K} N={N} D={D}",
+        max_abs_err=float((kv - pv)[torch.isfinite(pv)].abs().max()), ms=dev, device_ms=dev,
+        call_ms=call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        device_kernels=kernels, shape=f"B={B} k={K} N={N} D={D}",
     )
     report(rec)
     return rec, launches
@@ -743,19 +911,19 @@ def profile_batches(torch, fused, vi, records, out_dir: Path) -> list[dict]:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         events = prof.key_averages()
-        dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(  # noqa: E731
-            e, "self_cuda_time_total", 0)
         # the device-side events themselves (kernels, copies, memsets): an
         # operator's device time repeats theirs, so only these are summed
-        on_dev = [e for e in events if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        on_dev = [e for e in events if on_device(e)]
         device_ms = sum(dev_us(e) for e in on_dev) / 1e3
         top = sorted(on_dev, key=dev_us, reverse=True)[:8]
         (out_dir / f"profile_B{B}.txt").write_text(
             events.table(sort_by="self_cuda_time_total", row_limit=25)
         )
-        scan_ms = sum(dev_us(e) for e in on_dev if "fused_scan" in e.key) / 1e3
+        kernel_ms = {k: sum(dev_us(e) for e in on_dev if KERNEL_SYMBOLS[k] in e.key) / 1e3
+                     for k in SERVING_KERNELS}
+        scan_ms = kernel_ms["fused_scan"]
         rows.append(dict(B=B, mode=rec["mode"], wall_ms=wall_ms, device_ms=device_ms,
-                         busy_share=device_ms / wall_ms, fused_scan_ms=scan_ms,
+                         busy_share=device_ms / wall_ms, kernel_ms=kernel_ms, fused_scan_ms=scan_ms,
                          fused_scan_share=scan_ms / device_ms if device_ms else 0.0,
                          top=[(e.key[:60], dev_us(e) / 1e3, e.count) for e in top]))
     return rows
@@ -991,8 +1159,9 @@ def run(torch, np, sk, seed: int, db_path: str, store, only_kernels: bool = Fals
         f"{len(vi.ann.corpus_bf16)} rescore segments, {detail['build_state_s']:.1f} s")
 
     def report(r):
-        log(f"  {r['name']}: {r['shape']} max_abs_err={r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms "
-            f"plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        log(f"  {r['name']}: {r['shape']} max_abs_err={r['max_abs_err']:.3g} device {r['device_ms']:.4f} ms "
+            f"call {r['call_ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); device kernels per call {r['device_kernels']}")
 
     log("phase: fused scan vs plain (both variants), then the dp4a variant's path fused_scan_topk "
         "at T=17 (counts reset just before)")
@@ -1022,21 +1191,33 @@ def run(torch, np, sk, seed: int, db_path: str, store, only_kernels: bool = Fals
         kernels[k]["launches"] = launches[k]
 
     log("phase: checks and recall@10 vs the exact stream")
+    from trie_semantic_search_tpu_torch.ops.topk import exact_topk
+
     detail["batches"] = []
+    uniq_kernel_phase = kernels["probe_candidates"]["shape"].split("unique_partitions=")[1].split()[0]
     for rec in records:
         r10 = check_and_recall(np, fused, rec)
         row = dict(B=rec["B"], filtered=rec["filtered"], mode=rec["mode"],
                    encode_ms=rec["encode_ms"], query_ms=rec["query_ms"], recall_at_10=r10)
+        probed = ""
+        if rec["mode"] == "probe":
+            # the partitions the batch's queries probe (as query_batch picks them)
+            qt = torch.as_tensor(rec["q"], dtype=torch.float32, device=dev)
+            _, top_p = exact_topk(qt @ vi.ann.centroids.T, int(vi.ann.default_nprobe))
+            row["distinct_partitions"] = int(torch.unique(top_p).numel())
+            probed = (f" distinct partitions probed {row['distinct_partitions']} of {top_p.numel()} "
+                      f"(kernel phase B=64: {uniq_kernel_phase})")
         detail["batches"].append(row)
         log(f"  B={rec['B']} {rec['mode']} filtered={rec['filtered']}: encode ms {rec['encode_ms']} "
-            f"query ms {rec['query_ms']} recall@10 vs exact {r10:.4f}")
+            f"query ms {rec['query_ms']} recall@10 vs exact {r10:.4f}{probed}")
     detail["escalated"] = fused.escalated
     log("phase: profile (device time by kernel)")
     detail["profile"] = profile_batches(torch, fused, vi, records, out_dir)
     for row in detail["profile"]:
         log(f"  B={row['B']} {row['mode']}: wall {row['wall_ms']:.2f} ms, device "
             f"{row['device_ms']:.2f} ms (busy {row['busy_share']:.3f}); fused scan "
-            f"{row['fused_scan_ms']:.3f} ms ({row['fused_scan_share']:.3f} of device time)")
+            f"{row['fused_scan_ms']:.3f} ms ({row['fused_scan_share']:.3f} of device time); "
+            f"serving kernels' device ms {row['kernel_ms']}")
         for name, ms, count in row["top"]:
             log(f"    {ms:9.3f} ms  x{count:<5} {name}")
 
@@ -1080,7 +1261,7 @@ def finish(torch, detail, kernels, paths, out_dir: Path, card: str, t_start: flo
     log(f"peak memory {detail['peak_mem_gb']:.1f} GiB; {detail['seconds']:.1f} s")
     log(f"gpu: {card}")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "device_ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys + ("int_mm_ms",) if k in rec} for rec in kernels.values()]}))
     print(json.dumps({"ok": True, "device": {

@@ -152,11 +152,28 @@ def _probe_data(B, D, P, m, NP, V, seed):
             hi, ms, top_p)
 
 
-@pytest.mark.parametrize("lanes,V", [(32, 16), (32, 40), (128, 70)])
-def test_probe_candidates_match_pallas(lanes, V):
-    B, D, P, m, NP = 4, 32, 8, 256, 4
+def _skewed_top_p(B, NP, P):
+    """Every query probes hot partition 1 (with equal scores inside),
+    query 0 probes it twice, and the all-pad partition 2 is probed."""
+    top_p = (np.arange(B * NP).reshape(B, NP) * 3 % P).astype(np.int32)
+    top_p[:, 0] = 1
+    top_p[0, 1] = 1
+    top_p[1:, 1] = 2
+    return top_p
+
+
+@pytest.mark.parametrize("lanes,V,m,skewed", [
+    (32, 16, 256, False), (32, 40, 256, False), (128, 70, 256, False),
+    # the serving geometry: m=1024 at 128 lanes, nb=8 sub-blocks, and a
+    # skewed, duplicated probe list
+    (128, 16, 1024, True), (128, 40, 1024, True),
+])
+def test_probe_candidates_match_pallas(lanes, V, m, skewed):
+    B, D, P, NP = 4, 32, 8, 4
     (q8, qs, pint8, pscale, prows, court, date, table, lo, hi, ms,
-     top_p) = _probe_data(B, D, P, m, NP, V, seed=lanes + V)
+     top_p) = _probe_data(B, D, P, m, NP, V, seed=lanes + V + m)
+    if skewed:
+        top_p = _skewed_top_p(B, NP, P)
     pcw, pcb, pdt = ps.partition_filter_columns(prows, court, date)
     jv, js = ps.pallas_probe_candidates(
         jnp.asarray(q8), jnp.asarray(qs), jnp.asarray(top_p),
@@ -174,6 +191,28 @@ def test_probe_candidates_match_pallas(lanes, V):
         tv.numpy().view(np.int32), np.asarray(jv).view(np.int32)
     )
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("B,NP,P,skew", [
+    (64, 64, 5120, "random"), (64, 64, 5120, "shared"), (3072, 64, 5120, "random"),
+    (3072, 64, 5120, "shared"), (5, 7, 3, "random"), (1, 1, 1, "shared"), (9, 16, 40, "one"),
+])
+def test_probe_scratch_holds_every_plan(B, NP, P, skew):
+    """The CUDA probe's scratch holds the groups its plan makes from any
+    probe list: per partition ceil(pairs / PROBE_GROUP), counted here with
+    numpy on random, shared and single-partition lists (duplicates
+    included), never more than probe_max_groups."""
+    rng = np.random.default_rng(B + NP + P)
+    top_p = rng.integers(0, P, (B, NP))
+    if skew == "shared":
+        top_p[:] = top_p[0]
+    elif skew == "one":
+        top_p[:] = P - 1
+    counts = np.bincount(top_p.ravel(), minlength=P)
+    groups = int((-(-counts // sk.PROBE_GROUP)).sum())
+    assert groups <= sk.probe_max_groups(B, NP, P)
+    if skew == "one":  # a single partition: exactly ceil(B*NP / G) groups
+        assert groups == -(-B * NP // sk.PROBE_GROUP)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

@@ -72,8 +72,6 @@
 // no partial lists, no merge kernel.
 #include "common.cuh"
 
-#include <cuda.h>  // CUtensorMap and its enums (header only; no libcuda link)
-
 namespace {
 
 constexpr int MAX_T = 64;       // longest lane list of the dp4a variant
@@ -98,25 +96,9 @@ constexpr int NBUF = 2;               // score buffers between the scorers and t
 constexpr int SMEM_LIMIT = 232448;
 
 // ---------------------------------------------------------------------------
-// PTX helpers: shared addresses, mbarriers, TMA, wgmma
+// PTX helpers: the barrier wait, 3-D TMA boxes, wgmma (the others in
+// common.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
 
 // Wait until the phase of parity `parity` of the barrier has completed (the
 // loop inside the asm, so the compiler sees no divergent branch).
@@ -130,17 +112,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
-// TMA boxes into shared memory, their bytes counted on `bar`
+// A 3-D TMA box into shared memory, its bytes counted on `bar`
 // (coordinates innermost first, in elements).
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int x, int y) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
-      : "memory");
-}
-
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int x, int y, int z) {
   asm volatile(
@@ -265,7 +238,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fused_scan_wgmma(
     const float* __restrict__ qmins, float* __restrict__ out_v, int32_t* __restrict__ out_i,
     int B, int D, int N, int W, int use_date, int T, int stages) {
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t raw = tss_smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const int kb = (D + KBOX - 1) / KBOX;
   const int ksteps = (D + 31) / 32;
@@ -291,10 +264,10 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fused_scan_wgmma(
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
-      mbar_init(bars + 8 * s, 1);  // full: the loader's arrival + bytes
-      mbar_init(bars + 8 * (stages + s), SCORERS / 32);  // empty: one per scorer warp
+      tss_mbar_init(bars + 8 * s, 1);  // full: the loader's arrival + bytes
+      tss_mbar_init(bars + 8 * (stages + s), SCORERS / 32);  // empty: one per scorer warp
     }
-    mbar_init(qbar, 1);
+    tss_mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -302,22 +275,22 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fused_scan_wgmma(
   if (role == 1) {
     // loader: the query tile once, then every step of this lane group
     if (tid == SCORERS) {
-      mbar_expect_tx(qbar, step_bytes);
-      for (int c = 0; c < kb; ++c) tma_load_2d(q_base + c * BOX_BYTES, &qmap, qbar, c * KBOX, b0);
+      tss_mbar_expect_tx(qbar, step_bytes);
+      for (int c = 0; c < kb; ++c) tss_tma_load_2d(q_base + c * BOX_BYTES, &qmap, qbar, c * KBOX, b0);
       for (int it = 0; it < nsteps; ++it) {
         const int s = it % stages;
         if (it >= stages) mbar_wait(bars + 8 * (stages + s), ((it / stages) & 1) ^ 1);
         const uint32_t full = bars + 8 * s;
         const uint32_t cols = s_base + s * COLS_BYTES;
-        mbar_expect_tx(full, step_bytes + (filtered ? COLS_BYTES : COL_BYTES));
+        tss_mbar_expect_tx(full, step_bytes + (filtered ? COLS_BYTES : COL_BYTES));
         for (int c = 0; c < kb; ++c)
           tma_load_3d(c_base + s * step_bytes + c * BOX_BYTES, &cmap, full, c * KBOX, l0,
                       it * TPS);
-        tma_load_2d(cols, &smap, full, l0, it * TPS);
+        tss_tma_load_2d(cols, &smap, full, l0, it * TPS);
         if (filtered) {
-          tma_load_2d(cols + COL_BYTES, &wmap, full, l0, it * TPS);
-          tma_load_2d(cols + 2 * COL_BYTES, &bmap, full, l0, it * TPS);
-          tma_load_2d(cols + 3 * COL_BYTES, &dmap, full, l0, it * TPS);
+          tss_tma_load_2d(cols + COL_BYTES, &wmap, full, l0, it * TPS);
+          tss_tma_load_2d(cols + 2 * COL_BYTES, &bmap, full, l0, it * TPS);
+          tss_tma_load_2d(cols + 3 * COL_BYTES, &dmap, full, l0, it * TPS);
         }
       }
     }
@@ -431,7 +404,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fused_scan_wgmma(
     fence_regs(acc);
     dump_step(acc, sbuf, cols_generic + s * COLS_BYTES, filtered ? 4 : 1, it, warp, lane);
     __syncwarp();
-    if (lane == 0) mbar_arrive(bars + 8 * (stages + s));  // products and columns taken
+    if (lane == 0) tss_mbar_arrive(bars + 8 * (stages + s));  // products and columns taken
   }
 }
 
@@ -525,43 +498,6 @@ __global__ void fused_scan_dp4a(
 // host side
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A tensor map: `rank` dims innermost first, strides (bytes) of dims 1..,
-// box in elements; zeros past every edge.
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
-              const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
-              CUtensorMapSwizzle swizzle) {
-  EncodeTiled fn = encode_tiled();
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn != nullptr &&
-         fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 struct ScanArgs {
   const float* qscale;
   const int32_t* qwords;
@@ -618,13 +554,13 @@ extern "C" int tss_fused_scan_wgmma(
       CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_DATA_TYPE_INT32,
       CU_TENSOR_MAP_DATA_TYPE_INT32, CU_TENSOR_MAP_DATA_TYPE_FLOAT32};
   CUtensorMap maps[6];  // queries, rows, then scale, court word, court bit, date
-  bool ok = make_map(&maps[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q8, qdims, qstr, qbox,
-                     CU_TENSOR_MAP_SWIZZLE_128B) &&
-            make_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, corpus, cdims, cstr, cbox,
-                     CU_TENSOR_MAP_SWIZZLE_128B);
+  bool ok = tss_make_map(&maps[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q8, qdims, qstr, qbox,
+                         CU_TENSOR_MAP_SWIZZLE_128B) &&
+            tss_make_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, corpus, cdims, cstr, cbox,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
   for (int c = 0; c < 4; ++c)
-    ok = ok && make_map(&maps[2 + c], col_type[c], 2, cols[c], sdims, sstr, sbox,
-                        CU_TENSOR_MAP_SWIZZLE_NONE);
+    ok = ok && tss_make_map(&maps[2 + c], col_type[c], 2, cols[c], sdims, sstr, sbox,
+                            CU_TENSOR_MAP_SWIZZLE_NONE);
   if (!ok) return 1000;
   const ScanArgs a{qscale, qwords, qdlo, qdhi, qmins, out_v, out_i, B, D, N, W, use_date, T};
   // list slots held: T itself for the engine's T = 2, 3, 5 (and 4), else

@@ -206,8 +206,12 @@ class KernelLibrary:
         self.lib.tss_fused_scan_dp4a.restype = I
         self.lib.tss_fused_scan_dp4a_smem_bytes.argtypes = [I, I]
         self.lib.tss_fused_scan_dp4a_smem_bytes.restype = S
-        self.lib.tss_probe_candidates.argtypes = [P] * 15 + [I] * 6 + [P]
+        self.lib.tss_probe_candidates.argtypes = [P] * 16 + [I] * 7 + [P]
         self.lib.tss_probe_candidates.restype = I
+        self.lib.tss_probe_group_size.argtypes = []
+        self.lib.tss_probe_group_size.restype = I
+        if self.lib.tss_probe_group_size() != PROBE_GROUP:
+            raise RuntimeError("csrc/probe.cu and PROBE_GROUP disagree on the work group size")
         self.lib.tss_gather_rescore.argtypes = [P, P, P, I, P, P, I, I, I, P]
         self.lib.tss_gather_rescore.restype = I
 
@@ -714,12 +718,34 @@ def probe_candidates_plain(
     return out_v.reshape(B, -1), out_s.reshape(B, -1)
 
 
+#: queries per work group of the CUDA probe (``G`` in ``csrc/probe.cu``)
+PROBE_GROUP = 8
+
+
+def probe_max_groups(B: int, NP: int, P: int) -> int:
+    """Most work groups the CUDA probe's plan can make from ``B*NP``
+    (query, probe) pairs over ``P`` partitions: a partition probed ``c``
+    times makes ``ceil(c/G) <= 1 + (c-1)//G`` groups (``G =``
+    :data:`PROBE_GROUP`), at most ``min(P, B*NP)`` partitions are probed
+    and the ``c - 1`` sum to at most ``B*NP``."""
+    n = B * NP
+    return min(P, n) + n // PROBE_GROUP
+
+
+def probe_scratch_ints(B: int, NP: int, P: int) -> int:
+    """int32 scratch of the CUDA probe: the groups (4 ints each), 4 ints
+    of counters, one count per partition and one entry per pair."""
+    return 4 * probe_max_groups(B, NP, P) + 4 + P + B * NP
+
+
 def probe_candidates_cuda(
     q8, q_scale, top_p, part_int8, part_scale, part_rows, part_cword,
     part_cbit, part_date, qwords, date_lo, date_hi, min_sim,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/probe.cu`` (same contract as
-    :func:`probe_candidates_plain`, lanes fixed at 128)."""
+    :func:`probe_candidates_plain`, lanes fixed at 128): one C call that
+    groups the pairs by partition on the card and scans each probed
+    partition once per group of up to :data:`PROBE_GROUP` of its queries."""
     dev = q8.device
     B, D = q8.shape
     NP = top_p.shape[1]
@@ -738,18 +764,23 @@ def probe_candidates_cuda(
     _check(date_lo, "date_lo", i32, (B,), dev)
     _check(date_hi, "date_hi", i32, (B,), dev)
     _check(min_sim, "min_sim", f32, (B,), dev)
-    if D % 16 or m % LANES:
-        raise ValueError(f"probe kernel needs D % 16 == 0 and m % 128 == 0, got D={D} m={m}")
+    if D % 16 or m % LANES or not P or any(
+        t.data_ptr() % 16 for t in (q8, part_int8, part_scale, part_rows, part_cword, part_cbit,
+                                    part_date)
+    ):
+        raise ValueError(f"probe kernel needs D % 16 == 0, m % 128 == 0 and 16-byte aligned "
+                         f"rows and columns, got D={D} m={m} P={P}")
     lib = load_library()
     out_v = torch.empty((B, NP * 2 * LANES), dtype=f32, device=dev)
     out_s = torch.empty((B, NP * 2 * LANES), dtype=i32, device=dev)
     if B and NP:
+        scratch = torch.empty(probe_scratch_ints(B, NP, P), dtype=i32, device=dev)
         err = lib.lib.tss_probe_candidates(
             _ptr(q8), _ptr(q_scale), _ptr(top_p), _ptr(part_int8),
             _ptr(part_scale), _ptr(part_rows), _ptr(part_cword), _ptr(part_cbit),
             _ptr(part_date), _ptr(qwords), _ptr(date_lo), _ptr(date_hi),
-            _ptr(min_sim), _ptr(out_v), _ptr(out_s), B, NP, P, m, D, W,
-            _stream(dev),
+            _ptr(min_sim), _ptr(out_v), _ptr(out_s), _ptr(scratch),
+            probe_max_groups(B, NP, P), B, NP, P, m, D, W, _stream(dev),
         )
         _raise_on(err, "probe kernel")
         LAUNCHES["probe_candidates"] += 1
