@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's index build and serving path on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -9,7 +9,7 @@ What it does, in order (any failure exits non-zero before the last line):
 
 1. Device: requires CUDA (no CPU path); prints the card's name and power
    limit (``nvidia-smi``), ``torch.version.cuda`` and the kernel build time.
-   A child process starts writing the case store (below) at once.
+   A child process starts writing the case store (phase 9) at once.
 2. Small-input reference: the same small partitioned index served on the
    CPU (plain versions) and on the card (kernels) must agree.
 3. Slice: a 5,242,880-chunk partition-major corpus (P=5120, m=1024,
@@ -41,50 +41,81 @@ What it does, in order (any failure exits non-zero before the last line):
    128, ragged N, +-0 ties), then at B=256, k=32 over the whole corpus
    viewed flat, then once through its own path, the public op
    ``fused_int8_topk``. Launch counts are reset just before each path.
-5. Serve: encoded text batches through ``FusedHybridSearch.query_batch``
+5. Build, ANN at full size: the corpus rows of phase 3, in generation
+   order, as f32 on the host, through ``PartitionedANN(AnnConfig(),
+   device="cuda").build`` (P=5120 by ``_auto_partitions``; k-means on a
+   200,000-row sample, blocked, and the top-8 centroid assignment on the
+   card; rebalance, pad replicas, layout and int8 quantisation on the
+   host). Prints each stage's time, the slot capacity m, the rows moved by
+   the overflow rebalance, the pad replicas and the index's bytes. Checks:
+   on one 65,536-row block the card's nearest centroid equals the CPU's
+   except on rows whose top-two scores lie within 1e-5; a 524,288-row
+   subset (every tenth row) built twice from the same centroids is
+   bitwise the same;
+   ``tune_nprobe`` on 64 rows at target 0.95 picks an nprobe under P, at
+   which ``search`` on 256 fresh queries (rows plus noise) reaches
+   tie-aware recall@10 >= 0.95 against ``search_brute`` through the probe
+   and rescore kernels (counts reset just before, read just after: the
+   ``build`` path); recall at nprobe 64 is printed too; ``save_dir`` then
+   ``load_dir`` serves bitwise the same. The index is freed after.
+6. Build, pipeline end to end: a sqlite store of 32,768 cases with the
+   fixture's texts (131,072 chunks), ``build_indexes(storage, cfg,
+   device="cuda")`` with mean pooling and no embedder (a corpus vocab and
+   the seeded MiniLM-L6 at full width), ``save_artifacts``,
+   ``load_artifacts(cfg, device="cuda")``, ``SearchEngine.search_batch`` at
+   B=8 and 64: the loaded engine must return what an engine over the
+   in-memory indexes returns, name queries led by a case-name or exact
+   hit. Prints each stage's time (vocab, text processing and trie inserts,
+   embedding in chunks/s, trie freeze, ANN build, save, load).
+7. Serve: encoded text batches through ``FusedHybridSearch.query_batch``
    with the engine's settings (k=32 and the search config's defaults:
    overfetch 4, recall target 0.97, flat escalation 0.01): B=8 and B=64
    (probe), B=256 (stream) and a filtered B=64 batch. Every serving
    kernel's launch counter must be above 0 after this run; recall@10 is
    reported against the port's own exact stream (recall target 1.0), and
    for each probe batch the distinct partitions its queries probe.
-6. Profile: each unfiltered batch once more under ``torch.profiler``:
+8. Profile: each unfiltered batch once more under ``torch.profiler``:
    device time by kernel and the device's busy share.
-7. Engine: the 1,310,720 cases (names, citations, courts and dates of the
-   trie and columns; one sentence per chunk) written to a sqlite
-   ``StorageManager`` with ``store_cases_batch`` by the child process;
+9. Engine: the 1,310,720 cases (names, citations, courts and dates of the
+   trie and columns; one sentence per chunk) written by the child process
+   into a sqlite store in the port store's schema and rows, one
+   transaction per batch (on 1,000 cases its tables must equal
+   ``store_cases_batch``'s row for row; ``store_cases_batch``'s own path,
+   a commit per row, is timed on 16,384 cases);
    ``SearchEngine(..., device="cuda")`` over the same state, ``warmup``
    (must leave ``is_warm``), then ``search_batch`` at B=8, 64, 256 and a
    court + date filtered 64 on the fused path, B=8 (probe) and a partly
    filtered B=64 (exact scan) on the staged path, and B=8 again from the
    query cache. Each result must be hydrated, with a snippet, inside its
    filters; name queries lead with a case-name or exact hit. Launch counts
-   are reset just before these batches and read just after. The store
-   build (one commit per row, as in the JAX package) takes longer than
-   every card phase before it, so this phase waits for it.
+   are reset just before these batches and read just after.
 
 The line before the last is a JSON object with one entry per kernel:
 ``launches`` counts the kernel on the path that reaches it (the
 ``query_batch`` run for the three serving kernels, ``fused_int8_topk`` for
 the int8 top-k, ``fused_scan_topk`` at T=17 for the fused scan's dp4a
 variant, which the serving paths must not launch) and ``launches_by_path``
-on each path. The last line is ``{"ok": true, "device": {...}}``. Details
-go to ``chiprun_out/chip_smoke.json``.
+on each path (``build``: phase 5's recall search). The last line is
+``{"ok": true, "device": {...}}``. Details go to
+``chiprun_out/chip_smoke.json``.
 
 ``python3 chip_smoke.py --only kernels`` runs phases 1, 2 and 4 (and the
-card state of 3) and skips serving, the profile, the store and the engine:
-about a minute, for iterating on a kernel. Its serving kernels print
-``"launches": null``.
+card state of 3) and skips the builds, serving, the profile, the store and
+the engine: about a minute, for iterating on a kernel. Its serving kernels
+print ``"launches": null``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime as dt
 import functools
 import json
+import logging
 import math
 import multiprocessing
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -200,32 +231,16 @@ def device_ms(torch, fn, reps: int, name: str) -> tuple[float, dict]:
 # ---------------------------------------------------------------------------
 
 
-def make_corpus(torch, P: int, m: int, D: int, seed: int, device, gen_device=None):
-    """Clustered partition-major corpus like the JAX package's bench: each
-    64-partition slab draws its centroids around 8 shared super-topics,
-    rows scatter around their centroid, 10% of rows copy their in-partition
-    neighbour. Returns centroids, int8 blocks, scales and bf16 rescore
-    segments (the saved artifact geometry). The random numbers come from a
-    generator on ``gen_device`` (default ``device``)."""
-    from trie_semantic_search_tpu_torch.ops.scan_kernels import (
-        GATHER_ROW_ALIGN_LCM,
-        GATHER_SEG_BYTES,
-    )
-
-    gdev = torch.device(gen_device or device)
+def corpus_slabs(torch, P: int, m: int, D: int, seed: int, gen_device):
+    """The clustered corpus in generation order, one 64-partition slab at a
+    time: ``(first partition, centroids [slab, D], L2-normalised rows
+    [slab, m, D])``. Each slab draws its centroids around 8 shared
+    super-topics, rows scatter around their centroid, and 10% of rows copy
+    their in-partition neighbour. Random numbers come from a generator on
+    ``gen_device``."""
+    gdev = torch.device(gen_device)
     g = torch.Generator(device=gdev).manual_seed(seed)
-    N = P * m
     slab = min(64, P)
-    L = GATHER_ROW_ALIGN_LCM
-    seg_rows = max(L, (GATHER_SEG_BYTES // (D * 2)) // L * L)
-    segs, lo = [], 0
-    while lo < N:
-        n = min(seg_rows, N - lo)
-        segs.append(torch.zeros((-(-n // L) * L, D), dtype=torch.bfloat16, device=device))
-        lo += n
-    cents = torch.empty((P, D), device=device)
-    part_int8 = torch.empty((P, m, D), dtype=torch.int8, device=device)
-    part_scale = torch.empty((P, m), device=device)
     G = 8
     for p0 in range(0, P, slab):
         sup = torch.randn((G, D), generator=g, device=gdev)
@@ -236,7 +251,35 @@ def make_corpus(torch, P: int, m: int, D: int, seed: int, device, gen_device=Non
         v = c[:, None, :] + 0.35 * torch.randn((slab, m, D), generator=g, device=gdev) / D**0.5
         v /= v.norm(dim=-1, keepdim=True)
         dup = torch.rand((slab, m), generator=g, device=gdev) < 0.10
-        v = torch.where(dup[..., None], torch.roll(v, 1, dims=1), v).to(device)
+        yield p0, c, torch.where(dup[..., None], torch.roll(v, 1, dims=1), v)
+
+
+def make_corpus(torch, P: int, m: int, D: int, seed: int, device, gen_device=None):
+    """The clustered corpus of :func:`corpus_slabs` (the shape of the JAX
+    package's bench corpus) laid out partition-major as a built index would
+    hold it: centroids, int8 blocks, scales and bf16 rescore segments (the
+    saved artifact geometry), row ``p * m + j`` in slot ``j`` of partition
+    ``p``. The random numbers come from a generator on ``gen_device``
+    (default ``device``)."""
+    from trie_semantic_search_tpu_torch.ops.scan_kernels import (
+        GATHER_ROW_ALIGN_LCM,
+        GATHER_SEG_BYTES,
+    )
+
+    N = P * m
+    L = GATHER_ROW_ALIGN_LCM
+    seg_rows = max(L, (GATHER_SEG_BYTES // (D * 2)) // L * L)
+    segs, lo = [], 0
+    while lo < N:
+        n = min(seg_rows, N - lo)
+        segs.append(torch.zeros((-(-n // L) * L, D), dtype=torch.bfloat16, device=device))
+        lo += n
+    cents = torch.empty((P, D), device=device)
+    part_int8 = torch.empty((P, m, D), dtype=torch.int8, device=device)
+    part_scale = torch.empty((P, m), device=device)
+    for p0, c, v in corpus_slabs(torch, P, m, D, seed, gen_device or device):
+        slab = c.shape[0]
+        v = v.to(device)
         scale = v.abs().amax(dim=-1) / 127.0
         cents[p0 : p0 + slab] = c.to(device)
         part_int8[p0 : p0 + slab] = torch.clamp(torch.round(v / scale[..., None]), -127, 127).to(torch.int8)
@@ -334,11 +377,76 @@ def case_text(c: int) -> str:
     )
 
 
-def build_store(db_path: str, n_cases: int, n_names: int, seed: int, batch: int = 1 << 15) -> None:
-    """Write every case (metadata and text) into a sqlite ``StorageManager``
-    with ``store_cases_batch``, consistent with the trie and the columns of
-    :func:`build_search`; the seconds it took go to ``<db_path>.seconds``.
-    Runs in a child process beside the card phases."""
+def case_meta(CaseMetadata, c: int, names: dict, court_ids, dates):
+    """The metadata of case row ``c``, consistent with the trie and the
+    columns of :func:`build_search`."""
+    name = names.get(c)
+    return CaseMetadata(
+        id=uuid.UUID(int=c + 1), name=name or f"Unindexed case {c}",
+        citation=citation(c) if name else "", court=COURTS[court_ids[c]],
+        decision_date=EPOCH + dt.timedelta(days=int(dates[c])),
+        word_count=len(case_text(c).split()),
+    )
+
+
+def fixture_cases(np, CaseMetadata, rows, n_cases: int, n_names: int, seed: int):
+    """``(metadata, text)`` of each case row in ``rows``, out of
+    ``n_cases`` of which ``n_names`` have names."""
+    names = case_names(np, n_cases, n_names, seed)
+    court_ids, dates = case_columns(np, n_cases)
+    for c in rows:
+        yield case_meta(CaseMetadata, c, names, court_ids, dates), case_text(c)
+
+
+def write_cases_fast(db_path: str, cases, batch: int = 1 << 14) -> None:
+    """``(metadata, text)`` pairs into a new sqlite store in one transaction
+    per batch. The schema, the statements and the rows are the port
+    store's (``metadata_row``, ``text_row``); ``store_cases_batch`` writes
+    the same rows but commits each one."""
+    import itertools
+    import sqlite3
+
+    from trie_semantic_search_tpu_torch.core.config import StorageConfig
+    from trie_semantic_search_tpu_torch.storage import store as st
+
+    config = StorageConfig(db_path=db_path)
+    st.StorageManager(config).close()
+    conn = sqlite3.connect(db_path)
+    it = iter(cases)
+    while chunk := list(itertools.islice(it, batch)):
+        with conn:
+            conn.executemany(st.UPSERT_METADATA, [st.metadata_row(meta) for meta, _ in chunk])
+            conn.executemany(st.UPSERT_TEXT, [st.text_row(meta.id, text, config.enable_compression)
+                                              for meta, text in chunk])
+    conn.close()
+
+
+def store_rows(db_path: str) -> tuple[list, list]:
+    """Every row of both tables in rowid order, the texts decompressed."""
+    import gzip
+    import sqlite3
+
+    conn = sqlite3.connect(db_path)
+    meta = conn.execute("SELECT rowid, * FROM case_metadata ORDER BY rowid").fetchall()
+    text = [(r, cid, comp, gzip.decompress(blob) if comp else blob) for r, cid, comp, blob in
+            conn.execute("SELECT rowid, * FROM case_text ORDER BY rowid").fetchall()]
+    conn.close()
+    return meta, text
+
+
+#: cases of the check that the fast writer's rows are ``store_cases_batch``'s,
+#: and of the sample that times ``store_cases_batch``'s own per-row path
+STORE_CHECK_CASES, STORE_TIMED_CASES = 1000, 16_384
+
+
+def build_store(db_path: str, n_cases: int, n_names: int, seed: int) -> None:
+    """The engine phase's sqlite store of every case (metadata and text),
+    consistent with the trie and the columns of :func:`build_search`,
+    written by :func:`write_cases_fast`. First, on ``STORE_CHECK_CASES``
+    cases, the fast writer's tables must equal ``store_cases_batch``'s row
+    for row; then ``store_cases_batch`` alone writes ``STORE_TIMED_CASES``
+    cases, timed. The seconds go to ``<db_path>.json``. Runs in a child
+    process beside the card phases."""
     sys.path.insert(0, str(HERE))
     import numpy as np
 
@@ -346,27 +454,30 @@ def build_store(db_path: str, n_cases: int, n_names: int, seed: int, batch: int 
     from trie_semantic_search_tpu_torch.core.types import CaseMetadata
     from trie_semantic_search_tpu_torch.storage.store import StorageManager
 
-    t0 = time.perf_counter()
-    names = case_names(np, n_cases, n_names, seed)
-    court_ids, dates = case_columns(np, n_cases)
-    store = StorageManager(StorageConfig(db_path=db_path))
-    for lo in range(0, n_cases, batch):
-        cases = []
-        for c in range(lo, min(lo + batch, n_cases)):
-            name = names.get(c)
-            text = case_text(c)
-            meta = CaseMetadata(
-                id=uuid.UUID(int=c + 1), name=name or f"Unindexed case {c}",
-                citation=citation(c) if name else "", court=COURTS[court_ids[c]],
-                decision_date=EPOCH + dt.timedelta(days=int(dates[c])),
-                word_count=len(text.split()),
-            )
-            cases.append((meta, text))
-        stored, errors = store.store_cases_batch(cases)
-        if stored != len(cases) or errors:
-            raise RuntimeError(f"store_cases_batch stored {stored} of {len(cases)}: {errors[:3]}")
+    out = {}
+    check = list(fixture_cases(np, CaseMetadata, range(STORE_CHECK_CASES), n_cases, n_names, seed))
+    per_row, fast = db_path + ".per_row", db_path + ".fast"
+    store = StorageManager(StorageConfig(db_path=per_row))
+    if store.store_cases_batch(check) != (len(check), []):
+        raise RuntimeError("store_cases_batch did not store every check case")
     store.close()
-    Path(db_path + ".seconds").write_text(str(time.perf_counter() - t0))
+    write_cases_fast(fast, check)
+    if store_rows(fast) != store_rows(per_row):
+        raise RuntimeError("the fast writer's rows differ from store_cases_batch's")
+    timed = list(fixture_cases(np, CaseMetadata, range(STORE_TIMED_CASES), n_cases, n_names, seed))
+    t0 = time.perf_counter()
+    store = StorageManager(StorageConfig(db_path=db_path + ".timed"))
+    if store.store_cases_batch(timed) != (len(timed), []):
+        raise RuntimeError("store_cases_batch did not store every timed case")
+    store.close()
+    out["store_cases_batch_s"] = time.perf_counter() - t0
+    for f in (per_row, fast, db_path + ".timed"):
+        for suffix in ("", "-wal", "-shm"):
+            Path(f + suffix).unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    write_cases_fast(db_path, fixture_cases(np, CaseMetadata, range(n_cases), n_cases, n_names, seed))
+    out["fast_s"] = time.perf_counter() - t0
+    Path(db_path + ".json").write_text(json.dumps(out))
 
 
 def texts_for(rng, names, words, B):
@@ -818,6 +929,298 @@ def int8_topk_phase(torch, np, vi, report) -> dict:
     return rec, launches
 
 
+#: phase A: rows of the subset built twice from fixed centroids, sampled
+#: rows the tuner reads, fresh queries the recall is measured on
+BUILD_SUBSET, TUNE_SAMPLE, RECALL_QUERIES = 1 << 19, 64, 256
+
+
+@contextlib.contextmanager
+def logged_records(name: str):
+    """While open, the INFO records of logger ``name`` go to the list it
+    yields (the ANN build logs its overflow and replica row counts)."""
+    records: list = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = records.append
+    logger = logging.getLogger(name)
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield records
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+@contextlib.contextmanager
+def kept_calls(sk, names):
+    """While open, each call of the launchers ``names`` of ``sk`` (which
+    still launch and count) keeps ``(name, inputs, a copy of the outputs)``
+    in the list it yields."""
+    calls: list = []
+    orig = {n: getattr(sk, n) for n in names}
+
+    def keeper(n):
+        def call(*args):
+            out = orig[n](*args)
+            kept = tuple(t.clone() for t in out) if isinstance(out, tuple) else out.clone()
+            calls.append((n, args, kept))
+            return out
+        return call
+
+    for n in names:
+        setattr(sk, n, keeper(n))
+    try:
+        yield calls
+    finally:
+        for n, f in orig.items():
+            setattr(sk, n, f)
+
+
+def hold_against_plain(torch, sk, calls) -> dict:
+    """Each kept probe call bitwise against ``probe_candidates_plain`` and
+    each kept rescore call within 1e-5 of ``gather_rescore_plain``, on the
+    same inputs. Returns the largest difference of each kernel (the probe's
+    over its live entries)."""
+    err = {"probe_candidates": 0.0, "gather_rescore": 0.0}
+    for name, args, out in calls:
+        if name == "probe_candidates_cuda":
+            (kv, ks), (pv, ps) = out, sk.probe_candidates_plain(*args)
+            bad = (kv.view(torch.int32) != pv.view(torch.int32)) | (ks != ps)
+            if bad.any():
+                raise AssertionError(f"probe kernel differs from plain on the built index: "
+                                     f"{int(bad.sum())} entries")
+            fin = torch.isfinite(pv)
+            e = float((kv[fin] - pv[fin]).abs().max()) if fin.any() else 0.0
+            err["probe_candidates"] = max(err["probe_candidates"], e)
+        else:
+            e = float((out - sk.gather_rescore_plain(*args)).abs().max())
+            if not e <= 1e-5:
+                raise AssertionError(f"gather rescore differs from plain by {e} on the built index")
+            err["gather_rescore"] = max(err["gather_rescore"], e)
+    return err
+
+
+def ann_build_phase(torch, np, seed: int, work: Path) -> tuple[dict, dict]:
+    """Phase A, the ANN build at the served size: the 5,242,880 corpus rows
+    of :func:`corpus_slabs` (drawn on the card from ``seed``, in generation
+    order, copied to the host) through ``PartitionedANN(AnnConfig(),
+    device="cuda").build``: k-means and the top-c assignment on the card,
+    the layout on the host. Checks the card's assignment against the CPU's
+    on one block (equal but for near-ties), that a build from fixed
+    centroids is bitwise reproducible, that ``tune_nprobe`` picks an nprobe
+    under P at which the probe and rescore kernels reach tie-aware
+    recall@10 >= 0.95 against ``search_brute`` on fresh queries, and that
+    ``save_dir`` / ``load_dir`` serve bitwise the same. Returns the details
+    and the launch counts of that recall search."""
+    from trie_semantic_search_tpu_torch.core.config import AnnConfig
+    from trie_semantic_search_tpu_torch.index import kmeans as km
+    from trie_semantic_search_tpu_torch.index.ann import PartitionedANN
+    from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
+
+    dev = torch.device("cuda")
+    N = P_PARTS * M_SLOTS
+    out: dict = {}
+    t0 = time.perf_counter()
+    host = np.empty((N, DIM), np.float32)
+    for p0, _, v in corpus_slabs(torch, P_PARTS, M_SLOTS, DIM, seed, dev):
+        rows = v.reshape(-1, DIM)
+        host[p0 * M_SLOTS : p0 * M_SLOTS + rows.shape[0]] = rows.cpu().numpy()
+    out["draw_s"] = time.perf_counter() - t0
+    log(f"  {N} x {DIM} f32 rows drawn on the card and copied to the host in {out['draw_s']:.1f} s")
+
+    ann = PartitionedANN(AnnConfig(), device=dev)
+    t0 = time.perf_counter()
+    with logged_records("tss_torch.ann") as records:
+        ann.build(host, seed)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["stages_s"] = dict(ann.build_seconds)
+    moved = [r.args[0] for r in records if r.msg.startswith("partition overflow")]
+    out["overflow_rows"] = moved[0] if moved else 0
+    out["replica_rows"] = int((ann.part_rows >= 0).sum()) - N
+    P, m = (int(x) for x in ann.part_rows.shape)
+    out["partitions"], out["capacity"], out["bytes"] = P, m, ann.get_stats().nbytes_total
+    if P != P_PARTS:
+        raise AssertionError(f"_auto_partitions gave P={P}, expected {P_PARTS}")
+    log(f"  build {out['build_s']:.1f} s: " + ", ".join(f"{k} {v:.2f} s" for k, v in out["stages_s"].items()))
+    log(f"  P={P} m={m}; {out['overflow_rows']} rows moved by the overflow rebalance, "
+        f"{out['replica_rows']} pad replicas; index {out['bytes'] / 2**30:.2f} GiB on the card")
+
+    # the card's top-c column 0 against the CPU's nearest centroid, one block
+    cents = ann.centroids.cpu().numpy()
+    blk = host[: km._LLOYD_BLOCK]
+    blk = blk / np.maximum(np.linalg.norm(blk, axis=1, keepdims=True), 1e-12)
+    card = km.assign_topc(blk, cents, 8, device=dev)[:, 0]
+    cpu = km.assign_clusters(blk, cents, device="cpu")
+    top2 = torch.topk(torch.from_numpy(blk) @ torch.from_numpy(cents).T, 2, dim=1).values
+    near = ((top2[:, 0] - top2[:, 1]) <= 1e-5).numpy()
+    differ = card != cpu
+    if (differ & ~near).any():
+        raise AssertionError(f"card and CPU assignments differ on {int((differ & ~near).sum())} rows "
+                             "whose top-two centroid scores are more than 1e-5 apart")
+    out["assign_block_differ"], out["assign_block_near_ties"] = int(differ.sum()), int(near.sum())
+    log(f"  assign_topc column 0, card vs CPU on {len(blk)} rows: {int(differ.sum())} differ, all "
+        f"among the {int(near.sum())} rows whose top-two scores lie within 1e-5")
+
+    # fixed centroids: a subset (every tenth row, so it spans every
+    # cluster) built twice, bitwise the same
+    builds = []
+    sub = host[:: N // BUILD_SUBSET]
+    for _ in range(2):
+        a = PartitionedANN(AnnConfig(), device=dev)
+        t0 = time.perf_counter()
+        a.build(sub, reuse_centroids=cents)
+        torch.cuda.synchronize()
+        builds.append((a, time.perf_counter() - t0))
+    (a, ta), (b, tb) = builds
+    bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t  # noqa: E731
+    pairs = [(a.part_rows, b.part_rows), (a.part_int8, b.part_int8), (a.part_scale.view(torch.int32),
+             b.part_scale.view(torch.int32)), *zip(map(bits, a.corpus_bf16), map(bits, b.corpus_bf16))]
+    if len(a.corpus_bf16) != len(b.corpus_bf16) or not all(torch.equal(x, y) for x, y in pairs):
+        raise AssertionError("two builds from the same centroids differ")
+    out["subset_build_s"] = [ta, tb]
+    log(f"  {len(sub)} rows (every {N // BUILD_SUBSET}th) from fixed centroids, built twice "
+        f"({ta:.2f} s, {tb:.2f} s): bitwise equal")
+    del builds, a, b, sub
+
+    # tune, then recall through the kernels on fresh queries
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    nprobe = ann.tune_nprobe(host[rng.choice(N, TUNE_SAMPLE, replace=False)], k=10, target_recall=0.95)
+    out["tune_s"], out["nprobe"] = time.perf_counter() - t0, nprobe
+    if not nprobe < P:
+        raise AssertionError(f"tune_nprobe picked nprobe={nprobe}, not under P={P}")
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    noise = 0.1 * torch.randn((RECALL_QUERIES, DIM), generator=g, device=dev) / DIM**0.5
+    q = host[rng.choice(N, RECALL_QUERIES, replace=False)] + noise.cpu().numpy()
+    ov, _ = ann.search_brute(q, 10)
+    thresh = ov[:, 9:10] - 1e-5
+    with kept_calls(sk, ("probe_candidates_cuda", "gather_rescore_cuda")) as calls:
+        sk.reset_launch_counts()
+        gv, gi = ann.search(q, 10, nprobe=nprobe)
+        torch.cuda.synchronize()
+        launches = dict(sk.LAUNCHES)
+        if launches["probe_candidates"] <= 0 or launches["gather_rescore"] <= 0:
+            raise AssertionError(f"the recall search did not run the probe and rescore kernels: {launches}")
+        out["recall_at_10"] = float(np.mean(gv >= thresh))
+        out["recall_at_10_nprobe64"] = float(np.mean(ann.search(q, 10, nprobe=64)[0] >= thresh))
+    if out["recall_at_10"] < 0.95:
+        raise AssertionError(f"recall@10 {out['recall_at_10']} < 0.95 at the tuned nprobe {nprobe}")
+    log(f"  tune_nprobe on {TUNE_SAMPLE} rows picked nprobe={nprobe} in {out['tune_s']:.1f} s; on "
+        f"{RECALL_QUERIES} fresh queries tie-aware recall@10 vs search_brute {out['recall_at_10']:.4f} "
+        f"(nprobe 64: {out['recall_at_10_nprobe64']:.4f}); launches {launches}")
+
+    # both searches' kernel calls against the plain versions on the same
+    # inputs: the build's layout (m past eight sub-blocks, pad slots, pad
+    # replicas), nprobe as tuned and 64
+    names = [n for n, _, _ in calls]
+    if names.count("probe_candidates_cuda") != 2 or names.count("gather_rescore_cuda") != 2:
+        raise AssertionError(f"expected two probe and two rescore launches, kept {names}")
+    out["plain_err"] = hold_against_plain(torch, sk, calls)
+    pad = int((ann.part_rows < 0).sum())
+    log(f"  on the built index (m={m}: {m // 128} sub-blocks, {pad} pad slots, {out['replica_rows']} "
+        f"replicas) at nprobe {nprobe} and 64: probe bitwise equal to its plain version, rescore within "
+        f"{out['plain_err']['gather_rescore']:.3g} of its plain version")
+    del calls
+
+    # the raw .npy directory artifact serves bitwise the same
+    t0 = time.perf_counter()
+    ann.save_dir(work / "ann.mmap")
+    out["save_dir_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = PartitionedANN.load_dir(work / "ann.mmap", device=dev)
+    torch.cuda.synchronize()
+    out["load_dir_s"] = time.perf_counter() - t0
+    bv, bi = back.search(q, 10, nprobe=nprobe)
+    if not (np.array_equal(bv.view(np.int32), gv.view(np.int32)) and np.array_equal(bi, gi)):
+        raise AssertionError("the index loaded from save_dir serves other results")
+    log(f"  save_dir {out['save_dir_s']:.1f} s, load_dir {out['load_dir_s']:.1f} s: bitwise the same "
+        "search results")
+    del ann, back, host
+    shutil.rmtree(work / "ann.mmap")
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+#: phase B: cases in the store the pipeline builds from, and of them named
+PIPE_CASES, PIPE_NAMES = 32_768, 4096
+
+
+def pipeline_phase(torch, np, seed: int, work: Path) -> dict:
+    """Phase B, the build pipeline through the entry points a user calls:
+    a sqlite store of ``PIPE_CASES`` fixture cases (four sentences each),
+    ``build_indexes(storage, cfg, device="cuda")`` with mean pooling and no
+    embedder (a corpus vocab and the seeded MiniLM-L6 at full width),
+    ``save_artifacts``, ``load_artifacts(cfg, device="cuda")``, then
+    ``SearchEngine.search_batch`` at B=8 and 64 over the loaded artifacts,
+    which must return what an engine over the in-memory indexes returns,
+    with name queries led by a case-name or exact hit."""
+    from trie_semantic_search_tpu_torch.core.config import Config
+    from trie_semantic_search_tpu_torch.core.types import CaseMetadata, SearchConfig
+    from trie_semantic_search_tpu_torch.index.builder import build_indexes, load_artifacts, save_artifacts
+    from trie_semantic_search_tpu_torch.search.engine import MatchType, SearchEngine, SearchQuery
+    from trie_semantic_search_tpu_torch.storage.store import StorageManager
+
+    cfg = Config()
+    cfg.storage.db_path = str(work / "pipeline.sqlite")
+    cfg.trie.index_path = str(work / "trie")
+    cfg.vector.hnsw.index_path = str(work / "vec")
+    cfg.vector.pooling = "mean"
+    out: dict = {}
+    t0 = time.perf_counter()
+    write_cases_fast(cfg.storage.db_path,
+                     fixture_cases(np, CaseMetadata, range(PIPE_CASES), PIPE_CASES, PIPE_NAMES, seed))
+    out["store_s"] = time.perf_counter() - t0
+    storage = StorageManager(cfg.storage)
+    built = build_indexes(storage, cfg, device="cuda")
+    torch.cuda.synchronize()
+    r = built.report
+    chunks = built.vector.ann.num_vectors
+    if (r.cases, r.content_chunks, chunks) != (PIPE_CASES, CHUNKS_PER_CASE * PIPE_CASES, r.content_chunks):
+        raise AssertionError(f"built {r.cases} cases, {r.content_chunks} chunks, ANN of {chunks}")
+    ann_s = sum(built.vector.ann.build_seconds.values())
+    out.update(build_s=r.seconds, vocab_s=r.vocab_seconds, embed_s=r.embed_seconds,
+               text_and_trie_s=r.seconds - r.vocab_seconds - r.embed_seconds - r.freeze_seconds,
+               trie_freeze_s=r.freeze_seconds - ann_s, ann_build_s=ann_s,
+               ann_stages_s=dict(built.vector.ann.build_seconds), chunks=chunks,
+               chunks_per_s=chunks / r.embed_seconds, partitions=int(built.vector.ann.part_rows.shape[0]),
+               capacity=int(built.vector.ann.part_rows.shape[1]))
+    log(f"  store of {PIPE_CASES} cases {out['store_s']:.1f} s; build_indexes {r.seconds:.1f} s = vocab "
+        f"{r.vocab_seconds:.1f} + text processing and trie inserts {out['text_and_trie_s']:.1f} + embed "
+        f"{r.embed_seconds:.1f} ({out['chunks_per_s']:.0f} chunks/s) + trie freeze "
+        f"{out['trie_freeze_s']:.1f} + ANN build {ann_s:.1f} (P={out['partitions']} m={out['capacity']})")
+    t0 = time.perf_counter()
+    save_artifacts(built, cfg)
+    out["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_artifacts(cfg, device="cuda")
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    log(f"  save_artifacts {out['save_s']:.1f} s, load_artifacts {out['load_s']:.1f} s")
+
+    in_memory = SearchEngine(cfg, storage, built.trie, built.vector, built.columns, device="cuda")
+    from_disk = SearchEngine(cfg, storage, *loaded, device="cuda")
+    names = case_names(np, PIPE_CASES, PIPE_NAMES, seed)
+    rng = np.random.default_rng(seed + 3)
+    for B in (8, 64):
+        texts = texts_for(rng, names, WORDS, B)
+        qs = [SearchQuery(query=t, config=SearchConfig(min_similarity=-1.0)) for t in texts]
+        t0 = time.perf_counter()
+        got = from_disk.search_batch(qs)
+        out[f"search_B{B}_ms"] = (time.perf_counter() - t0) * 1e3
+        want = in_memory.search_batch(qs)
+        if [[x.to_json() for x in rs] for rs in got] != [[x.to_json() for x in rs] for rs in want]:
+            raise AssertionError(f"B={B}: the loaded artifacts serve other results than the built ones")
+        n = check_results(MatchType, set(names.values()), qs, got)
+        log(f"  search_batch B={B} over the loaded artifacts: {n} results, equal to the in-memory "
+            f"engine's, {out[f'search_B{B}_ms']:.1f} ms")
+    storage.close()
+    del in_memory, from_disk, loaded, built
+    torch.cuda.empty_cache()
+    return out
+
+
 def small_reference(torch, np, seed, devices=("cpu", "cuda")):
     """The same small partitioned index (data drawn on the CPU) served on
     the CPU (plain versions) and on the card (kernels): the encoders agree
@@ -1094,8 +1497,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=["kernels"],
-                    help="kernels: the device, build, small-reference and kernel phases only "
-                         "(no serving, profile, store or engine)")
+                    help="kernels: the device, kernel build, small-reference and kernel phases "
+                         "only (no index builds, serving, profile, store or engine)")
     args = ap.parse_args()
     try:
         import torch
@@ -1180,6 +1583,16 @@ def run(torch, np, sk, seed: int, db_path: str, store, only_kernels: bool = Fals
             kernels[k]["launches"] = None
         return finish(torch, detail, kernels, paths, out_dir, card, t_start)
 
+    work = Path(db_path).parent
+    log(f"phase: build: ANN at full size ({P_PARTS * M_SLOTS} rows, D={DIM}; counts reset just "
+        "before the recall search, read just after)")
+    detail["build_ann"], paths["build"] = ann_build_phase(torch, np, seed, work)
+    for k, e in detail["build_ann"]["plain_err"].items():
+        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], e)
+    log("phase: build: pipeline end to end (build_indexes -> save_artifacts -> load_artifacts "
+        "-> SearchEngine)")
+    detail["build_pipeline"] = pipeline_phase(torch, np, seed, work)
+
     log("phase: serve through query_batch (counts reset just before, read just after)")
     records, launches = serve(torch, np, fused, vi, names, words, courts, seed)
     log(f"  launches on the query_batch path: {launches}")
@@ -1221,14 +1634,18 @@ def run(torch, np, sk, seed: int, db_path: str, store, only_kernels: bool = Fals
         for name, ms, count in row["top"]:
             log(f"    {ms:9.3f} ms  x{count:<5} {name}")
 
-    log("phase: case store (built with store_cases_batch in a child process)")
+    log("phase: case store (written in a child process, one transaction per batch)")
     t0 = time.perf_counter()
     store.join()
     if store.exitcode != 0:
         raise AssertionError(f"the store build failed with exit code {store.exitcode}")
-    detail["store_build_s"] = float(Path(db_path + ".seconds").read_text())
-    log(f"  {len(fused.columns)} cases in {detail['store_build_s']:.1f} s "
-        f"(waited {time.perf_counter() - t0:.1f} s for it here)")
+    st = json.loads(Path(db_path + ".json").read_text())
+    detail["store_build_s"], detail["store_cases_batch_s"] = st["fast_s"], st["store_cases_batch_s"]
+    n_cases = len(fused.columns)
+    log(f"  {n_cases} cases in {st['fast_s']:.1f} s (waited {time.perf_counter() - t0:.1f} s for it "
+        f"here); its rows equal store_cases_batch's on {STORE_CHECK_CASES} cases; store_cases_batch "
+        f"(a commit per row) wrote {STORE_TIMED_CASES} cases in {st['store_cases_batch_s']:.2f} s, "
+        f"{st['store_cases_batch_s'] / STORE_TIMED_CASES * n_cases:.0f} s at {n_cases} cases")
 
     log("phase: SearchEngine (counts reset just before the batches, read just after)")
     warm_s, erecs, elaunches, stats = engine_phase(torch, np, fused, vi, names, db_path, seed)

@@ -118,3 +118,149 @@ def test_seeded_init_is_deterministic():
         torch.testing.assert_close(a[name], b[name], rtol=0, atol=0)
     w = a["layers.q_kernel"]
     assert w.abs().max() <= 0.04 and 0.015 < float(w.std()) < 0.025
+
+
+# -- the HuggingFace checkpoint at model_path, and the checkpoint save side --
+
+
+def _hf_state(tree, prefix=""):
+    """The JAX parameter tree in HuggingFace BERT naming, Linear weights as
+    torch stores them (``[out, in]``)."""
+    e, lay = tree["embeddings"], tree["layers"]
+    st = {
+        "embeddings.word_embeddings.weight": e["word"],
+        "embeddings.position_embeddings.weight": e["position"],
+        "embeddings.token_type_embeddings.weight": e["token_type"],
+        "embeddings.LayerNorm.weight": e["ln_scale"],
+        "embeddings.LayerNorm.bias": e["ln_bias"],
+    }
+    names = {
+        "attention.self.query": "q", "attention.self.key": "k", "attention.self.value": "v",
+        "attention.output.dense": "o", "intermediate.dense": "wi", "output.dense": "wo",
+    }
+    for i in range(SMALL["num_layers"]):
+        for hf, ours in names.items():
+            st[f"encoder.layer.{i}.{hf}.weight"] = lay[f"{ours}_kernel"][i].T
+            st[f"encoder.layer.{i}.{hf}.bias"] = lay[f"{ours}_bias"][i]
+        for hf, ours in (("attention.output.LayerNorm", "attn_ln"), ("output.LayerNorm", "mlp_ln")):
+            st[f"encoder.layer.{i}.{hf}.weight"] = lay[f"{ours}_scale"][i]
+            st[f"encoder.layer.{i}.{hf}.bias"] = lay[f"{ours}_bias"][i]
+    return {prefix + k: torch.from_numpy(np.array(v, order="C")) for k, v in st.items()}
+
+
+def _write_hf(path, state, fmt):
+    path.mkdir(parents=True, exist_ok=True)
+    if fmt == "safetensors":
+        from safetensors.torch import save_file
+
+        save_file(state, str(path / "model.safetensors"))
+    else:
+        torch.save(state, path / "pytorch_model.bin")
+
+
+def _embedders(path, vocab):
+    from trie_semantic_search_tpu.core.config import EmbeddingModelConfig as JaxModelConfig
+    from trie_semantic_search_tpu_torch.core.config import EmbeddingModelConfig
+
+    jemb = JaxEmbedder(JaxModelConfig(model_path=str(path), max_sequence_length=64),
+                       tokenizer=JaxTokenizer(vocab), model_config=jm.MiniLMConfig(**SMALL))
+    temb = Embedder(EmbeddingModelConfig(model_path=str(path), max_sequence_length=64),
+                    tokenizer=WordPieceTokenizer(vocab), model_config=tm.MiniLMConfig(**SMALL),
+                    device="cpu")
+    return jemb, temb
+
+
+@pytest.mark.parametrize("fmt,prefix", [("bin", ""), ("bin", "bert."), ("safetensors", "0.auto_model.")])
+def test_hf_checkpoint_at_model_path_matches_jax(models, tmp_path, fmt, prefix, monkeypatch):
+    """A checkpoint in HuggingFace naming at ``model_path``: both loaders
+    give the same parameters, bitwise, and both embedders (f32 compute)
+    embed within 1e-5."""
+    import functools
+
+    jcfg, _, tree, _ = models
+    _write_hf(tmp_path / "hf", _hf_state(tree, prefix), fmt)
+    want = jm.load_hf_checkpoint(tmp_path / "hf", jcfg)
+    got = tm.load_hf_checkpoint(tmp_path / "hf", tm.MiniLMConfig(**SMALL))
+    for group in ("embeddings", "layers"):
+        for name, arr in tree[group].items():
+            np.testing.assert_array_equal(got[f"{group}.{name}"].numpy(), np.asarray(want[group][name]))
+            np.testing.assert_array_equal(got[f"{group}.{name}"].numpy(), arr)
+    monkeypatch.setattr(jm, "encode", functools.partial(jm.encode, compute_dtype=jnp.float32))
+    vocab = train_wordpiece_vocab(TEXTS, vocab_size=SMALL["vocab_size"], min_frequency=1)
+    jemb, temb = _embedders(tmp_path / "hf", vocab)
+    temb.model.compute_dtype = torch.float32
+    np.testing.assert_allclose(temb.embed(TEXTS).embedding, jemb.embed(TEXTS).embedding, atol=1e-5, rtol=0)
+    assert tm.load_hf_checkpoint(tmp_path / "empty_dir_or_none", tm.MiniLMConfig(**SMALL)) is None
+
+
+def test_missing_or_corrupt_checkpoint_takes_the_seeded_init(models, tmp_path, caplog):
+    """No path: the seeded init, silently. A checkpoint missing a tensor:
+    a warning and the seeded init, in both packages; a tensor of the wrong
+    shape: the same in the port."""
+    _, _, tree, _ = models
+    vocab = train_wordpiece_vocab(TEXTS, vocab_size=SMALL["vocab_size"], min_frequency=1)
+    seeded = tm.MiniLM(tm.MiniLMConfig(**SMALL), device="cpu", seed=0).state_dict()
+    jinit = jax.tree.map(np.asarray, jm.init_params(jax.random.PRNGKey(0), jm.MiniLMConfig(**SMALL)))
+
+    def assert_seeded(jemb, temb):
+        for k, v in temb.model.state_dict().items():
+            torch.testing.assert_close(v, seeded[k], rtol=0, atol=0)
+        if jemb is not None:
+            for g in ("embeddings", "layers"):
+                for n, arr in jinit[g].items():
+                    np.testing.assert_array_equal(np.asarray(jemb.params[g][n]), arr)
+
+    caplog.clear()
+    assert_seeded(*_embedders(tmp_path / "nowhere", vocab))
+    assert "HF checkpoint load failed" not in caplog.text
+    state = _hf_state(tree)
+    del state["encoder.layer.1.output.LayerNorm.bias"]
+    _write_hf(tmp_path / "missing", state, "bin")
+    caplog.clear()
+    with caplog.at_level("WARNING"):
+        assert_seeded(*_embedders(tmp_path / "missing", vocab))
+    assert sum("HF checkpoint load failed" in r.message for r in caplog.records) == 2
+    state = _hf_state(tree)
+    state["embeddings.word_embeddings.weight"] = state["embeddings.word_embeddings.weight"][:7]
+    _write_hf(tmp_path / "shape", state, "bin")
+    caplog.clear()
+    with caplog.at_level("WARNING"):
+        from trie_semantic_search_tpu_torch.core.config import EmbeddingModelConfig
+
+        temb = Embedder(EmbeddingModelConfig(model_path=str(tmp_path / "shape")),
+                        tokenizer=WordPieceTokenizer(vocab), model_config=tm.MiniLMConfig(**SMALL),
+                        device="cpu")
+    assert_seeded(None, temb)
+    assert "HF checkpoint load failed" in caplog.text
+
+
+def test_save_checkpoint_restores_in_jax(models, tmp_path):
+    """The port's ``save_checkpoint`` writes what the JAX package's
+    ``restore_checkpoint`` reads (leaves in tree-flatten order), keeps the
+    newest ``keep`` steps, and the restored parameters embed bitwise as the
+    originals."""
+    from trie_semantic_search_tpu.models.checkpoint import restore_checkpoint as jax_restore
+    from trie_semantic_search_tpu_torch.models.checkpoint import (
+        latest_step,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    jcfg, params, tree, model = models
+    for step in (1, 5, 3, 7):
+        save_checkpoint(tmp_path, step, model.state_dict(), metadata={"hidden_size": 64}, keep=2)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_5", "step_7"]
+    assert latest_step(tmp_path) == 7
+    jp, _, meta = jax_restore(tmp_path, jm.init_params(jax.random.PRNGKey(0), jcfg))
+    assert meta == {"step": 7, "hidden_size": 64}
+    for group in ("embeddings", "layers"):
+        for name, arr in tree[group].items():
+            np.testing.assert_array_equal(np.asarray(jp[group][name]), arr)
+    ids, mask = _batch(seed=3)
+    np.testing.assert_array_equal(
+        np.asarray(jm.encode(jp, jnp.asarray(ids), jnp.asarray(mask), jcfg)),
+        np.asarray(jm.encode(params, jnp.asarray(ids), jnp.asarray(mask), jcfg)),
+    )
+    state, _ = restore_checkpoint(tmp_path, tm.MiniLMConfig(**SMALL))
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(state[k], v, rtol=0, atol=0)

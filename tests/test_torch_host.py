@@ -162,3 +162,34 @@ def test_store_cases_batch_matches_jax(tmp_path):
     assert pst.get_case_text(ids[0]) == "second text of case 0."
     pst.close()
     jst.close()
+
+
+@pytest.mark.parametrize("start_row,batch", [(0, 256), (0, 3), (4, 2), (11, 5)])
+def test_build_iteration_matches_jax(tmp_path, start_row, batch):
+    """``list_case_ids``, ``iter_cases`` and ``iter_cases_rowid`` (keyset
+    pagination from ``start_row``) over the same cases, written in an order
+    unlike the id order, one case without text: the same stream."""
+    cfg = JaxConfig()
+    cfg.storage.db_path = str(tmp_path / "jax.sqlite")
+    jst = JaxStorage(cfg.storage)
+    pst = StorageManager(StorageConfig(db_path=str(tmp_path / "port.sqlite")))
+    order = [7, 2, 9, 0, 5, 1, 8, 3, 6, 4]
+    for st, cls in ((jst, JaxCaseMetadata), (pst, CaseMetadata)):
+        for i in order:
+            m = _meta(cls, i)
+            st.store_case_metadata(m)
+            if i != 5:
+                st.store_case_text(m.id, f"text of case {i}.")
+    def js(m):  # each store stamped its own ingestion time
+        return {k: v for k, v in m.to_json().items() if k != "ingestion_date"}
+
+    assert pst.list_case_ids() == jst.list_case_ids()
+    assert [(js(m), t) for m, t in pst.iter_cases()] == [(js(m), t) for m, t in jst.iter_cases()]
+    got = [(r, js(m), t) for r, m, t in pst.iter_cases_rowid(start_row, batch)]
+    want = [(r, js(m), t) for r, m, t in jst.iter_cases_rowid(start_row, batch)]
+    assert got == want
+    assert [r for r, _, _ in got] == list(range(start_row, len(order)))
+    cols = pst.fetch_filter_columns()
+    assert all(cols[r][0] == m["id"] for r, m, _ in got)
+    pst.close()
+    jst.close()

@@ -1,6 +1,7 @@
 """Tries built and saved by the JAX package give the port identical
 ``search_batch_rows`` rows and validity flags; the port's own builder
-freezes to the same arrays."""
+freezes to the same arrays, also after ``load_from_disk`` and further
+inserts (builder rehydration)."""
 
 import numpy as np
 import pytest
@@ -62,8 +63,12 @@ def test_search_batch_rows_matches_jax_saved_trie(tmp_path, mmap_format):
             np.testing.assert_array_equal(tr, np.asarray(jr))
             np.testing.assert_array_equal(tv, np.asarray(jv))
     assert tidx.get_completions("w1") == jidx.get_completions("w1")
-    with pytest.raises(NotImplementedError):
-        tidx.insert_case_name("new case", 0)
+    # freeze() after a bare load keeps the loaded state; an insert rehydrates
+    tidx.freeze()
+    np.testing.assert_array_equal(tidx.search_batch_rows(qs)[0], np.asarray(jidx.search_batch_rows(qs)[0]))
+    tidx.insert_case_name("new case", 0)
+    tidx.freeze()
+    assert tidx.search_batch_rows(["new case"])[0][0, 0] == 0
 
 
 @pytest.mark.parametrize("windowing", ["all", "phrase_start", "sentence_start"])
@@ -104,3 +109,75 @@ def test_empty_trie_walks_to_no_hits():
     _, jrows, jvalid = jf.search_batch(ids, 3)
     np.testing.assert_array_equal(rows.numpy(), np.asarray(jrows))
     assert not valid.numpy().any()
+
+
+def _insert_more(idx, names, cites, paras, start):
+    for row, (n, c, p) in enumerate(zip(names, cites, paras), start=start):
+        idx.insert_case_name(n, row)
+        idx.insert_citation(c, row)
+        idx.insert_content(p + ["new", "words", f"x{row}"], row, 2)
+
+
+@pytest.mark.parametrize("mmap_format", [True, False])
+def test_insert_after_load_matches_jax(tmp_path, mmap_format, monkeypatch):
+    """Both packages load the same saved tries, insert the same cases and
+    freeze: every frozen array and the vocab are equal (the JAX package's
+    Python builder, whose arrays the port follows). A bare round trip
+    (rehydrate, no insert, freeze) gives the loaded arrays back."""
+    import trie_semantic_search_tpu.native as jax_native
+
+    monkeypatch.setattr(jax_native, "available", lambda: False)
+    names, cites, paras = _corpus(seed=7, n_cases=80)
+    jcfg = JaxTrieConfig(enable_memory_mapping=mmap_format, max_windows_per_paragraph=6)
+    src = JaxTrieIndex(jcfg)
+    _insert_more(src, names[:50], cites[:50], paras[:50], 0)
+    src.freeze()
+    src.save_to_disk(tmp_path)
+    jidx = JaxTrieIndex.load_from_disk(tmp_path, jcfg)
+    tidx = TrieIndex.load_from_disk(
+        tmp_path, TrieConfig(enable_memory_mapping=mmap_format, max_windows_per_paragraph=6),
+        device="cpu",
+    )
+    for attr in ("name_trie", "citation_trie", "content_trie"):
+        f = getattr(tidx, attr)
+        again = TrieBuilder.from_frozen(f).freeze()
+        for field in FrozenTrie._ARRAY_FIELDS:
+            np.testing.assert_array_equal(getattr(again, field), getattr(f, field))
+    for idx in (jidx, tidx):
+        _insert_more(idx, names[50:], cites[50:], paras[50:], 50)
+        idx.freeze()
+    for attr in ("name_trie", "citation_trie", "content_trie"):
+        a, b = getattr(tidx, attr), getattr(jidx, attr)
+        for field in FrozenTrie._ARRAY_FIELDS:
+            np.testing.assert_array_equal(getattr(a, field), getattr(b, field), err_msg=f"{attr}.{field}")
+        assert a.vocab == b.vocab
+        assert a.num_postings > getattr(src, attr).num_postings
+    qs = _queries(names, cites, paras, seed=9)
+    np.testing.assert_array_equal(tidx.search_batch_rows(qs)[0], np.asarray(jidx.search_batch_rows(qs)[0]))
+
+
+def test_set_content_frozen_matches_jax(monkeypatch):
+    """An externally built content trie survives freeze(); a later content
+    insert rehydrates its builder first, in both packages."""
+    import trie_semantic_search_tpu.native as jax_native
+
+    monkeypatch.setattr(jax_native, "available", lambda: False)
+    names, cites, paras = _corpus(seed=11, n_cases=30)
+    jb, tb = JaxTrieBuilder(), TrieBuilder()
+    for row, p in enumerate(paras):
+        jb.insert(p, row, 0)
+        tb.insert(p, row, 0)
+    jidx, tidx = JaxTrieIndex(JaxTrieConfig()), TrieIndex(TrieConfig(), device="cpu")
+    jidx.set_content_frozen(jb.freeze())
+    tidx.set_content_frozen(tb.freeze())
+    for idx in (jidx, tidx):
+        idx.insert_case_name(names[0], 0)
+        idx.freeze()
+    for field in FrozenTrie._ARRAY_FIELDS:
+        np.testing.assert_array_equal(getattr(tidx.content_trie, field), getattr(jidx.content_trie, field))
+    for idx in (jidx, tidx):
+        idx.insert_content(["w1", "w2", "fresh"], 31, 0)
+        idx.freeze()
+    for field in FrozenTrie._ARRAY_FIELDS:
+        np.testing.assert_array_equal(getattr(tidx.content_trie, field), getattr(jidx.content_trie, field))
+    assert tidx.content_trie.vocab == jidx.content_trie.vocab

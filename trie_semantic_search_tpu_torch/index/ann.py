@@ -1,25 +1,38 @@
-"""Partitioned ANN index: load and serve.
+"""Partitioned ANN index: build, tune, save, load and serve.
 
-Port of ``trie_semantic_search_tpu/index/ann.py`` (state, ``load``,
-``load_dir``, ``default_nprobe``, ``search``, ``search_brute``). The frozen
-layout is the JAX package's: ``[P, m, D]`` int8 partition blocks with
-per-slot scales, a ``[P, m]`` slot→row map (-1 pads), ``[P, D]`` centroids
-and a bf16 rescore copy of the corpus held as a tuple of row segments.
-Both artifact formats the JAX package saves load here (``.npz`` with f16
-rescore members, and the raw ``.npy`` directory with uint16 bf16 bit
-views). Building (k-means, layout, replicas) comes with the build slice.
+Port of ``trie_semantic_search_tpu/index/ann.py`` (``build``, the layout
+helpers, ``tune_nprobe``, ``save``, ``save_dir``, ``load``, ``load_dir``,
+``default_nprobe``, ``search``, ``search_brute``). The frozen layout is the
+JAX package's: ``[P, m, D]`` int8 partition blocks with per-slot scales, a
+``[P, m]`` slot→row map (-1 pads), ``[P, D]`` centroids and a bf16 rescore
+copy of the corpus held as a tuple of row segments. Both artifact formats
+load and save here (``.npz`` with f16 rescore members, and the raw ``.npy``
+directory with uint16 bf16 bit views), so either package reads what the
+other wrote.
+
+``build`` runs each step where the JAX package runs it: k-means and the
+top-c centroid assignment on the index's device (:mod:`.kmeans`);
+normalisation, the capacity cap, the overflow rebalance, the pad-replica
+plan, the layout and the int8 quantisation in numpy on the host, so that
+from fixed centroids the layout is bitwise the JAX package's. The memmap
+emit of ``build_streaming`` comes with a later slice.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
+import shutil
+import time
+import zipfile
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+from numpy.lib import format as npformat
 
 from ..core.config import AnnConfig
 from ..core.errors import IndexCorrupted, VectorIndexConstructionFailed
@@ -32,6 +45,9 @@ from ..ops.scan_kernels import (
 )
 from ..ops.scoring import gather_rescore, l2_normalize
 from ..ops.topk import exact_topk, merge_topk, topk_by_score_then_row
+from .kmeans import assign_clusters, assign_topc, train_kmeans
+
+_log = logging.getLogger("tss_torch.ann")
 
 #: host rows copied per step when moving a (memmapped) array to the device
 _COPY_ROWS = 1 << 18
@@ -52,6 +68,154 @@ def to_device(arr: np.ndarray, device: torch.device, bf16_bits: bool = False) ->
             part = part.view(torch.bfloat16)
         out[lo : lo + _COPY_ROWS].copy_(part)
     return out
+
+
+# -- layout helpers (numpy, as in the JAX package) -----------------------------
+
+
+def _aligned_capacity(fill_max: int, quantize: bool) -> int:
+    """Partition slot capacity: 128-aligned (the probe kernel's block) when
+    that costs at most 15% over the 8-aligned capacity, else 8-aligned."""
+    m8 = max(8, -(-fill_max // 8) * 8)
+    m128 = max(128, -(-fill_max // 128) * 128)
+    if quantize and m128 <= 1.15 * m8:
+        return m128
+    return m8
+
+
+def _capacity_cap(n: int, P: int, overalloc: float) -> int:
+    """Per-partition slot cap, ``overalloc`` times the mean fill plus an
+    ``8·sqrt(mean)`` slack, so one giant cluster cannot size every
+    partition of the dense ``[P, m, D]`` layout."""
+    mean = -(-n // max(P, 1))
+    return max(8, int(overalloc * mean) + 8 * int(np.sqrt(mean)))
+
+
+def _rebalance_overflow(
+    assign: np.ndarray,  # [N] int32 partition per row (a changed copy is returned)
+    cap: int,
+    centroids: np.ndarray,  # [P, D] f32
+    norm_rows: Callable[[np.ndarray], np.ndarray],  # rows -> [len(rows), D] normalised
+    choices: int = 16,
+    slab: int = 16_384,
+) -> np.ndarray:
+    """Each overfull partition keeps its ``cap`` closest members (ties:
+    lower row id) and spills the rest to their best-scoring centroid with
+    free space, walking up to ``choices`` candidates in score order (ties:
+    lower partition id), else to the least-filled partition."""
+    n = len(assign)
+    P = centroids.shape[0]
+    counts = np.bincount(assign, minlength=P)
+    if not len(counts) or int(counts.max()) <= cap:
+        return assign
+    order = np.argsort(assign, kind="stable")  # partition-major, row asc
+    offs = np.zeros(P + 1, np.int64)
+    np.cumsum(counts, out=offs[1:])
+    spilled: list[np.ndarray] = []
+    for p in np.nonzero(counts > cap)[0]:
+        rows_p = order[offs[p] : offs[p] + counts[p]]
+        s = np.empty(len(rows_p), np.float32)
+        for lo in range(0, len(rows_p), slab):
+            s[lo : lo + slab] = norm_rows(rows_p[lo : lo + slab]) @ centroids[p]
+        keep = np.argsort(-s, kind="stable")[:cap]
+        mask = np.ones(len(rows_p), bool)
+        mask[keep] = False
+        spilled.append(rows_p[mask])
+    overflow_rows = np.sort(np.concatenate(spilled))
+    new_counts = np.minimum(counts, cap)
+    assign = assign.copy()
+    _log.info(
+        "partition overflow: %d/%d rows beyond cap %d (max fill %d); "
+        "reassigning to next-best centroids",
+        len(overflow_rows), n, cap, int(counts.max()),
+    )
+    for lo in range(0, len(overflow_rows), slab):
+        rows = overflow_rows[lo : lo + slab]
+        s = norm_rows(rows) @ centroids.T  # [r, P]
+        k = min(choices, P)
+        idx = np.argpartition(-s, k - 1, axis=1)[:, :k]
+        idx.sort(axis=1)  # ascending partition id → stable tie-break
+        sv = np.take_along_axis(s, idx, 1)
+        ord2 = np.argsort(-sv, axis=1, kind="stable")
+        cand = np.take_along_axis(idx, ord2, 1)
+        for i, row in enumerate(rows):
+            for c in cand[i]:
+                if new_counts[c] < cap:
+                    break
+            else:  # every candidate is full: the least-filled partition
+                c = int(np.argmin(new_counts))
+            assign[row] = c
+            new_counts[c] += 1
+    return assign
+
+
+def _plan_pad_replicas(
+    assign: np.ndarray,  # [N] final primary partition per row
+    counts: np.ndarray,  # [P] primary fill per partition
+    m: int,  # slot capacity
+    choices: np.ndarray,  # [N, C] top-C centroid ids per row (col 0 nearest)
+) -> tuple[np.ndarray, np.ndarray]:
+    """Replicas into the layout's padding slots: first the rows the
+    rebalance moved out of their nearest partition, then every other row
+    into its next choice with space; one replica per row, never in its own
+    partition, candidates in ascending row id per partition. Returns
+    ``(rows, parts)`` sorted by ``(part, row)``."""
+    n, C = choices.shape
+    P = len(counts)
+    free = (m - counts).astype(np.int64)
+    placed = np.zeros(n, bool)
+    out_r: list[np.ndarray] = []
+    out_p: list[np.ndarray] = []
+    scattered = choices[:, 0] != assign
+    for prio_mask in (scattered, ~scattered):
+        for col in range(C):
+            cand = np.flatnonzero(prio_mask & ~placed)
+            if not len(cand):
+                break
+            tgt = choices[cand, col]
+            ok = tgt != assign[cand]
+            cand, tgt = cand[ok], tgt[ok]
+            if not len(cand):
+                continue
+            order = np.lexsort((cand, tgt))  # part-major, row asc
+            cand, tgt = cand[order], tgt[order]
+            starts = np.concatenate([[0], np.flatnonzero(np.diff(tgt)) + 1])
+            reps = np.diff(np.concatenate([starts, [len(tgt)]]))
+            rank = np.arange(len(tgt)) - np.repeat(starts, reps)
+            take = rank < free[tgt]
+            if not take.any():
+                continue
+            tr, tp = cand[take], tgt[take]
+            free = free - np.bincount(tp, minlength=P)
+            placed[tr] = True
+            out_r.append(tr)
+            out_p.append(tp)
+    if not out_r:
+        return np.empty(0, np.int64), np.empty(0, np.int32)
+    rows = np.concatenate(out_r)
+    parts = np.concatenate(out_p).astype(np.int32)
+    order = np.lexsort((rows, parts))
+    return rows[order], parts[order]
+
+
+def _auto_partitions(n: int) -> int:
+    """``max(sqrt(N), N/1024)`` partitions, a multiple of 8, at least 8."""
+    p = max(8, int(np.sqrt(max(n, 1))), n // 1024)
+    return -(-p // 8) * 8
+
+
+def _fill_slots(part_rows: np.ndarray, base: np.ndarray, rows: np.ndarray, parts: np.ndarray) -> None:
+    """Write ``rows`` into ``part_rows`` after ``base[p]`` slots of each
+    partition, in order: the stable sort by partition gives each row the
+    slot a row-by-row append would."""
+    order = np.argsort(parts, kind="stable")
+    rows, parts = rows[order], parts[order]
+    starts = np.searchsorted(parts, parts, side="left")
+    part_rows[parts, base[parts] + (np.arange(len(parts)) - starts)] = rows
+
+
+#: rows normalised or quantised per host step (bounds the temporaries)
+_HOST_SLAB = 1 << 18
 
 
 @dataclass
@@ -79,6 +243,120 @@ class PartitionedANN:
         self.num_vectors = 0
         #: some rows occupy two slots (pad replicas): serving fetches 2x
         self._replicated = False
+        #: seconds of each stage of the last :meth:`build`
+        self.build_seconds: dict[str, float] = {}
+
+    # -- build ---------------------------------------------------------------
+
+    def build(
+        self,
+        vectors: np.ndarray,
+        seed: int = 0,
+        reuse_centroids: Optional[np.ndarray] = None,
+    ) -> None:
+        """Freeze the index from ``[N, D]`` float vectors (normalised here).
+        ``reuse_centroids`` skips k-means: the vectors are assigned to the
+        given partitioning. Stage times land in :attr:`build_seconds` (the
+        device is synchronised at each stage's end)."""
+        if vectors.ndim != 2 or vectors.shape[0] == 0:
+            raise VectorIndexConstructionFailed(f"need [N, D] vectors, got {vectors.shape}")
+        n, d = vectors.shape
+        cfg = self.config
+        dev = self.device
+        self._replicated = False
+        stages: dict[str, float] = {}
+        t_last = [time.perf_counter()]
+
+        def lap(name: str) -> None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            stages[name] = now - t_last[0]
+            t_last[0] = now
+
+        v = np.asarray(vectors, np.float32)
+        if not np.isfinite(v).all():
+            bad = int((~np.isfinite(v)).any(axis=1).sum())
+            _log.warning("%d/%d vectors contain non-finite values; zeroing them", bad, n)
+            v = np.nan_to_num(v, nan=0.0, posinf=0.0, neginf=0.0)
+        vn = np.empty((n, d), np.float32)
+        for lo in range(0, n, _HOST_SLAB):
+            s = v[lo : lo + _HOST_SLAB]
+            vn[lo : lo + _HOST_SLAB] = s / np.maximum(np.linalg.norm(s, axis=1, keepdims=True), 1e-12)
+        v = vn
+        lap("normalize")
+
+        if reuse_centroids is not None:
+            centroids = np.asarray(reuse_centroids, np.float32)
+            P = centroids.shape[0]
+        else:
+            P = cfg.num_partitions or _auto_partitions(n)
+            P = min(P, max(8, n))
+            centroids = train_kmeans(
+                v, P, iters=cfg.kmeans_iters, sample=cfg.kmeans_sample, seed=seed,
+                dedup=cfg.kmeans_dedup, device=dev,
+            )
+        lap("kmeans")
+        n_choices = max(2, cfg.replica_choices) if cfg.pad_replicas and P > 1 else 1
+        if n_choices > 1:
+            choices = assign_topc(v, centroids, n_choices, device=dev)
+            assign = choices[:, 0].copy()
+        else:
+            choices = None
+            assign = assign_clusters(v, centroids, device=dev)
+        lap("assign")
+        cap = _capacity_cap(n, P, cfg.partition_overalloc)
+        assign = _rebalance_overflow(assign, cap, centroids, lambda rows: v[rows])
+        lap("rebalance")
+
+        counts = np.bincount(assign, minlength=P)
+        fill_max = int(counts.max()) if counts.size else 1
+        m = _aligned_capacity(fill_max, cfg.quantize_int8)
+        part_rows = np.full((P, m), -1, np.int32)
+        _fill_slots(part_rows, np.zeros(P, np.int64), np.arange(n, dtype=np.int32), assign)
+        if choices is not None:
+            rep_rows, rep_parts = _plan_pad_replicas(assign, counts, m, choices)
+            _fill_slots(part_rows, counts, rep_rows.astype(np.int32), rep_parts)
+            if len(rep_rows):
+                _log.info(
+                    "pad replicas: %d rows duplicated into free slots "
+                    "(%.1f%% of %d slots were padding)",
+                    len(rep_rows), 100.0 * (P * m - n) / max(P * m, 1), P * m,
+                )
+            self._replicated = bool(len(rep_rows))
+        lap("layout")
+
+        safe_rows = np.maximum(part_rows, 0)
+        pad_mask = part_rows < 0
+        if cfg.quantize_int8:
+            scale = np.empty(n, np.float32)
+            q = np.empty((n, d), np.int8)
+            for lo in range(0, n, _HOST_SLAB):
+                s = v[lo : lo + _HOST_SLAB]
+                sc = np.maximum(np.max(np.abs(s), axis=1), 1e-12) / 127.0
+                scale[lo : lo + _HOST_SLAB] = sc
+                q[lo : lo + _HOST_SLAB] = np.clip(np.round(s / sc[:, None]), -127, 127).astype(np.int8)
+            part_int8 = q[safe_rows]
+            part_scale = scale[safe_rows].astype(np.float32)
+            del q
+        else:  # bf16 blocks with scale 1
+            part_int8 = v[safe_rows].astype(np.float32)
+            part_scale = np.ones((P, m), np.float32)
+        part_int8[pad_mask] = 0
+        part_scale[pad_mask] = 0.0
+
+        self.centroids = torch.tensor(centroids, device=dev)
+        self.part_rows = torch.as_tensor(part_rows, device=dev)
+        blocks = torch.as_tensor(part_int8, device=dev)
+        self.part_int8 = blocks if cfg.quantize_int8 else blocks.to(torch.bfloat16)
+        self.part_scale = torch.as_tensor(part_scale, device=dev)
+        del part_int8, blocks
+        self.corpus_bf16 = split_rescore_corpus(
+            v, to_device=lambda seg: torch.as_tensor(seg, device=dev).to(torch.bfloat16)
+        )
+        self.num_vectors = n
+        lap("quantize_upload")
+        self.build_seconds = stages
 
     # -- loading -------------------------------------------------------------
 
@@ -276,6 +554,107 @@ class PartitionedANN:
                 )
             base += seg.shape[0]
         return best_v.cpu().numpy(), best_i.to(torch.int32).cpu().numpy()
+
+    def tune_nprobe(
+        self, sample_queries: np.ndarray, k: int = 10, target_recall: float = 0.95,
+    ) -> int:
+        """The smallest ``nprobe`` (power-of-two sweep, then one midpoint)
+        whose tie-aware recall@k against :meth:`search_brute` reaches
+        ``target_recall`` on ``sample_queries``: a hit is any result scoring
+        at least the exact scan's k-th score minus 1e-5. Kept as the
+        instance's :attr:`tuned_nprobe`."""
+        self._require_built()
+        ov, _ = self.search_brute(sample_queries, k)
+        thresh = np.asarray(ov)[:, k - 1 : k] - 1e-5
+
+        def recall_at(nprobe: int) -> float:
+            gv, _ = self.search(sample_queries, k, nprobe=nprobe)
+            return float(np.mean(np.asarray(gv) >= thresh))
+
+        P = int(self.centroids.shape[0])
+        start = max(1, self.default_nprobe // 2)
+        n = 1 << (start - 1).bit_length()  # next power of two >= start
+        if recall_at(n) >= target_recall:
+            hi = n
+            while hi > 1:  # descend while the target still holds
+                half = hi // 2
+                if recall_at(half) < target_recall:
+                    break
+                hi = half
+        else:
+            lo = n
+            while True:
+                n *= 2
+                if n >= P:
+                    hi = P
+                    break
+                if recall_at(n) >= target_recall:
+                    hi = n
+                    break
+                lo = n
+            if hi < P and hi - lo > 1:  # one midpoint refine
+                mid = (lo + hi) // 2
+                if recall_at(mid) >= target_recall:
+                    hi = mid
+        self.tuned_nprobe = hi
+        return hi
+
+    def _meta(self) -> dict:
+        return {
+            "num_vectors": self.num_vectors,
+            "int8_blocks": self.part_int8.dtype == torch.int8,
+            "rescore_segments": len(self.corpus_bf16),
+            "num_probes": int(self.tuned_nprobe or self.config.num_probes),
+            "replicated": bool(self._replicated),
+        }
+
+    def save(self, path: str | Path) -> None:
+        """Persist as an ``np.load``-compatible npz zip: bf16 blocks and
+        rescore segments as f16, one rescore segment per member, written
+        one at a time."""
+        self._require_built()
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        meta = self._meta()
+        with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED, allowZip64=True) as zf:
+            def put(name: str, arr: np.ndarray) -> None:
+                with zf.open(name + ".npy", "w", force_zip64=True) as f:
+                    npformat.write_array(f, np.asanyarray(arr), allow_pickle=False)
+
+            put("centroids", self.centroids.cpu().numpy())
+            put("part_rows", self.part_rows.cpu().numpy())
+            if meta["int8_blocks"]:
+                put("part_int8", self.part_int8.cpu().numpy())
+            else:
+                put("part_int8", self.part_int8.float().cpu().numpy().astype(np.float16))
+            put("part_scale", self.part_scale.cpu().numpy())
+            put("meta", np.array(json.dumps(meta)))
+            for i, s in enumerate(self.corpus_bf16):
+                put(f"corpus_f16_{i}", s.float().cpu().numpy().astype(np.float16))
+
+    def save_dir(self, path: str | Path) -> None:
+        """Persist as a directory of raw ``.npy`` files plus ``meta.json``
+        (bf16 arrays as uint16 bit views), written to ``<path>.tmp`` and
+        renamed over ``path``."""
+        self._require_built()
+        path = Path(path)
+        tmp = path.with_name(path.name + ".tmp")
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        meta = self._meta()
+        bf16_bits = lambda t: t.view(torch.int16).cpu().numpy().view(np.uint16)  # noqa: E731
+        np.save(tmp / "part_int8.npy",
+                self.part_int8.cpu().numpy() if meta["int8_blocks"] else bf16_bits(self.part_int8))
+        np.save(tmp / "centroids.npy", self.centroids.cpu().numpy())
+        np.save(tmp / "part_rows.npy", self.part_rows.cpu().numpy())
+        np.save(tmp / "part_scale.npy", self.part_scale.cpu().numpy())
+        for i, s in enumerate(self.corpus_bf16):
+            np.save(tmp / f"rescore_{i}.npy", bf16_bits(s))
+        (tmp / "meta.json").write_text(json.dumps(meta))
+        if path.exists():
+            shutil.rmtree(path)
+        tmp.rename(path)
 
     def get_stats(self) -> AnnStats:
         if self.centroids is None:

@@ -5,9 +5,11 @@ Port of ``trie_semantic_search_tpu/index/trie.py``: three token-level tries
 frozen into CSR arrays with DFS pre-order node ids and the same ``.npz`` /
 ``.mmap`` artifact format, so tries saved by the JAX package load here
 unchanged. The walk and postings gathers run in PyTorch
-(:mod:`..ops.trie_kernels`) on the index's device. The native C++ builder
-comes with the build slice; this module freezes with the Python builder,
-which the JAX package holds bit-identical to it.
+(:mod:`..ops.trie_kernels`) on the index's device. This module freezes with
+the Python builder, which the JAX package holds bit-identical to its native
+one. After ``load_from_disk`` the builders are rehydrated from the frozen
+arrays at the first insert (``TrieBuilder.from_frozen``), so inserting into
+a loaded index and freezing gives what the JAX package gives.
 """
 
 from __future__ import annotations
@@ -109,6 +111,29 @@ class TrieBuilder:
         node.is_end = True
         node.postings.append((case_row, para_idx))
         node.frequency += 1
+
+    @classmethod
+    def from_frozen(cls, frozen: "FrozenTrie") -> "TrieBuilder":
+        """A builder holding ``frozen``'s paths, postings (in their per-node
+        order), end flags and frequencies: ``from_frozen(f).freeze()``
+        gives ``f`` back bit for bit."""
+        b = cls()
+        b.vocab = dict(frozen.vocab)
+        N = frozen.num_nodes
+        nodes = [_Node() for _ in range(max(N, 1))]
+        b.root = nodes[0]
+        eo, et, tg = frozen.edge_offsets, frozen.edge_tokens, frozen.edge_targets
+        po, pc, pp = frozen.post_offsets, frozen.post_case, frozen.post_para
+        for n in range(N):
+            node = nodes[n]
+            for e in range(int(eo[n]), int(eo[n + 1])):
+                node.children[int(et[e])] = nodes[int(tg[e])]
+            s, e_ = int(po[n]), int(po[n + 1])
+            node.postings = list(zip(pc[s:e_].tolist(), pp[s:e_].tolist()))
+            node.is_end = bool(frozen.is_end[n])
+            node.frequency = int(frozen.frequency[n])
+        b.num_nodes = max(N, 1)
+        return b
 
     def freeze(self) -> "FrozenTrie":
         """Compile to CSR arrays: DFS pre-order node ids (children in token
@@ -413,21 +438,28 @@ class TrieIndex:
         self._citation: Optional[FrozenTrie] = None
         self.content_window = self.config.content_window
         self.max_windows_per_paragraph = self.config.max_windows_per_paragraph
-        #: set by load_from_disk: the frozen tries hold content the empty
-        #: builders do not, so freeze() keeps them and inserts are refused
-        self._loaded = False
+        #: set by load_from_disk: the builders are empty while the frozen
+        #: tries hold content. The first insert rehydrates them; freeze()
+        #: with no insert since keeps the loaded state
+        self._builders_stale = False
+        #: set by set_content_frozen: the content trie was built elsewhere
+        #: and has no resident builder
+        self._content_external = False
 
-    def _check_insertable(self) -> None:
-        if self._loaded:
-            raise NotImplementedError(
-                "inserting into a loaded trie index needs builder rehydration, "
-                "which is not ported yet; rebuild the index instead"
-            )
+    def _ensure_builders(self) -> None:
+        """Rehydrate the three builders from the loaded frozen tries before
+        the first insert after ``load_from_disk``."""
+        if not self._builders_stale:
+            return
+        self._name_builder = TrieBuilder.from_frozen(self._name)
+        self._content_builder = TrieBuilder.from_frozen(self._content)
+        self._citation_builder = TrieBuilder.from_frozen(self._citation)
+        self._builders_stale = False
 
     def insert_case_name(self, case_name: str, case_row: int) -> None:
         if not self.config.index_case_names:
             return
-        self._check_insertable()
+        self._ensure_builders()
         self._name_builder.insert(word_tokens(case_name), case_row, 0)
         self._name = None
 
@@ -435,7 +467,10 @@ class TrieIndex:
         toks = word_tokens(" ".join(tokens))
         if not toks:
             return
-        self._check_insertable()
+        self._ensure_builders()
+        if self._content_external:
+            self._content_builder = TrieBuilder.from_frozen(self._content)
+            self._content_external = False
         mode = self.config.content_windowing
         if mode == "all":
             starts = range(min(len(toks), self.max_windows_per_paragraph))
@@ -448,16 +483,25 @@ class TrieIndex:
     def insert_citation(self, citation: str, case_row: int, para_idx: int = 0) -> None:
         if not self.config.index_citations:
             return
-        self._check_insertable()
+        self._ensure_builders()
         self._citation_builder.insert(citation.split(), case_row, para_idx)
         self._citation = None
 
     def freeze(self) -> None:
-        if self._loaded:
+        """Compile the three tries; a no-op after a bare ``load_from_disk``
+        (the loaded state is current)."""
+        if self._builders_stale:
             return
         self._name = self._name_builder.freeze()
-        self._content = self._content_builder.freeze()
+        if not self._content_external:
+            self._content = self._content_builder.freeze()
         self._citation = self._citation_builder.freeze()
+
+    def set_content_frozen(self, frozen: FrozenTrie) -> None:
+        """Install a content trie built elsewhere: ``freeze()`` keeps it, and
+        a later ``insert_content`` rehydrates the builder from it first."""
+        self._content = frozen
+        self._content_external = True
 
     @property
     def name_trie(self) -> FrozenTrie:
@@ -551,5 +595,5 @@ class TrieIndex:
         idx._name = FrozenTrie.load(base / "name_trie.npz")
         idx._content = FrozenTrie.load(base / "content_trie.npz")
         idx._citation = FrozenTrie.load(base / "citation_trie.npz")
-        idx._loaded = True
+        idx._builders_stale = True
         return idx

@@ -1,19 +1,23 @@
-"""Vector index: embedder + partitioned ANN + embedding cache (load and
-serve).
+"""Vector index: embedder + partitioned ANN + embedding cache.
 
 Port of ``trie_semantic_search_tpu/index/vector.py``: ``generate_embeddings``
-(cache, then one batched encode for the misses), the staged search
-(``search``, ``search_batch``, ``search_embedded``: probe for small
-batches, the exact scan from 64 queries or below 10,000 chunks), ``load``
-of the JAX package's artifact directory (``refs.npz``, ``vectors.npy``
-memmapped, ``ann.mmap/`` or ``ann.npz``), and the ``vectors``/``refs``
-views the fused search reads. ``vectors`` stays a memmap: the partitioned serving mode
-reads only its length, and an f32 host copy at 5M chunks would be 8 GB.
+(cache, then one batched encode for the misses), the build side
+(``add_document``, ``embed_pending``, ``freeze``: documents pend on the
+host, embed in bounded flushes, then the ANN builds over all of them), the
+staged search (``search``, ``search_batch``, ``search_embedded``: probe for
+small batches, the exact scan from 64 queries or below 10,000 chunks),
+``save`` and ``load`` of the artifact directory (``refs.npz``,
+``vectors.npy`` memmapped, ``ann.mmap/`` or ``ann.npz``; without an ANN
+artifact the ANN is rebuilt from the vectors), and the ``vectors``/``refs``
+views the fused search reads. A loaded ``vectors`` stays a memmap: the
+partitioned serving mode reads only its length, and an f32 host copy at 5M
+chunks would be 8 GB.
 """
 
 from __future__ import annotations
 
 import logging
+import shutil
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Sequence
@@ -21,13 +25,17 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..core.config import VectorConfig
-from ..core.errors import AnnSearchError, VectorIndexConstructionFailed
+from ..core.errors import AnnSearchError
 from ..device import DeviceLike, resolve_device
 from ..models.embedder import Embedder
 from ..search.cache import VectorCache
 from .ann import AnnStats, PartitionedANN
 
 _log = logging.getLogger("tss_torch.vector")
+
+#: ANN artifacts above this many bytes save as a raw-.npy directory
+#: (``ann.mmap/``) instead of a DEFLATE npz
+_ANN_MMAP_SAVE_BYTES = 64 * 2**20
 
 
 @dataclass
@@ -62,6 +70,8 @@ class VectorIndex:
         self.embedder = embedder or Embedder(self.config.model, device=self.device)
         self.cache = VectorCache(max_size=1000)
         self.ann = PartitionedANN(self.config.hnsw, device=self.device)
+        self._pending_texts: list[str] = []
+        self._pending_refs: list[tuple[int, int]] = []  # (case_row, para)
         self._refs: "np.ndarray | list" = []
         self._vectors: Optional[np.ndarray] = None
 
@@ -75,6 +85,44 @@ class VectorIndex:
                 out[i] = np.asarray(embs[j])
                 self.cache.put(texts[i], out[i])
         return np.stack(out)  # type: ignore[arg-type]
+
+    # -- building --------------------------------------------------------------
+
+    def add_document(self, case_row: int, text: str, paragraph_index: int = 0) -> None:
+        self._pending_texts.append(text)
+        self._pending_refs.append((case_row, paragraph_index))
+
+    def add_documents(self, items: Sequence[tuple[int, int, str]]) -> None:
+        """Bulk add: ``(case_row, paragraph_index, text)``."""
+        for row, para, text in items:
+            self.add_document(row, text, para)
+
+    def embed_pending(self, flush_threshold: int = 0) -> int:
+        """Embed the pending documents into the vector store, without an
+        ANN rebuild; a no-op until ``flush_threshold`` are pending. Returns
+        the number embedded."""
+        if not self._pending_texts or len(self._pending_texts) < flush_threshold:
+            return 0
+        n = len(self._pending_texts)
+        embs = self.embedder.embed(self._pending_texts).embedding
+        self._vectors = embs if self._vectors is None else np.concatenate([self._vectors, embs])
+        if isinstance(self._refs, np.ndarray):  # loaded form
+            self._refs = np.concatenate(
+                [self._refs, np.asarray(self._pending_refs, np.int32).reshape(-1, 2)]
+            )
+        else:
+            self._refs.extend(self._pending_refs)
+        self._pending_texts = []
+        self._pending_refs = []
+        return n
+
+    def freeze(self, seed: int = 0) -> None:
+        """Embed the pending documents and (re)build the ANN over all."""
+        self.embed_pending()
+        if self._vectors is not None and len(self._vectors):
+            self.ann.build(self._vectors, seed=seed)
+
+    # -- search ------------------------------------------------------------------
 
     def search(
         self, query: str, top_k: int = 50, use_brute: Optional[bool] = None
@@ -154,8 +202,45 @@ class VectorIndex:
         self._vectors = vectors
         self.ann = ann
 
+    def save(self, path: str | Path) -> None:
+        """Persist refs, vectors and the ANN: ``refs.npz``, an uncompressed
+        ``vectors.npy`` copied slab by slab, and ``ann.mmap/`` above
+        :data:`_ANN_MMAP_SAVE_BYTES`, else ``ann.npz``."""
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        if self.ann.num_vectors:
+            if self.ann.get_stats().nbytes_total > _ANN_MMAP_SAVE_BYTES:
+                self.ann.save_dir(path / "ann.mmap")
+                (path / "ann.npz").unlink(missing_ok=True)
+            else:
+                self.ann.save(path / "ann.npz")
+                if (path / "ann.mmap").exists():
+                    shutil.rmtree(path / "ann.mmap")
+        refs = np.asarray(self._refs, np.int32) if len(self._refs) else np.zeros((0, 2), np.int32)
+        np.savez_compressed(path / "refs.npz", refs=refs)
+        vec_path = path / "vectors.npy"
+        src = self._vectors
+        if src is not None and len(src):
+            if (
+                isinstance(src, np.memmap)
+                and getattr(src, "filename", None) is not None
+                and Path(src.filename).resolve() == vec_path.resolve()
+            ):
+                return  # saved in place already (a re-save after load)
+            out = np.lib.format.open_memmap(
+                vec_path, mode="w+", dtype=np.float32, shape=(len(src), src.shape[1])
+            )
+            step = 1 << 18
+            for lo in range(0, len(src), step):
+                out[lo : lo + step] = src[lo : lo + step]
+            out.flush()
+            del out
+        elif vec_path.exists():
+            vec_path.unlink()
+
     def load(self, path: str | Path) -> None:
-        """Load the JAX package's ``VectorIndex.save`` directory."""
+        """Load a ``VectorIndex.save`` directory (either package's). Without
+        an ANN artifact the ANN is rebuilt from the saved vectors."""
         path = Path(path)
         with np.load(path / "refs.npz", allow_pickle=False) as z:
             self._refs = z["refs"].astype(np.int32)
@@ -175,6 +260,4 @@ class VectorIndex:
             self.ann = PartitionedANN.load(ann_npz, self.config.hnsw, self.device)
             return
         if self._vectors is not None and len(self._vectors):
-            raise VectorIndexConstructionFailed(
-                "no ANN artifact next to the vectors; building one is not ported yet"
-            )
+            self.ann.build(self._vectors)

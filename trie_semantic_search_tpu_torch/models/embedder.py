@@ -7,15 +7,18 @@ and batches to the shared serving ladder (``utils.batch_bucket``), the same
 shapes the JAX embedder runs (:162-184).
 
 Weights come from a :class:`~.minilm.MiniLM` the caller passes (for
-example one loaded with :func:`~.minilm.params_from_jax`) or a seeded
-init; reading a HuggingFace checkpoint from ``model_path`` is not ported
-yet.
+example one loaded with :func:`~.minilm.params_from_jax`), else from the
+HuggingFace checkpoint at ``config.model_path`` when that path exists, else
+a seeded init (also when the checkpoint cannot be read: a warning is
+logged, as the JAX embedder does, :79-93).
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
@@ -28,6 +31,7 @@ from ..utils import batch_bucket
 from . import minilm
 from .tokenizer import WordPieceTokenizer, load_tokenizer
 
+_log = logging.getLogger("tss_torch.embedder")
 
 @dataclass
 class EmbeddingResult:
@@ -68,6 +72,15 @@ class Embedder:
                 max_position=self.config.max_sequence_length,
             )
             self.model = minilm.MiniLM(self.model_config, device=self.device, seed=seed)
+            mp = Path(self.config.model_path)
+            if mp.exists():
+                try:
+                    loaded = minilm.load_hf_checkpoint(mp, self.model_config)
+                except (KeyError, ValueError, ImportError) as e:
+                    _log.warning("HF checkpoint load failed (%s); random init", e)
+                else:
+                    if loaded is not None:
+                        self.model.load_params(loaded)
         self.token_weights = None
         self.set_token_weights(token_weights)
 

@@ -11,6 +11,9 @@ unchanged and both packages compute the same function.
 Numerics, site by site as the JAX code has them: every projection is a
 bf16 product accumulated in f32 and rounded to bf16 once, plus a bf16 bias;
 the attention scores and context are f32 sums of bf16 products.
+
+:func:`load_hf_checkpoint` reads a local HuggingFace checkpoint into the
+same layout, as the JAX package's loader does (:331-403 there).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Mapping, Optional
 
 import numpy as np
@@ -97,6 +101,83 @@ def params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]]) -> dict[str, t
         for name, arr in tree[group].items():
             out[f"{group}.{name}"] = torch.from_numpy(np.array(arr, np.float32))
     return out
+
+
+#: key prefixes a HuggingFace BERT/MiniLM state dict may carry
+_HF_PREFIXES = ("", "bert.", "encoder.", "0.auto_model.")
+
+
+def load_hf_checkpoint(path: str | Path, config: MiniLMConfig) -> Optional[dict[str, torch.Tensor]]:
+    """A local HuggingFace BERT/MiniLM checkpoint (a directory holding
+    ``model.safetensors`` or ``pytorch_model.bin``) as a :class:`MiniLM`
+    state dict, or None when neither file is there. Port of the JAX
+    package's ``load_hf_checkpoint``: the same key prefixes, and torch
+    ``Linear`` weights (``[out, in]``) transposed to ``[in, out]`` kernels.
+    Raises ``KeyError`` for a missing tensor and ``ValueError`` for one of
+    the wrong shape."""
+    path = Path(path)
+    state: Optional[dict[str, np.ndarray]] = None
+    if path.is_dir():
+        st, pt = path / "model.safetensors", path / "pytorch_model.bin"
+        if st.exists():
+            from safetensors.numpy import load_file
+
+            state = dict(load_file(str(st)))
+        elif pt.exists():
+            raw = torch.load(str(pt), map_location="cpu", weights_only=True)
+            state = {k: v.numpy() for k, v in raw.items()}
+    if state is None:
+        return None
+
+    def get(name: str) -> np.ndarray:
+        for pre in _HF_PREFIXES:
+            if pre + name in state:
+                return state[pre + name]
+        raise KeyError(name)
+
+    def stacked(fmt: str, transpose: bool = False) -> np.ndarray:
+        return np.stack([
+            get(fmt.format(i)).T if transpose else get(fmt.format(i))
+            for i in range(config.num_layers)
+        ])
+
+    A = "encoder.layer.{}.attention.self."
+    AO = "encoder.layer.{}.attention.output."
+    FF = "encoder.layer.{}."
+    tree = {
+        "embeddings": {
+            "word": get("embeddings.word_embeddings.weight"),
+            "position": get("embeddings.position_embeddings.weight"),
+            "token_type": get("embeddings.token_type_embeddings.weight"),
+            "ln_scale": get("embeddings.LayerNorm.weight"),
+            "ln_bias": get("embeddings.LayerNorm.bias"),
+        },
+        "layers": {
+            "q_kernel": stacked(A + "query.weight", True),
+            "q_bias": stacked(A + "query.bias"),
+            "k_kernel": stacked(A + "key.weight", True),
+            "k_bias": stacked(A + "key.bias"),
+            "v_kernel": stacked(A + "value.weight", True),
+            "v_bias": stacked(A + "value.bias"),
+            "o_kernel": stacked(AO + "dense.weight", True),
+            "o_bias": stacked(AO + "dense.bias"),
+            "attn_ln_scale": stacked(AO + "LayerNorm.weight"),
+            "attn_ln_bias": stacked(AO + "LayerNorm.bias"),
+            "wi_kernel": stacked(FF + "intermediate.dense.weight", True),
+            "wi_bias": stacked(FF + "intermediate.dense.bias"),
+            "wo_kernel": stacked(FF + "output.dense.weight", True),
+            "wo_bias": stacked(FF + "output.dense.bias"),
+            "mlp_ln_scale": stacked(FF + "output.LayerNorm.weight"),
+            "mlp_ln_bias": stacked(FF + "output.LayerNorm.bias"),
+        },
+    }
+    for group, shapes in param_shapes(config).items():
+        for name, shape in shapes.items():
+            if tuple(tree[group][name].shape) != tuple(shape):
+                raise ValueError(
+                    f"{group}.{name} has shape {tree[group][name].shape}, expected {shape}"
+                )
+    return params_from_jax(tree)
 
 
 def _layer_norm(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:

@@ -3,8 +3,9 @@ store.py``): sqlite with two tables, case metadata as JSON plus indexed
 court and date columns, and case text as gzip blobs. The schema and the
 encodings are the JAX package's, so either package reads a database the
 other wrote; dense row ids follow sqlite's rowid order
-(:meth:`StorageManager.fetch_filter_columns`). The serving side and the
-batch write; the ingest, rebuild and backup helpers come with the slices
+(:meth:`StorageManager.fetch_filter_columns`). The serving side, the batch
+write and the index build's iteration (``iter_cases``,
+``iter_cases_rowid``); the ingest and backup helpers come with the slices
 that call them.
 """
 
@@ -18,7 +19,7 @@ import threading
 import uuid
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 from ..core.config import StorageConfig
 from ..core.errors import (
@@ -48,6 +49,50 @@ CREATE TABLE IF NOT EXISTS case_text (
     text BLOB NOT NULL
 );
 """
+
+
+# Upserts (NOT "INSERT OR REPLACE", which delete+reinserts and assigns a NEW
+# rowid): fetch_filter_columns orders by rowid and promises dense row ids
+# stable under append, so rewrites (e.g. the reprocess job) must preserve
+# each case's rowid.
+UPSERT_METADATA = (
+    "INSERT INTO case_metadata "
+    "(case_id, name, citation, court, decision_date, metadata_json) "
+    "VALUES (?, ?, ?, ?, ?, ?) "
+    "ON CONFLICT(case_id) DO UPDATE SET "
+    "name=excluded.name, citation=excluded.citation, "
+    "court=excluded.court, decision_date=excluded.decision_date, "
+    "metadata_json=excluded.metadata_json"
+)
+UPSERT_TEXT = (
+    "INSERT INTO case_text (case_id, compressed, text) "
+    "VALUES (?, ?, ?) "
+    "ON CONFLICT(case_id) DO UPDATE SET "
+    "compressed=excluded.compressed, text=excluded.text"
+)
+
+
+def metadata_row(metadata: CaseMetadata) -> tuple:
+    """The :data:`UPSERT_METADATA` parameters of ``metadata``: its indexed
+    columns and its JSON without ``full_text`` (text lives in its own
+    table)."""
+    doc = metadata.to_json()
+    doc.pop("full_text", None)
+    return (
+        str(metadata.id),
+        metadata.name,
+        metadata.citation,
+        metadata.court,
+        metadata.decision_date.isoformat(),
+        json.dumps(doc),
+    )
+
+
+def text_row(case_id: CaseId, text: str, compress: bool) -> tuple:
+    """The :data:`UPSERT_TEXT` parameters of a case's text: gzip'd when
+    ``compress``."""
+    raw = text.encode("utf-8")
+    return (str(case_id), 1 if compress else 0, gzip.compress(raw) if compress else raw)
 
 
 @dataclass(slots=True)
@@ -88,34 +133,12 @@ class StorageManager:
 
     def store_case_metadata(self, metadata: CaseMetadata) -> None:
         try:
-            doc = metadata.to_json()
-            doc.pop("full_text", None)  # text lives in its own tree
-            payload = json.dumps(doc)
+            row = metadata_row(metadata)
         except (TypeError, ValueError) as e:
             raise SerializationFailed(data_type="CaseMetadata", reason=str(e)) from e
         with self._lock:
             try:
-                # Upsert (NOT "INSERT OR REPLACE", which delete+reinserts and
-                # assigns a NEW rowid): fetch_filter_columns orders by rowid
-                # and promises dense row ids stable under append, so rewrites
-                # (e.g. the reprocess job) must preserve each case's rowid.
-                self._conn.execute(
-                    "INSERT INTO case_metadata "
-                    "(case_id, name, citation, court, decision_date, metadata_json) "
-                    "VALUES (?, ?, ?, ?, ?, ?) "
-                    "ON CONFLICT(case_id) DO UPDATE SET "
-                    "name=excluded.name, citation=excluded.citation, "
-                    "court=excluded.court, decision_date=excluded.decision_date, "
-                    "metadata_json=excluded.metadata_json",
-                    (
-                        str(metadata.id),
-                        metadata.name,
-                        metadata.citation,
-                        metadata.court,
-                        metadata.decision_date.isoformat(),
-                        payload,
-                    ),
-                )
+                self._conn.execute(UPSERT_METADATA, row)
                 self._conn.commit()
             except sqlite3.Error as e:
                 raise DatabaseError(str(e)) from e
@@ -191,18 +214,10 @@ class StorageManager:
         return out
 
     def store_case_text(self, case_id: CaseId, text: str) -> None:
-        raw = text.encode("utf-8")
-        compressed = 1 if self.config.enable_compression else 0
-        blob = gzip.compress(raw) if compressed else raw
+        row = text_row(case_id, text, self.config.enable_compression)
         with self._lock:
             try:
-                self._conn.execute(
-                    "INSERT INTO case_text (case_id, compressed, text) "
-                    "VALUES (?, ?, ?) "
-                    "ON CONFLICT(case_id) DO UPDATE SET "
-                    "compressed=excluded.compressed, text=excluded.text",
-                    (str(case_id), compressed, blob),
-                )
+                self._conn.execute(UPSERT_TEXT, row)
                 self._conn.commit()
             except sqlite3.Error as e:
                 raise DatabaseError(str(e)) from e
@@ -224,6 +239,13 @@ class StorageManager:
                 location=f"case_text/{case_id}", details=str(e)
             ) from e
 
+    def list_case_ids(self) -> list[CaseId]:
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT case_id FROM case_metadata ORDER BY case_id"
+            ).fetchall()
+        return [uuid.UUID(r[0]) for r in rows]
+
     def store_cases_batch(
         self, cases: Sequence[tuple[CaseMetadata, str]]
     ) -> tuple[int, list[tuple[CaseId, str]]]:
@@ -241,6 +263,57 @@ class StorageManager:
                 errors.append((metadata.id, str(e)))
         self.flush()
         return stored, errors
+
+    # -- iteration helpers for index builds ---------------------------------
+
+    def iter_cases(self) -> Iterator[tuple[CaseMetadata, str]]:
+        """Stream (metadata, full_text) pairs in case-id order."""
+        for case_id in self.list_case_ids():
+            meta = self.get_case_metadata(case_id)
+            if meta is None:
+                continue
+            yield meta, self.get_case_text(case_id) or ""
+
+    def iter_cases_rowid(
+        self, start_row: int = 0, batch: int = 256
+    ) -> Iterator[tuple[int, CaseMetadata, str]]:
+        """Stream ``(dense_row, metadata, full_text)`` in rowid order, the
+        order of :meth:`fetch_filter_columns`, so the yielded index is the
+        dense device row id. ``start_row`` skips rows already processed.
+        Reads in bounded batches (keyset pagination on rowid)."""
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT rowid FROM case_metadata ORDER BY rowid LIMIT 1 OFFSET ?",
+                (start_row,),
+            ).fetchone()
+        if row is None:
+            return
+        last_rowid = row[0] - 1
+        dense = start_row
+        while True:
+            with self._lock:
+                rows = self._conn.execute(
+                    "SELECT m.rowid, m.metadata_json, t.compressed, t.text "
+                    "FROM case_metadata m "
+                    "LEFT JOIN case_text t ON t.case_id = m.case_id "
+                    "WHERE m.rowid > ? ORDER BY m.rowid LIMIT ?",
+                    (last_rowid, batch),
+                ).fetchall()
+            if not rows:
+                return
+            for rowid, meta_json, compressed, blob in rows:
+                last_rowid = rowid
+                try:
+                    meta = CaseMetadata.from_json(json.loads(meta_json))
+                except (ValueError, KeyError) as e:
+                    raise StorageCorruption(
+                        location=f"case_metadata/rowid={rowid}", details=str(e)
+                    ) from e
+                text = ""
+                if blob is not None:
+                    text = (gzip.decompress(blob) if compressed else blob).decode("utf-8")
+                yield dense, meta, text
+                dense += 1
 
     def fetch_filter_columns(self) -> list[tuple[str, str, str]]:
         """(case_id, court, decision_date) rows for the device-column export.
