@@ -37,10 +37,14 @@ What it does, in order (any failure exits non-zero before the last line):
    B=256 stream, plus lane ties, a short last step and D=80; then the dp4a
    variant once through its own path, ``fused_scan_topk`` at T=17;
    ``torch._int_mm`` of the slab's int8 product is timed beside it. The
-   int8 top-k runs first at the small shapes of the CPU tests (k up to
-   128, ragged N, +-0 ties), then at B=256, k=32 over the whole corpus
-   viewed flat, then once through its own path, the public op
-   ``fused_int8_topk``. Launch counts are reset just before each path.
+   int8 top-k's two variants (``int8_topk``: wgmma, D % 32 == 0;
+   ``int8_topk_dp4a``: the rest) run first at small shapes (k up to 128,
+   ragged N, part query tiles, +-0 ties, duplicates across 64- and 128-row
+   edges; D=48 on the dp4a variant), then over the whole corpus viewed
+   flat at B=256, k=32 (both variants), B=256, k=128 and B=64, k=32, with
+   ``torch._int_mm`` of the same int8 product beside them, then once
+   through each variant's path, the public op ``fused_int8_topk`` at
+   D=384 and at D=48. Launch counts are reset just before each path.
 5. Build, ANN at full size: the corpus rows of phase 3, in generation
    order, as f32 on the host, through ``PartitionedANN(AnnConfig(),
    device="cuda").build`` (P=5120 by ``_auto_partitions``; k-means on a
@@ -49,7 +53,9 @@ What it does, in order (any failure exits non-zero before the last line):
    host). Prints each stage's time, the slot capacity m, the rows moved by
    the overflow rebalance, the pad replicas and the index's bytes. Checks:
    on one 65,536-row block the card's nearest centroid equals the CPU's
-   except on rows whose top-two scores lie within 1e-5; a 524,288-row
+   except on rows whose top-two scores lie within 1e-5; with a copy of
+   one centroid as the last id, assignment, top-3 and the Lloyd steps'
+   pick keep the lower id first and the copy right behind; a 524,288-row
    subset (every tenth row) built twice from the same centroids is
    bitwise the same;
    ``tune_nprobe`` on 64 rows at target 0.95 picks an nprobe under P, at
@@ -93,7 +99,7 @@ What it does, in order (any failure exits non-zero before the last line):
 The line before the last is a JSON object with one entry per kernel:
 ``launches`` counts the kernel on the path that reaches it (the
 ``query_batch`` run for the three serving kernels, ``fused_int8_topk`` for
-the int8 top-k, ``fused_scan_topk`` at T=17 for the fused scan's dp4a
+the int8 top-k (at D=48 for its dp4a variant), ``fused_scan_topk`` at T=17 for the fused scan's dp4a
 variant, which the serving paths must not launch) and ``launches_by_path``
 on each path (``build``: phase 5's recall search). The last line is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -102,7 +108,9 @@ on each path (``build``: phase 5's recall search). The last line is
 ``python3 chip_smoke.py --only kernels`` runs phases 1, 2 and 4 (and the
 card state of 3) and skips the builds, serving, the profile, the store and
 the engine: about a minute, for iterating on a kernel. Its serving kernels
-print ``"launches": null``.
+print ``"launches": null``. ``--only int8-ablations`` builds the ablation
+variants of the int8 top-k's wgmma kernel (``TSS_INT8_TOPK_ABLATE``) and
+prints the device time of each at B=256, k=32 over the corpus of phase 3.
 """
 
 from __future__ import annotations
@@ -184,9 +192,10 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 #: a fragment of the name of every CUDA kernel each wrapper's C entry
 #: point launches (the kernel rows of the ``kernels`` line)
-KERNEL_SYMBOLS = {"fused_scan": "fused_scan_wgmma", "fused_scan_dp4a": "fused_scan_dp4a",
-                  "probe_candidates": "probe_", "gather_rescore": "gather_rescore",
-                  "int8_topk": "int8_topk_"}
+KERNEL_SYMBOLS = {"fused_scan": ("fused_scan_wgmma",), "fused_scan_dp4a": ("fused_scan_dp4a",),
+                  "probe_candidates": ("probe_",), "gather_rescore": ("gather_rescore",),
+                  "int8_topk": ("int8_topk_clear", "int8_topk_wgmma", "int8_topk_merge"),
+                  "int8_topk_dp4a": ("int8_topk_dp4a", "int8_topk_merge")}
 
 
 def dev_us(e) -> float:
@@ -203,7 +212,7 @@ def device_ms(torch, fn, reps: int, name: str) -> tuple[float, dict]:
     ``torch.profiler``, the device time of every kernel that ``reps`` calls
     launched, summed and divided by ``reps``. Python, the wrapper and the
     launch path are not in it. Every device event of the window must be a
-    kernel whose name holds ``KERNEL_SYMBOLS[name]``. Returns the ms and,
+    kernel whose name holds one of ``KERNEL_SYMBOLS[name]``. Returns the ms and,
     per kernel, its launches and ms per call."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -217,7 +226,7 @@ def device_ms(torch, fn, reps: int, name: str) -> tuple[float, dict]:
     for e in prof.key_averages():
         if not on_device(e):
             continue
-        if KERNEL_SYMBOLS[name] not in e.key:
+        if not any(f in e.key for f in KERNEL_SYMBOLS[name]):
             raise AssertionError(f"{name}: device event {e.key!r} in its timing window")
         total += dev_us(e)
         kernels[e.key[:80]] = dict(per_call=e.count / reps, ms=dev_us(e) / 1e3 / reps)
@@ -824,9 +833,12 @@ def kernel_phases(torch, np, fused, vi, report):
 
 #: small int8 top-k cases (B, D, N, k, share of scale-0 rows, duplicate
 #: stride), drawn as the CPU tests draw theirs: k past one warp slot and
-#: up to 128, ragged N, a part query tile, scale-0 rows with signed dots
+#: up to 128, ragged N, part query tiles, scale-0 rows with signed dots
 #: (+-0 ties); a share of 1.0 leaves only row 0 a nonzero scale (see
-#: :func:`int8_case`)
+#: :func:`int8_case`). D=48 runs the dp4a variant, every other D the wgmma
+#: variant: at D=384 a ragged N (N % 128 != 0), B=100 (a part 128-query
+#: tile), k=128, and duplicates every 61 and 127 rows (copies on both sides
+#: of the 64-row steps and 128-row tiles); zero_rows=1.0 at D=32 and 64
 INT8_CASES = (
     (8, 32, 2048, 8, 1.0, 0),
     (4, 32, 256, 8, 0.9, 0),
@@ -836,7 +848,16 @@ INT8_CASES = (
     (8, 48, 130, 128, 0.0, 0),
     (8, 32, 256, 40, 0.0, 0),
     (64, 384, 100_003, 128, 0.3, 13),
+    (256, 384, 262_147, 32, 0.2, 0),
+    (100, 384, 50_001, 32, 0.0, 61),
+    (256, 384, 131_101, 128, 0.1, 127),
+    (8, 64, 4096, 16, 1.0, 0),
+    (100, 64, 5000, 32, 1.0, 0),
+    (72, 64, 9000, 40, 0.2, 127),
+    (256, 48, 20_011, 32, 0.2, 61),
 )
+#: the timed int8 top-k calls over the main path's corpus: (B, k)
+INT8_TIMED = ((256, K), (256, 128), (64, K))
 
 
 def int8_case(np, B, D, N, seed, zero_rows, dup_every):
@@ -866,12 +887,18 @@ def int8_case(np, B, D, N, seed, zero_rows, dup_every):
     return q8, qs, cq, cs
 
 
-def int8_topk_phase(torch, np, vi, report) -> dict:
-    """The int8 top-k kernel against its plain version, bitwise: first the
-    small cases of ``INT8_CASES``, then B=256, k=32 over the main path's
-    int8 blocks viewed flat (pad slots have scale 0); then its own path,
-    the public op ``fused_int8_topk``, with the launch counts set to 0
-    just before and read just after."""
+def int8_topk_phase(torch, np, vi, report) -> tuple[dict, dict, dict]:
+    """The int8 top-k's two variants against their plain version, bitwise:
+    first the small cases of ``INT8_CASES`` (each by the variant its shape
+    picks), then over the main path's int8 blocks viewed flat (pad slots
+    have scale 0) at B=256, k=32 (both variants), B=256, k=128 and B=64,
+    k=32 (the wgmma variant); times each and ``torch._int_mm`` of the same
+    int8 product in row chunks (a yardstick of the tensor-core products,
+    not the same function). Then the paths, each with the launch counts set
+    to 0 just before and read just after: the public op
+    ``fused_int8_topk`` at B=256, k=32 (the wgmma variant) and at D=48 (the
+    dp4a variant's own path). Returns both records and the two paths'
+    launch counts."""
     from trie_semantic_search_tpu_torch.ops import fused_int8_topk
     from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
     from trie_semantic_search_tpu_torch.ops.hybrid import quantize_queries
@@ -879,54 +906,168 @@ def int8_topk_phase(torch, np, vi, report) -> dict:
     def bitwise(a, b):
         return torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)) and torch.equal(a[1], b[1])
 
+    def max_err(a, b):
+        fin = torch.isfinite(b[0])
+        return float((a[0] - b[0])[fin].abs().max()) if fin.any() else 0.0
+
+    err = {"wgmma": 0.0, "dp4a": 0.0}
+    ran = {"wgmma": 0, "dp4a": 0}
     for B, D, N, k, zero_rows, dup in INT8_CASES:
         data = int8_case(np, B, D, N, B + N + k, zero_rows, dup)
         q8, qs, cq, cs = (torch.from_numpy(a).to(vi.device) for a in data)
         args = (q8, qs.reshape(B), cq, cs.reshape(N), k)
+        variant = sk.int8_topk_variant(D, k)
         got, want = sk.int8_topk_cuda(*args), sk.int8_topk_plain(*args)
         torch.cuda.synchronize()
         if not bitwise(got, want):
-            raise AssertionError(f"int8 top-k differs from plain at B={B} D={D} N={N} k={k}")
+            bad = (got[0].view(torch.int32) != want[0].view(torch.int32)) | (got[1] != want[1])
+            raise AssertionError(f"int8 top-k ({variant}) differs from plain at B={B} D={D} N={N} k={k} "
+                                 f"zero_rows={zero_rows} dup={dup}: {int(bad.sum())} entries")
+        err[variant] = max(err[variant], max_err(got, want))
+        ran[variant] += 1
         zeros = want[0] == 0
-        log(f"  int8_topk B={B} D={D} N={N} k={k}: bitwise equal ({int(zeros.sum())} zero scores, "
-            f"{int((zeros & torch.signbit(want[0])).sum())} of them -0.0)")
+        log(f"  int8_topk ({variant}) B={B} D={D} N={N} k={k} dup={dup}: bitwise equal "
+            f"({int(zeros.sum())} zero scores, {int((zeros & torch.signbit(want[0])).sum())} of them -0.0)")
+    if not (ran["wgmma"] and ran["dp4a"]):
+        raise AssertionError(f"the small int8 top-k cases did not run both variants: {ran}")
 
     ann = vi.ann
     P, m, D = ann.part_int8.shape
-    N, B = P * m, 256
+    N = P * m
     g = torch.Generator(device=vi.device).manual_seed(13)
-    q = torch.randn((B, D), generator=g, device=vi.device)
+    q = torch.randn((256, D), generator=g, device=vi.device)
     q8, qs = quantize_queries(q / q.norm(dim=-1, keepdim=True))
     corpus, scale = ann.part_int8.view(N, D), ann.part_scale.view(N, 1)
-    args = (q8, qs.reshape(B), corpus, scale.reshape(N), K)
-    kv, ki = sk.int8_topk_cuda(*args)
-    pv, pi = sk.int8_topk_plain(*args)
-    torch.cuda.synchronize()
-    if not bitwise((kv, ki), (pv, pi)):
-        bad = (kv.view(torch.int32) != pv.view(torch.int32)) | (ki != pi)
-        raise AssertionError(f"int8 top-k differs from plain: {int(bad.sum())} of {bad.numel()} entries")
-    dev, kernels = device_ms(torch, lambda: sk.int8_topk_cuda(*args), 5, "int8_topk")
-    call = cuda_ms(torch, lambda: sk.int8_topk_cuda(*args), 5)
-    plain_ms = cuda_ms(torch, lambda: sk.int8_topk_plain(*args), 2)
-    b_ms, b_by = bound(N * D + N * 4 + B * (D + 4) + B * K * 8, 2.0 * B * N * D, INT8_OPS)
+    chunk = 1 << 18
+    corpus_t = [corpus[lo : lo + chunk].t() for lo in range(0, N, chunk)]
+
+    def int_mm(qq):
+        for ct in corpus_t:
+            torch._int_mm(qq, ct)
+
+    recs, plain = {}, {}
+    for B, k in INT8_TIMED:
+        args = (q8[:B], qs[:B].reshape(B), corpus, scale.reshape(N), k)
+        want = plain[(B, k)] = sk.int8_topk_plain(*args)
+        for variant in ("wgmma", "dp4a") if (B, k) == (256, K) else ("wgmma",):
+            name = "int8_topk" if variant == "wgmma" else "int8_topk_dp4a"
+            got = sk.int8_topk_cuda(*args, variant=variant)
+            torch.cuda.synchronize()
+            if not bitwise(got, want):
+                bad = (got[0].view(torch.int32) != want[0].view(torch.int32)) | (got[1] != want[1])
+                raise AssertionError(f"int8 top-k ({variant}) differs from plain at B={B} k={k} over the "
+                                     f"corpus: {int(bad.sum())} of {bad.numel()} entries")
+            err[variant] = max(err[variant], max_err(got, want))
+            fn = functools.partial(sk.int8_topk_cuda, *args, variant=variant)
+            reps = 20 if variant == "wgmma" else 3
+            dev, kernels = device_ms(torch, fn, reps, name)
+            call = cuda_ms(torch, fn, reps)
+            b_ms, b_by = bound(N * D + N * 4 + B * (D + 4) + B * k * 8, 2.0 * B * N * D, INT8_OPS)
+            shape = f"B={B} k={k} N={N} D={D}"
+            if (B, k) == (256, K):
+                recs[name] = dict(
+                    name=name, route="cuda", source="trie_semantic_search_tpu_torch/csrc/int8_topk.cu",
+                    replaces="trie_semantic_search_tpu/ops/pallas_scan.py:160", device_ms=dev, ms=dev,
+                    call_ms=call, bound_ms=b_ms, bound_by=b_by, library_ms=None, device_kernels=kernels,
+                    shape=shape, bytes_per_s=(N * D + N * 4) / (dev * 1e-3),
+                )
+            else:
+                recs["int8_topk"].setdefault("timed", {})[shape] = dict(
+                    device_ms=dev, call_ms=call, bound_ms=b_ms, device_kernels=kernels)
+                log(f"  int8_topk (wgmma) {shape}: bitwise equal; device {dev:.4f} ms call {call:.4f} ms "
+                    f"bound {b_ms:.4f} ms ({b_by}); device kernels per call {kernels}")
+        if (B, k) == (256, K):
+            plain_ms = cuda_ms(torch, lambda: sk.int8_topk_plain(*args), 2)
+            for name in ("int8_topk", "int8_topk_dp4a"):
+                recs[name]["plain_ms"] = plain_ms
+            recs["int8_topk"]["int_mm_ms"] = cuda_ms(torch, lambda: int_mm(q8), 5)
+    for name, variant in (("int8_topk", "wgmma"), ("int8_topk_dp4a", "dp4a")):
+        recs[name]["max_abs_err"] = err[variant]
+    rec = recs["int8_topk"]
+    log(f"  int8_topk (wgmma) at B=256 k={K}: {rec['bytes_per_s'] / 1e12:.3f} TB/s of corpus and scales; "
+        f"torch._int_mm of the same int8 product in {len(corpus_t)} row chunks {rec['int_mm_ms']:.4f} ms "
+        "(events; not the same function)")
 
     sk.reset_launch_counts()
     v, i = fused_int8_topk(q8, qs, corpus, scale, K)
     torch.cuda.synchronize()
     launches = dict(sk.LAUNCHES)
-    if launches["int8_topk"] <= 0:
-        raise AssertionError(f"fused_int8_topk launched no int8 top-k kernel: {launches}")
-    if not bitwise((v, i), (pv, pi)):
-        raise AssertionError("fused_int8_topk differs from the compared kernel result")
-    rec = dict(
-        name="int8_topk", route="cuda", source="trie_semantic_search_tpu_torch/csrc/int8_topk.cu",
-        replaces="trie_semantic_search_tpu/ops/pallas_scan.py:160", launches=launches["int8_topk"],
-        max_abs_err=float((kv - pv)[torch.isfinite(pv)].abs().max()), ms=dev, device_ms=dev,
-        call_ms=call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        device_kernels=kernels, shape=f"B={B} k={K} N={N} D={D}",
-    )
+    if launches["int8_topk"] <= 0 or launches["int8_topk_dp4a"]:
+        raise AssertionError(f"fused_int8_topk at D={D} did not run the wgmma variant alone: {launches}")
+    if not bitwise((v, i), plain[(256, K)]):
+        raise AssertionError("fused_int8_topk differs from the plain version")
+    rec["launches"] = launches["int8_topk"]
     report(rec)
-    return rec, launches
+
+    B, D48, N48, k48 = 256, 48, 20_011, K
+    data = int8_case(np, B, D48, N48, 48, 0.2, 61)
+    q48, qs48, c48, cs48 = (torch.from_numpy(a).to(vi.device) for a in data)
+    want = sk.int8_topk_plain(q48, qs48.reshape(B), c48, cs48.reshape(N48), k48)
+    sk.reset_launch_counts()
+    got = fused_int8_topk(q48, qs48, c48, cs48, k48)
+    torch.cuda.synchronize()
+    dp4a_launches = dict(sk.LAUNCHES)
+    if dp4a_launches["int8_topk_dp4a"] <= 0 or dp4a_launches["int8_topk"]:
+        raise AssertionError(f"fused_int8_topk at D=48 did not run the dp4a variant alone: {dp4a_launches}")
+    if not bitwise(got, want):
+        raise AssertionError("fused_int8_topk at D=48 differs from the plain version")
+    recs["int8_topk_dp4a"]["launches"] = dp4a_launches["int8_topk_dp4a"]
+    report(recs["int8_topk_dp4a"])
+    return recs, launches, dp4a_launches
+
+
+#: ablation builds of the int8 top-k's wgmma variant (TSS_INT8_TOPK_ABLATE
+#: in csrc/int8_topk.cu), from the least of the kernel to all of it
+INT8_ABLATIONS = ((6, "loads"), (5, "loads + products"), (8, "loads + products + hand-off stores"),
+                  (7, "loads + products + hand-off barriers"),
+                  (1, "loads + products + hand-off (stores and barriers), no list work"),
+                  (3, "all but the inserts (scale, +0.0 rows, votes)"), (0, "the whole kernel"))
+
+
+@contextlib.contextmanager
+def using_library(sk, lib):
+    """While open, the wrappers launch from ``lib`` (an ablation build)."""
+    kept = sk._library
+    sk._library = lib
+    try:
+        yield
+    finally:
+        sk._library = kept
+
+
+def int8_ablation_phase(torch, vi) -> list[dict]:
+    """The device time of each build of ``INT8_ABLATIONS`` at the timed case
+    (B=256, k=32 over the main path's corpus, queries as in
+    :func:`int8_topk_phase`), after half a second of the whole kernel, in
+    turns: each build, then each again in reverse order. The whole kernel
+    is held bitwise against its plain version first."""
+    from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
+    from trie_semantic_search_tpu_torch.ops.hybrid import quantize_queries
+
+    builds = {a: sk.load_library((f"TSS_INT8_TOPK_ABLATE={a}",) if a else ()) for a, _ in INT8_ABLATIONS}
+    ann = vi.ann
+    P, m, D = ann.part_int8.shape
+    N = P * m
+    g = torch.Generator(device=vi.device).manual_seed(13)
+    q = torch.randn((256, D), generator=g, device=vi.device)
+    q8, qs = quantize_queries(q / q.norm(dim=-1, keepdim=True))
+    args = (q8, qs.reshape(256), ann.part_int8.view(N, D), ann.part_scale.view(N), K)
+    got, want = sk.int8_topk_cuda(*args), sk.int8_topk_plain(*args)
+    if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)) and torch.equal(got[1], want[1])):
+        raise AssertionError("int8 top-k differs from its plain version at the timed case")
+    for _ in range(200):  # about half a second at full load, so the clocks are up after the builds
+        sk.int8_topk_cuda(*args)
+    torch.cuda.synchronize()
+    times: dict = {a: [] for a, _ in INT8_ABLATIONS}
+    order = [a for a, _ in INT8_ABLATIONS]
+    for a in order + order[::-1]:
+        with using_library(sk, builds[a]):
+            times[a].append(device_ms(torch, lambda: sk.int8_topk_cuda(*args), 10, "int8_topk")[0])
+    rows = []
+    for a, what in INT8_ABLATIONS:
+        rows.append(dict(ablate=a, what=what, device_ms=times[a]))
+        log(f"  TSS_INT8_TOPK_ABLATE={a} ({what}): device ms {times[a][0]:.4f} / {times[a][1]:.4f}")
+    return rows
 
 
 #: phase A: rows of the subset built twice from fixed centroids, sampled
@@ -1062,6 +1203,26 @@ def ann_build_phase(torch, np, seed: int, work: Path) -> tuple[dict, dict]:
     out["assign_block_differ"], out["assign_block_near_ties"] = int(differ.sum()), int(near.sum())
     log(f"  assign_topc column 0, card vs CPU on {len(blk)} rows: {int(differ.sum())} differ, all "
         f"among the {int(near.sum())} rows whose top-two scores lie within 1e-5")
+
+    # a copy of the block's most chosen centroid as the last column (the
+    # GEMM's tail): assignment, top-c and the Lloyd steps' pick tie it to
+    # the lower id on the card, and agree with the assignment without the
+    # copy but for near-ties (one more column may change the GEMM)
+    j = int(np.bincount(card).argmax())
+    dup = np.concatenate([cents, cents[j : j + 1]])
+    first = km.assign_clusters(blk, dup, device=dev)
+    topc = km.assign_topc(blk, dup, 3, device=dev)
+    dup_t = torch.from_numpy(dup).to(dev)
+    lloyd = km._nearest(torch.from_numpy(blk).to(dev), dup_t, km._first_copy(dup_t)).cpu().numpy()
+    at_j, at_copy = topc == j, topc == P
+    if not (np.array_equal(first, topc[:, 0]) and np.array_equal(lloyd, first)
+            and not ((first != card) & ~near).any() and not at_copy[:, 0].any()
+            and np.array_equal(at_copy[:, 1:], at_j[:, :-1]) and at_j[:, 0].any()):
+        raise AssertionError(f"a duplicate of centroid {j} as id {P} does not tie to the lower id on the card")
+    out["duplicate_centroid_rows"] = int(at_j[:, 0].sum())
+    log(f"  centroid {j} copied as id {P}: assign_clusters, assign_topc and the Lloyd steps' pick on the "
+        f"card keep id {j} on its {out['duplicate_centroid_rows']} rows, the copy right behind it in "
+        "every top-3")
 
     # fixed centroids: a subset (every tenth row, so it spans every
     # cluster) built twice, bitwise the same
@@ -1322,7 +1483,7 @@ def profile_batches(torch, fused, vi, records, out_dir: Path) -> list[dict]:
         (out_dir / f"profile_B{B}.txt").write_text(
             events.table(sort_by="self_cuda_time_total", row_limit=25)
         )
-        kernel_ms = {k: sum(dev_us(e) for e in on_dev if KERNEL_SYMBOLS[k] in e.key) / 1e3
+        kernel_ms = {k: sum(dev_us(e) for e in on_dev if any(f in e.key for f in KERNEL_SYMBOLS[k])) / 1e3
                      for k in SERVING_KERNELS}
         scan_ms = kernel_ms["fused_scan"]
         rows.append(dict(B=B, mode=rec["mode"], wall_ms=wall_ms, device_ms=device_ms,
@@ -1496,9 +1657,11 @@ def engine_phase(torch, np, fused, vi, names, db_path: str, seed: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["kernels"],
+    ap.add_argument("--only", choices=["kernels", "int8-ablations"],
                     help="kernels: the device, kernel build, small-reference and kernel phases "
-                         "only (no index builds, serving, profile, store or engine)")
+                         "only (no index builds, serving, profile, store or engine); "
+                         "int8-ablations: the device time of each ablation build of the int8 "
+                         "top-k's wgmma variant at its timed case")
     args = ap.parse_args()
     try:
         import torch
@@ -1514,8 +1677,8 @@ def main() -> int:
 
     from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
 
-    if args.only == "kernels":
-        return run(torch, np, sk, args.seed, "", None, only_kernels=True)
+    if args.only:
+        return run(torch, np, sk, args.seed, "", None, only=args.only)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         db_path = str(Path(tmp) / "cases.sqlite")
         n_cases = P_PARTS * M_SLOTS // CHUNKS_PER_CASE
@@ -1530,7 +1693,7 @@ def main() -> int:
             store.join()
 
 
-def run(torch, np, sk, seed: int, db_path: str, store, only_kernels: bool = False) -> int:
+def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None) -> int:
     t_start = time.perf_counter()
     card = gpu_line()
     log(f"gpu: {card}")
@@ -1560,6 +1723,12 @@ def run(torch, np, sk, seed: int, db_path: str, store, only_kernels: bool = Fals
     detail["build_state_s"] = time.perf_counter() - t0
     log(f"  {vi.ann.num_vectors} chunks, mode {fused.ann_mode}, nprobe {vi.ann.default_nprobe}, "
         f"{len(vi.ann.corpus_bf16)} rescore segments, {detail['build_state_s']:.1f} s")
+    out_dir = Path.cwd() / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    if only == "int8-ablations":
+        log(f"phase: int8 top-k ablation builds at B=256 k={K} (device ms, two turns)")
+        detail["int8_ablations"] = int8_ablation_phase(torch, vi)
+        return finish(torch, detail, {}, {}, out_dir, card, t_start)
 
     def report(r):
         log(f"  {r['name']}: {r['shape']} max_abs_err={r['max_abs_err']:.3g} device {r['device_ms']:.4f} ms "
@@ -1572,13 +1741,14 @@ def run(torch, np, sk, seed: int, db_path: str, store, only_kernels: bool = Fals
     log(f"  launches on the fused_scan_topk T=17 path: {dp4a_launches}")
     log("phase: probe and rescore kernels vs plain versions at the main path's shapes")
     kernels.update(kernel_phases(torch, np, fused, vi, report))
-    log("phase: int8 top-k vs plain, then its path fused_int8_topk (counts reset just before)")
-    kernels["int8_topk"], i8launches = int8_topk_phase(torch, np, vi, report)
-    log(f"  launches on the fused_int8_topk path: {i8launches}")
-    paths = {"fused_int8_topk": i8launches, "fused_scan_topk T=17": dp4a_launches}
-    out_dir = Path.cwd() / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    if only_kernels:
+    log("phase: int8 top-k (both variants) vs plain, then its paths fused_int8_topk at D=384 and "
+        "D=48 (counts reset just before each)")
+    i8recs, i8launches, i8dp4a_launches = int8_topk_phase(torch, np, vi, report)
+    kernels.update(i8recs)
+    log(f"  launches on the fused_int8_topk path: {i8launches}; at D=48: {i8dp4a_launches}")
+    paths = {"fused_int8_topk": i8launches, "fused_int8_topk D=48": i8dp4a_launches,
+             "fused_scan_topk T=17": dp4a_launches}
+    if only == "kernels":
         for k in SERVING_KERNELS:
             kernels[k]["launches"] = None
         return finish(torch, detail, kernels, paths, out_dir, card, t_start)

@@ -173,6 +173,48 @@ def test_assign_topc_ties_to_the_lower_id():
     assert (got[near0, 1] == 7).all()
 
 
+@pytest.mark.parametrize("block", [64, 1000])
+@pytest.mark.parametrize("P", [9, 17, 33, 65])
+def test_duplicate_tail_centroid_ties_to_the_lower_id(P, block, monkeypatch):
+    """A copy of centroid ``dup`` as the last column, the tail of the
+    GEMM's column blocks: ``assign_clusters``, ``assign_topc`` and the ids
+    the two Lloyd steps assign (whole and blocked) are bitwise the JAX
+    package's, so the copy never wins over its lower id, whichever GEMM
+    kernel the library picks."""
+    cent, v = _clustered(30 + P, P - 1, [1200 // (P - 1) + 1] * (P - 1))
+    dup = (P - 1) // 2
+    cent = np.concatenate([cent, cent[[dup]]])
+    v = _normed(v).astype(np.float32)
+    want = np.asarray(jk._assign(jnp.asarray(v), jnp.asarray(cent)))
+    assert (want == dup).any() and not (want == P - 1).any()
+    np.testing.assert_array_equal(
+        tk.assign_clusters(v, cent, block=block, device="cpu"), jk.assign_clusters(v, cent, block=block))
+    topc = tk.assign_topc(v, cent, 3, block=block, device="cpu")
+    np.testing.assert_array_equal(topc, jk.assign_topc(v, cent, 3, block=block))
+    assert (topc[want == dup, 1] == P - 1).all()
+
+    seen = []
+    nearest = tk._nearest
+
+    def spy(x, c, first):
+        a = nearest(x, c, first)
+        seen.append(a.clone())
+        return a
+
+    monkeypatch.setattr(tk, "_nearest", spy)
+    init = torch.from_numpy(cent)
+    tk._lloyd(torch.from_numpy(v), init, P, 1)
+    np.testing.assert_array_equal(torch.cat(seen).numpy(), want)
+    seen.clear()
+    nb = -(-len(v) // block)
+    xp = np.zeros((nb * block, D), np.float32)
+    xp[: len(v)] = v
+    valid = (np.arange(nb * block) < len(v)).astype(np.float32)
+    tk._lloyd_blocked(torch.from_numpy(xp).reshape(nb, block, D),
+                      torch.from_numpy(valid).reshape(nb, block), init, P, 1)
+    np.testing.assert_array_equal(torch.cat(seen).numpy()[: len(v)], want)
+
+
 # -- PartitionedANN.build from fixed centroids -------------------------------------------
 
 

@@ -378,6 +378,45 @@ def test_int8_topk_matches_xla_without_signed_zeros(N, k, dup):
         _assert_bitwise((v.numpy(), i.numpy()), want)
 
 
+@pytest.mark.parametrize("chunk", [1 << 18, 192])
+@pytest.mark.parametrize("dup,k", [(61, 40), (127, 12)])
+def test_int8_topk_duplicates_across_tile_edges_match_pallas_kernel(monkeypatch, chunk, dup, k):
+    """Duplicate rows at a stride that crosses the tensor-core variant's
+    64-row steps and 128-row tiles (61: every edge lands between two
+    copies; 127: copies on both sides of each 128-row edge), with +-0
+    ties, in one row range (one chunk of the plain version) and across
+    ranges of 192 rows merged in order."""
+    monkeypatch.setattr(sk, "INT8_TOPK_PLAIN_CHUNK", chunk)
+    data = _int8_data(8, 64, 1024, seed=dup + k, zero_rows=0.2, dup_every=dup)
+    _assert_bitwise(_port_int8_topk(*data, k), _pallas_int8_topk(*data, k, 8, 128))
+
+
+@pytest.mark.parametrize("D,k,variant", [
+    (384, 32, "wgmma"),   # the timed case
+    (384, 128, "wgmma"),  # the longest list
+    (32, 1, "wgmma"),     # the narrowest row: one k32 step
+    (64, 40, "wgmma"),
+    (512, 128, "wgmma"),  # the widest row two ring stages hold
+    (48, 8, "dp4a"),      # D % 32 == 16
+    (16, 128, "dp4a"),    # narrower than one k32 step
+    (400, 32, "dp4a"),    # D % 32 == 16 past the timed width
+    (544, 32, "dp4a"),    # wider than two ring stages
+])
+def test_int8_topk_variant(D, k, variant):
+    """The CUDA int8 top-k picks its variant from the row width alone
+    (explicitly; a failed launch raises)."""
+    assert sk.int8_topk_variant(D, k) == variant
+
+
+def test_int8_topk_launch_counts_name_both_variants():
+    """Each variant counts its own launches; a CPU call counts none."""
+    assert {"int8_topk", "int8_topk_dp4a"} <= set(sk.LAUNCHES)
+    sk.reset_launch_counts()
+    data = [torch.from_numpy(a) for a in _int8_data(4, 48, 200, seed=2)]
+    sk.fused_int8_topk(*data, 5)
+    assert sk.LAUNCHES["int8_topk"] == 0 and sk.LAUNCHES["int8_topk_dp4a"] == 0
+
+
 def test_int8_topk_signed_zero_ties_follow_the_kernel():
     """Scale-0 rows and negative dots give +0.0 and -0.0 scores.
     ``lax.top_k`` ranks +0.0 above -0.0, the Pallas kernel ties them to the

@@ -96,21 +96,9 @@ constexpr int NBUF = 2;               // score buffers between the scorers and t
 constexpr int SMEM_LIMIT = 232448;
 
 // ---------------------------------------------------------------------------
-// PTX helpers: the barrier wait, 3-D TMA boxes, wgmma (the others in
-// common.cuh)
+// PTX helper: 3-D TMA boxes (the barrier wait, the wgmma helpers and the
+// score hand-off in common.cuh)
 // ---------------------------------------------------------------------------
-
-// Wait until the phase of parity `parity` of the barrier has completed (the
-// loop inside the asm, so the compiler sees no divergent branch).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      "WAIT:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
 
 // A 3-D TMA box into shared memory, its bytes counted on `bar`
 // (coordinates innermost first, in elements).
@@ -121,57 +109,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(bar)
       : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major operand in the 128B swizzle
-// layout TMA wrote: rows of 128 bytes, 8-row groups 1024 bytes apart.
-// Advancing the start address by 32 bytes steps one k32 slice along K.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// Named barriers 1 to 2 NBUF between the scorers and the list updaters.
-__device__ __forceinline__ void named_bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keep the compiler from moving accumulator accesses across the
-// asynchronous products.
-__device__ __forceinline__ void fence_regs(int (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// D[64 x 64] (+)= A[64 x 32] . B[64 x 32]^T, int8 operands in shared
-// memory, int32 accumulators; `accumulate` = 0 overwrites D.
-__device__ __forceinline__ void mma_64x64x32(int (&d)[32], uint64_t a, uint64_t b,
-                                             int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8"
-      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
-        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
-        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
-        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // ---------------------------------------------------------------------------
@@ -190,42 +127,6 @@ __host__ __device__ inline size_t wgmma_smem_bytes(int D, int stages) {
   const int kb = (D + KBOX - 1) / KBOX;
   return 1024 + 256 + (size_t)kb * BOX_BYTES + NBUF * SCORE_BYTES +
          (size_t)stages * (kb * BOX_BYTES + COLS_BYTES);
-}
-
-// One step's products into `acc`: the query tile times the 64 rows of
-// ring stage `stage`.
-__device__ __forceinline__ void issue_step(int (&acc)[32], uint32_t q_base, uint32_t stage,
-                                           int ksteps) {
-  wgmma_fence();
-  fence_regs(acc);
-  for (int k = 0; k < ksteps; ++k) {
-    const uint32_t off = (k >> 2) * BOX_BYTES + (k & 3) * 32;
-    mma_64x64x32(acc, sw128_desc(q_base + off), sw128_desc(stage + off), k > 0);
-  }
-  wgmma_commit();
-}
-
-// One step's accumulators (raw int32; the list updaters scale and filter
-// them) and its row columns into score buffer it % NBUF, once the updaters
-// have read the step that used the buffer before. `cols` is the step's
-// ring stage of columns, of which `ncols` are loaded.
-__device__ __forceinline__ void dump_step(const int (&acc)[32], int* __restrict__ sbuf,
-                                          const unsigned char* cols, int ncols, int it, int warp,
-                                          int lane) {
-  if (it >= NBUF) named_bar_sync(1 + NBUF + it % NBUF, SCORERS + UPDATERS);
-  int* buf = sbuf + (it % NBUF) * (SCORE_BYTES / 4);
-  int* out = buf + (16 * warp + lane / 4) * SROW + 2 * (lane % 4);
-#pragma unroll
-  for (int j = 0; j < TPS; ++j) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<int2*>(out + 8 * h * SROW + j * LG) =
-          make_int2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-  }
-  const int t = 32 * warp + lane;  // 8 bytes of the columns a thread
-  if (t * 8 < ncols * COL_BYTES)
-    reinterpret_cast<int2*>(buf + QT * SROW)[t] = reinterpret_cast<const int2*>(cols)[t];
-  named_bar_arrive(1 + it % NBUF, SCORERS + UPDATERS);
 }
 
 template <int TM>
@@ -279,7 +180,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fused_scan_wgmma(
       for (int c = 0; c < kb; ++c) tss_tma_load_2d(q_base + c * BOX_BYTES, &qmap, qbar, c * KBOX, b0);
       for (int it = 0; it < nsteps; ++it) {
         const int s = it % stages;
-        if (it >= stages) mbar_wait(bars + 8 * (stages + s), ((it / stages) & 1) ^ 1);
+        if (it >= stages) tss_mbar_wait(bars + 8 * (stages + s), ((it / stages) & 1) ^ 1);
         const uint32_t full = bars + 8 * s;
         const uint32_t cols = s_base + s * COLS_BYTES;
         tss_mbar_expect_tx(full, step_bytes + (filtered ? COLS_BYTES : COL_BYTES));
@@ -323,7 +224,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fused_scan_wgmma(
     }
     for (int it = 0; it < nsteps; ++it) {
       const int buf = it % NBUF;
-      named_bar_sync(1 + buf, SCORERS + UPDATERS);  // the step's products written
+      tss_named_bar_sync(1 + buf, SCORERS + UPDATERS);  // the step's products written
       const int* a = sbuf + buf * (SCORE_BYTES / 4) + q * SROW + l;
       const float* cols = reinterpret_cast<const float*>(sbuf + buf * (SCORE_BYTES / 4) + QT * SROW) + l;
       // the step's 8 scores of this list, -inf where a filter or the
@@ -348,7 +249,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fused_scan_wgmma(
 #pragma unroll
         for (int j = 0; j < TPS; ++j) v[j] = v[j] >= mins ? v[j] : tss_neg_inf();
       }
-      if (it + NBUF < nsteps) named_bar_arrive(1 + NBUF + buf, SCORERS + UPDATERS);  // buffer read
+      if (it + NBUF < nsteps) tss_named_bar_arrive(1 + NBUF + buf, SCORERS + UPDATERS);  // buffer read
       // which of the step's tiles can change some list of the warp: the
       // tail only rises within the step, so its value now decides (warp
       // votes, so every branch below is uniform)
@@ -395,14 +296,17 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fused_scan_wgmma(
   // scorers (warpgroup 0): the products on the tensor cores, written out
   // raw for the updaters
   int acc[32] = {};
-  mbar_wait(qbar, 0);
+  tss_mbar_wait(qbar, 0);
   for (int it = 0; it < nsteps; ++it) {
     const int s = it % stages;
-    mbar_wait(bars + 8 * s, (it / stages) & 1);
-    issue_step(acc, q_base, c_base + s * step_bytes, ksteps);
-    wgmma_wait_all();
-    fence_regs(acc);
-    dump_step(acc, sbuf, cols_generic + s * COLS_BYTES, filtered ? 4 : 1, it, warp, lane);
+    tss_mbar_wait(bars + 8 * s, (it / stages) & 1);
+    tss_wgmma_issue<BOX_BYTES, BOX_BYTES>(acc, q_base, c_base + s * step_bytes, ksteps);
+    tss_wgmma_wait_all();
+    tss_fence_regs(acc);
+    // the raw products (the list updaters scale and filter them) and the
+    // step's row columns into score buffer it % NBUF
+    tss_dump_step<NBUF, SROW, SCORE_BYTES / 4, QT, SCORERS + UPDATERS>(
+        acc, sbuf, cols_generic + s * COLS_BYTES, (filtered ? 4 : 1) * COL_BYTES, it, warp, lane);
     __syncwarp();
     if (lane == 0) tss_mbar_arrive(bars + 8 * (stages + s));  // products and columns taken
   }

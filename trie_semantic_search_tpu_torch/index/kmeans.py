@@ -11,6 +11,13 @@ product (a matmul, not ``index_add_``, whose CUDA atomics would make two
 builds with the same seed differ), argmax ties to the lower centroid id,
 and ``assign_topc`` as ``c`` rounds of argmax-then-mask, so equal scores
 come out in ascending centroid id (``torch.topk`` has no tie order).
+
+Identical centroid rows must score identically for those ties to hold, and
+a GEMM need not give them the same f32 bits: torch's CPU GEMM can round a
+tail column differently from its twin. Every argmax here reads
+:func:`_scores`, which copies each duplicate's column from the lowest id
+holding the same row, so a duplicate always ties and the lower id wins;
+the products of distinct centroids are the GEMM's own.
 """
 
 from __future__ import annotations
@@ -41,11 +48,35 @@ def _one_hot(a: torch.Tensor, num_clusters: int, w: torch.Tensor) -> torch.Tenso
     return out.scatter_(1, a[:, None], w[:, None])
 
 
+def _first_copy(cent: torch.Tensor) -> torch.Tensor | None:
+    """For each centroid the lowest id holding the same row, or ``None``
+    when every row is distinct."""
+    P = cent.shape[0]
+    _, inverse = torch.unique(cent, dim=0, return_inverse=True)
+    if int(inverse.max()) + 1 == P:
+        return None
+    ids = torch.arange(P, device=cent.device)
+    first = torch.full((P,), P, dtype=ids.dtype, device=cent.device)
+    return first.scatter_reduce_(0, inverse, ids, "amin")[inverse]
+
+
+def _scores(v: torch.Tensor, cent: torch.Tensor, first: torch.Tensor | None) -> torch.Tensor:
+    """``[n, P]`` f32 scores ``v @ cent.T``, each duplicate centroid's
+    column a copy of its first copy's (``first`` from :func:`_first_copy`)."""
+    sims = v @ cent.T
+    return sims if first is None else sims[:, first]
+
+
+def _nearest(v: torch.Tensor, cent: torch.Tensor, first: torch.Tensor | None) -> torch.Tensor:
+    """Nearest centroid per row, ties to the lower id."""
+    return torch.argmax(_scores(v, cent, first), dim=1)
+
+
 def _lloyd(x: torch.Tensor, init: torch.Tensor, num_clusters: int, iters: int) -> torch.Tensor:
     """``iters`` Lloyd steps over the whole ``[S, D]`` sample at once."""
     c = init
     for _ in range(iters):
-        assign = torch.argmax(x @ c.T, dim=1)
+        assign = _nearest(x, c, _first_copy(c))
         one_hot = _one_hot(assign, num_clusters, torch.ones_like(x[:, 0]))  # [S, P]
         c = _renormalised(one_hot.T @ x, one_hot.sum(dim=0), c)
     return c
@@ -66,8 +97,9 @@ def _lloyd_blocked(
     for _ in range(iters):
         sums = torch.zeros((num_clusters, d), dtype=torch.float32, device=xb.device)
         counts = torch.zeros((num_clusters,), dtype=torch.float32, device=xb.device)
+        first = _first_copy(c)
         for v, w in zip(xb, valid):
-            a = torch.argmax(v @ c.T, dim=1)
+            a = _nearest(v, c, first)
             oh = _one_hot(a, num_clusters, w)
             sums = sums + oh.T @ v
             counts = counts + oh.sum(dim=0)
@@ -142,17 +174,18 @@ def assign_clusters(
     dev = resolve_device(device)
     exact_float32()
     cent = torch.tensor(np.asarray(centroids, np.float32), device=dev)
+    first = _first_copy(cent)
     out = np.empty((vectors.shape[0],), np.int32)
     for s, v in _blocks(vectors, block, dev):
-        out[s : s + v.shape[0]] = torch.argmax(v @ cent.T, dim=1).to(torch.int32).cpu().numpy()
+        out[s : s + v.shape[0]] = _nearest(v, cent, first).to(torch.int32).cpu().numpy()
     return out
 
 
-def _topc(v: torch.Tensor, cent: torch.Tensor, k: int) -> torch.Tensor:
+def _topc(v: torch.Tensor, cent: torch.Tensor, first: torch.Tensor | None, k: int) -> torch.Tensor:
     """Top-``k`` centroid ids per row by ``k`` rounds of argmax-then-mask:
     each round removes exactly its pick, so equal scores come out in
     ascending centroid id."""
-    sims = v @ cent.T
+    sims = _scores(v, cent, first)
     picks = []
     for _ in range(k):
         a = torch.argmax(sims, dim=1, keepdim=True)
@@ -170,8 +203,9 @@ def assign_topc(
     dev = resolve_device(device)
     exact_float32()
     cent = torch.tensor(np.asarray(centroids, np.float32), device=dev)
+    first = _first_copy(cent)
     cc = min(c, centroids.shape[0])
     out = np.empty((vectors.shape[0], cc), np.int32)
     for s, v in _blocks(vectors, block, dev):
-        out[s : s + v.shape[0]] = _topc(v, cent, cc).cpu().numpy()
+        out[s : s + v.shape[0]] = _topc(v, cent, first, cc).cpu().numpy()
     return out

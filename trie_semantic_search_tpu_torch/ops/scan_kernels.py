@@ -15,6 +15,11 @@ wrapper here                TPU kernel it replaces                source
 The last three run on the serving path; the first is reached only through
 the public op :func:`fused_int8_topk`, as in the JAX package.
 
+The int8 top-k and the fused scan have two variants each, picked by shape
+(:func:`int8_topk_variant`, :func:`fused_scan_variant`): the products on
+the int8 tensor cores (``wgmma``) where the shape fits, as ``__dp4a`` on
+the CUDA cores elsewhere.
+
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 PyTorch version beside it (``*_plain``) for CPU tensors; there is no
 fallback from a failed launch. ``nvcc`` builds the sources at first use,
@@ -78,10 +83,11 @@ GATHER_SEG_BYTES = 1 << 31
 GATHER_ROW_ALIGN_LCM = 32
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
-#: (``fused_scan`` is the fused scan's tensor-core variant,
-#: ``fused_scan_dp4a`` its variant for lane lists too long for it)
-LAUNCHES = {"int8_topk": 0, "fused_scan": 0, "fused_scan_dp4a": 0, "probe_candidates": 0,
-            "gather_rescore": 0}
+#: (``int8_topk`` and ``fused_scan`` are the tensor-core variants of the
+#: int8 top-k and the fused scan, ``int8_topk_dp4a`` and ``fused_scan_dp4a``
+#: their variants for the shapes those do not take)
+LAUNCHES = {"int8_topk": 0, "int8_topk_dp4a": 0, "fused_scan": 0, "fused_scan_dp4a": 0,
+            "probe_candidates": 0, "gather_rescore": 0}
 
 
 def reset_launch_counts() -> None:
@@ -198,8 +204,11 @@ class KernelLibrary:
         self.log = log
         self.lib = ctypes.CDLL(str(path))
         P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-        self.lib.tss_int8_topk.argtypes = [P] * 9 + [I] * 6 + [P]
-        self.lib.tss_int8_topk.restype = I
+        for fn in (self.lib.tss_int8_topk, self.lib.tss_int8_topk_dp4a):
+            fn.argtypes = [P] * 9 + [I] * 6 + [P]
+            fn.restype = I
+        self.lib.tss_int8_topk_block_queries.argtypes = [I, I, I]
+        self.lib.tss_int8_topk_block_queries.restype = I
         self.lib.tss_fused_scan_wgmma.argtypes = [P] * 13 + [I] * 6 + [P]
         self.lib.tss_fused_scan_wgmma.restype = I
         self.lib.tss_fused_scan_dp4a.argtypes = [P] * 13 + [I] * 6 + [P]
@@ -234,59 +243,61 @@ def _nvcc() -> str:
     return str(path)
 
 
-def load_library() -> KernelLibrary:
+def load_library(defines: tuple[str, ...] = ()) -> KernelLibrary:
     """Build (once per source digest) and load the kernel library. Each
     source compiles in its own ``nvcc`` process, all started together, and
-    one more ``nvcc`` links the objects."""
+    one more ``nvcc`` links the objects. ``defines`` (``NAME=VALUE``) build
+    a separate library for measurement (``chip_smoke.py``'s ablations); it
+    is returned, and the wrappers keep launching the plain build."""
     global _library
+    flags = _CFLAGS + [f"-D{d}" for d in defines]
     with _lib_lock:
-        if _library is not None:
+        if _library is not None and not defines:
             return _library
-        h = hashlib.sha256(" ".join(_CFLAGS).encode())
+        h = hashlib.sha256(" ".join(flags).encode())
         for name in _SOURCES + _HEADERS:
             h.update((_CSRC / name).read_bytes())
         digest = h.hexdigest()[:16]
         out = build_dir() / digest
         so = out / "libtss_kernels.so"
         log_path = out / "build.log"
-        if so.exists():
-            log = log_path.read_text() if log_path.exists() else ""
-            _library = KernelLibrary(so, 0.0, log)
-            return _library
-        out.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
         t0 = time.perf_counter()
-        procs = []
-        for name in _SOURCES:
-            obj = out / (name + ".o")
-            cmd = [nvcc, *_CFLAGS, "-c", str(_CSRC / name), "-o", str(obj)]
-            procs.append((name, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            )))
-        logs = []
-        failed = []
-        for name, _, p in procs:
-            text, _ = p.communicate()
-            logs.append(f"== {name}\n{text}")
-            if p.returncode != 0:
-                failed.append(name)
-        if failed:
-            raise RuntimeError(
-                f"nvcc failed for {failed}:\n" + "\n".join(logs)
+        if not so.exists():
+            out.mkdir(parents=True, exist_ok=True)
+            nvcc = _nvcc()
+            procs = []
+            for name in _SOURCES:
+                obj = out / (name + ".o")
+                cmd = [nvcc, *flags, "-c", str(_CSRC / name), "-o", str(obj)]
+                procs.append((name, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                )))
+            logs = []
+            failed = []
+            for name, _, p in procs:
+                text, _ = p.communicate()
+                logs.append(f"== {name}\n{text}")
+                if p.returncode != 0:
+                    failed.append(name)
+            if failed:
+                raise RuntimeError(
+                    f"nvcc failed for {failed}:\n" + "\n".join(logs)
+                )
+            tmp = out / f"libtss_kernels.{os.getpid()}.so"
+            link = subprocess.run(
+                [nvcc, *_ARCH, "-shared", "-o", str(tmp),
+                 *[str(obj) for _, obj, _ in procs]],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
-        tmp = out / f"libtss_kernels.{os.getpid()}.so"
-        link = subprocess.run(
-            [nvcc, *_ARCH, "-shared", "-o", str(tmp),
-             *[str(obj) for _, obj, _ in procs]],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-        os.replace(tmp, so)
-        log = "\n".join(logs)
-        log_path.write_text(log)
-        _library = KernelLibrary(so, time.perf_counter() - t0, log)
-        return _library
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+            os.replace(tmp, so)
+            log_path.write_text("\n".join(logs))
+        log = log_path.read_text() if log_path.exists() else ""
+        lib = KernelLibrary(so, time.perf_counter() - t0, log)
+        if not defines:
+            _library = lib
+        return lib
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -323,6 +334,12 @@ INT8_TOPK_MAX_K = 128
 #: corpus rows the plain version scores at a time (bounds its ``[B, rows]``
 #: score block)
 INT8_TOPK_PLAIN_CHUNK = 1 << 18
+#: widest row (D, bytes) the tensor-core variant of the int8 top-k takes;
+#: its rows are whole k32 steps (D % 32 == 0)
+INT8_TOPK_WGMMA_MAX_D = 512
+#: corpus rows per TMA tile of the tensor-core variant (its row ranges are
+#: whole tiles)
+INT8_TOPK_WGMMA_ROWS = 128
 
 
 def int8_topk_plain(
@@ -366,13 +383,24 @@ def int8_topk_plain(
     return run_v, run_i.to(torch.int32)
 
 
+def int8_topk_variant(D: int, k: int) -> str:
+    """The CUDA int8 top-k's variant for rows of D bytes and lists of k:
+    ``"wgmma"`` (tensor cores) for D a multiple of 32 up to 512 bytes,
+    ``"dp4a"`` for any other D (k up to 128 in both)."""
+    if D % 32 == 0 and 32 <= D <= INT8_TOPK_WGMMA_MAX_D and k <= INT8_TOPK_MAX_K:
+        return "wgmma"
+    return "dp4a"
+
+
 def int8_topk_cuda(
-    q8, q_scale, corpus_q, corpus_scale, k: int
+    q8, q_scale, corpus_q, corpus_scale, k: int, variant: Optional[str] = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/int8_topk.cu``: ``q8 [B, D]`` int8, ``q_scale [B]``
     f32, ``corpus_q [N, D]`` int8, ``corpus_scale [N]`` f32 → ``([B, k]
-    values, [B, k] rows)``, the contract of :func:`int8_topk_plain`. The
-    wrapper :func:`int8_topk` checks dtypes, shapes and k."""
+    values, [B, k] rows)``, the contract of :func:`int8_topk_plain`, by the
+    variant :func:`int8_topk_variant` picks, or by ``variant`` where the
+    caller names one (the dp4a variant takes every shape). The wrapper
+    :func:`int8_topk` checks dtypes, shapes and k."""
     dev = q8.device
     B, D = q8.shape
     N = corpus_q.shape[0]
@@ -381,25 +409,43 @@ def int8_topk_cuda(
             raise ValueError(f"int8 top-k inputs lie on {t.device} and {dev}")
     if D % 16 or q8.data_ptr() % 16 or corpus_q.data_ptr() % 16:
         raise ValueError(f"int8 top-k kernel needs D % 16 == 0 and 16-byte aligned rows, got D={D}")
+    variant = variant or int8_topk_variant(D, k)
+    if variant not in ("wgmma", "dp4a") or (variant == "wgmma" and int8_topk_variant(D, k) != variant):
+        raise ValueError(f"int8 top-k variant {variant!r} does not take D={D}")
+    if variant == "wgmma" and corpus_scale.data_ptr() % 16:
+        raise ValueError("the int8 top-k's wgmma variant needs 16-byte aligned row scales")
     lib = load_library()
-    # about eight blocks of (8 queries, row range) per SM of 132, whole
-    # 256-row chunks per range
-    q_tiles = -(-B // 8)
-    n_ranges = max(1, min(-(-N // 256), -(-1056 // q_tiles), 65535))
-    rows_per_range = -(-(-(-N // n_ranges)) // 256) * 256
+    if variant == "wgmma":
+        # one block per SM: (query tile, row range) blocks, whole 128-row
+        # tiles per range
+        q_tiles = -(-B // lib.lib.tss_int8_topk_block_queries(B, D, k))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        align = INT8_TOPK_WGMMA_ROWS
+        n_ranges = max(1, min(-(-N // align), sms // q_tiles, 65535))
+    else:
+        # about eight blocks of (8 queries, row range) per SM of 132, whole
+        # 256-row chunks per range
+        q_tiles = -(-B // 8)
+        align = 256
+        n_ranges = max(1, min(-(-N // 256), -(-1056 // q_tiles), 65535))
+    rows_per_range = -(-(-(-N // n_ranges)) // align) * align
     n_ranges = -(-N // rows_per_range)
     part_v = torch.empty((n_ranges, B, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_ranges, B, k), dtype=torch.int32, device=dev)
     part_z = torch.empty((n_ranges, B), dtype=torch.int32, device=dev)
     out_v = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
-    err = lib.lib.tss_int8_topk(
+    args = (
         _ptr(q8), _ptr(q_scale), _ptr(corpus_q), _ptr(corpus_scale),
         _ptr(part_v), _ptr(part_i), _ptr(part_z), _ptr(out_v), _ptr(out_i),
         B, D, N, k, n_ranges, rows_per_range, _stream(dev),
     )
-    _raise_on(err, "int8 top-k kernel")
-    LAUNCHES["int8_topk"] += 1
+    if variant == "wgmma":
+        _raise_on(lib.lib.tss_int8_topk(*args), "int8 top-k kernel")
+        LAUNCHES["int8_topk"] += 1
+    else:
+        _raise_on(lib.lib.tss_int8_topk_dp4a(*args), "int8 top-k kernel (dp4a)")
+        LAUNCHES["int8_topk_dp4a"] += 1
     return out_v, out_i
 
 
