@@ -95,13 +95,40 @@ What it does, in order (any failure exits non-zero before the last line):
    query cache. Each result must be hydrated, with a snippet, inside its
    filters; name queries lead with a case-name or exact hit. Launch counts
    are reset just before these batches and read just after.
+10. H1, HTTP over that engine, in this process: ``ApiServer`` with the
+   default ``[server]`` section (batch_max 64, window 2 ms, two batches
+   in flight; the per-client rate limit lifted for the loadtest) bound
+   through aiohttp's ``AppRunner`` on 127.0.0.1 in an event loop on its
+   own thread. Eight semantic queries get a planted corpus row each (the
+   seeded encoder's cosines to the synthetic corpus lie under the 0.5 an
+   HTTP request cannot change). /health; POST /search with 8 case names
+   (their case first) and the 8 semantic queries (their planted case
+   first), each reply equal to ``search_batch([q])`` with the query cache
+   cleared; GET /search, /graphql, /completions, /stats; three 400s; then
+   the port's ``loadtest`` coroutine: 1,024 distinct queries at
+   concurrency 64 after its warm pass, with the query and embedding
+   caches cleared between the two, so that no measured request is a
+   cache reply (every reply 200; QPS, p50/p95/p99; the batcher's mean
+   batch from /stats must exceed 1). Launch counts are reset just before
+   the first request and read just after the loadtest, before any direct
+   engine call (path ``http``): the probe and the rescore must have
+   launched. Then 64 of the loadtest's queries served alone must equal
+   what the burst served (same query embeddings; scores within 1e-5).
+11. H2, the CLI lifecycle over phase 6's store and artifacts, as
+   subprocesses: ``config-dump``, ``check-health``, ``search`` and
+   ``completions`` (started together, each must exit 0 with the expected
+   output), then ``serve`` until "warmup complete", /health and POST
+   /search, 64 new cases stored, ``POST /admin/reindex?mode=incremental``
+   until /stats counts them, a new case found by name, ``quality.json``
+   beside the vectors, SIGINT: exit 0 with "shutting down" in its log
+   (``chiprun_out/h2_serve.log``). Each step's seconds.
 
 The line before the last is a JSON object with one entry per kernel:
 ``launches`` counts the kernel on the path that reaches it (the
 ``query_batch`` run for the three serving kernels, ``fused_int8_topk`` for
 the int8 top-k (at D=48 for its dp4a variant), ``fused_scan_topk`` at T=17 for the fused scan's dp4a
 variant, which the serving paths must not launch) and ``launches_by_path``
-on each path (``build``: phase 5's recall search). The last line is
+on each path (``build``: phase 5's recall search; ``http``: phase 10). The last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 
@@ -263,6 +290,17 @@ def corpus_slabs(torch, P: int, m: int, D: int, seed: int, gen_device):
         yield p0, c, torch.where(dup[..., None], torch.roll(v, 1, dims=1), v)
 
 
+def rescore_seg_rows(D: int) -> int:
+    """Rows of each bf16 rescore segment but the last (the saved layout)."""
+    from trie_semantic_search_tpu_torch.ops.scan_kernels import (
+        GATHER_ROW_ALIGN_LCM,
+        GATHER_SEG_BYTES,
+    )
+
+    L = GATHER_ROW_ALIGN_LCM
+    return max(L, (GATHER_SEG_BYTES // (D * 2)) // L * L)
+
+
 def make_corpus(torch, P: int, m: int, D: int, seed: int, device, gen_device=None):
     """The clustered corpus of :func:`corpus_slabs` (the shape of the JAX
     package's bench corpus) laid out partition-major as a built index would
@@ -270,14 +308,11 @@ def make_corpus(torch, P: int, m: int, D: int, seed: int, device, gen_device=Non
     saved artifact geometry), row ``p * m + j`` in slot ``j`` of partition
     ``p``. The random numbers come from a generator on ``gen_device``
     (default ``device``)."""
-    from trie_semantic_search_tpu_torch.ops.scan_kernels import (
-        GATHER_ROW_ALIGN_LCM,
-        GATHER_SEG_BYTES,
-    )
+    from trie_semantic_search_tpu_torch.ops.scan_kernels import GATHER_ROW_ALIGN_LCM
 
     N = P * m
     L = GATHER_ROW_ALIGN_LCM
-    seg_rows = max(L, (GATHER_SEG_BYTES // (D * 2)) // L * L)
+    seg_rows = rescore_seg_rows(D)
     segs, lo = [], 0
     while lo < N:
         n = min(seg_rows, N - lo)
@@ -1569,7 +1604,8 @@ def engine_phase(torch, np, fused, vi, names, db_path: str, seed: int):
     hydrating from the sqlite store. Warmup at ``WARM_SIZES`` (must leave
     ``is_warm``), the batches of ``ENGINE_PLAN``, then the first batch again, which the query cache
     must serve without a launch. Returns the warmup seconds, per-batch
-    records and the launch counts of exactly these batches."""
+    records, the launch counts of exactly these batches, the stats and the
+    engine (its store still open, for phase H1)."""
     from trie_semantic_search_tpu_torch.core.config import Config
     from trie_semantic_search_tpu_torch.core.metrics import metrics
     from trie_semantic_search_tpu_torch.core.types import SearchConfig
@@ -1648,10 +1684,399 @@ def engine_phase(torch, np, fused, vi, names, db_path: str, seed: int):
                         device_ms=None, results=sum(map(len, again)), launches={}, json=None))
     engine.health_check()
     stats = engine.get_stats()
-    storage.close()
     for rec in records:
         del rec["json"]
-    return warm_s, records, launches, stats
+    return warm_s, records, launches, stats, engine
+
+
+#: phase H1: the loadtest's size and the queries repeated singly after it
+HTTP_REQUESTS, HTTP_CONCURRENCY, HTTP_REPEATS = 1024, 64, 64
+#: phase H1: score tolerance between a query served alone and in a
+#: coalesced batch, on the same query embedding (the embedding cache holds
+#: it): the device step's bf16 rescore bound, as between card and CPU
+HTTP_SCORE_TOL = 1e-5
+#: phase H1: the engine's spans read over the loadtest
+HTTP_SPANS = ("search_batch", "fused_embed", "fused_device")
+#: phase H2: cases stored while ``serve`` runs, then indexed incrementally
+H2_NEW_CASES = 64
+
+
+def plant_rows(torch, engine, texts) -> dict[str, int]:
+    """Make each text a semantic hit: its query embedding (the encoder's,
+    past the embedding cache) replaces one corpus row, in the nearest of
+    its 8 nearest partitions with a slot left, in the int8 block, its
+    scale and the bf16 rescore segment. The seeded encoder's cosines to
+    the synthetic corpus lie near 0, under the default ``min_similarity``
+    of 0.5 that an HTTP request cannot change, so without this a semantic
+    query answers nothing. Returns text -> planted case row."""
+    vi = engine.vector_index
+    ann = vi.ann
+    q = torch.as_tensor(vi.embedder.embed(list(texts)).embedding, device=ann.centroids.device)
+    near = torch.topk(q @ ann.centroids.T, k=min(8, ann.centroids.shape[0]), dim=1).indices.tolist()
+    m = ann.part_rows.shape[1]
+    seg_rows = rescore_seg_rows(q.shape[1])
+    used: dict[int, int] = {}
+    out = {}
+    for t, parts, v in zip(texts, near, q):
+        p = next(p for p in parts if used.get(p, 0) < m)
+        j = used.get(p, 0)
+        used[p] = j + 1
+        row = int(ann.part_rows[p, j])
+        scale = v.abs().amax() / 127.0
+        ann.part_int8[p, j] = torch.clamp(torch.round(v / scale), -127, 127).to(torch.int8)
+        ann.part_scale[p, j] = scale
+        si, so = divmod(row, seg_rows)
+        ann.corpus_bf16[si][so] = v.to(torch.bfloat16)
+        out[t] = row // CHUNKS_PER_CASE
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk_:
+        sk_.bind(("127.0.0.1", 0))
+        return sk_.getsockname()[1]
+
+
+def same_results(a, b, tol: float) -> float:
+    """Case ids, order and match types equal; returns the largest score
+    difference, which must be within ``tol``."""
+    ids = lambda rs: [(r.case_metadata.id, r.match_type) for r in rs]  # noqa: E731
+    if ids(a) != ids(b):
+        raise AssertionError(f"results differ: {ids(a)} vs {ids(b)}")
+    worst = max((abs(x.score - y.score) for x, y in zip(a, b)), default=0.0)
+    if worst > tol:
+        raise AssertionError(f"scores differ by {worst} > {tol}")
+    return worst
+
+
+def http_phase(torch, np, engine, names, seed: int) -> tuple[dict, dict]:
+    """Phase H1: ``ApiServer`` (default ``[server]``: batch_max 64, window
+    2 ms, two batches in flight) over the engine phase's ``SearchEngine``,
+    bound through aiohttp's ``AppRunner`` on 127.0.0.1 in an event loop on
+    its own thread. Drives /health, POST /search (8 case names, 8 semantic
+    queries: each reply equals ``search_batch([q])`` with the query cache
+    cleared), GET /search, /graphql, /completions, /stats and three 400s,
+    then the port's ``loadtest`` (1,024 distinct queries at concurrency 64
+    after its warm pass, the caches cleared between the two), then serves
+    64 of its queries alone and holds them against what the burst served.
+    Returns the record and the launch counts of the HTTP requests alone."""
+    import asyncio
+    import copy
+    import threading
+
+    import aiohttp
+    from aiohttp import web
+
+    from trie_semantic_search_tpu_torch.api.server import ApiServer
+    from trie_semantic_search_tpu_torch.cli import build_parser, run_loadtest
+    from trie_semantic_search_tpu_torch.core.metrics import metrics
+    from trie_semantic_search_tpu_torch.core.types import AppState
+    from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
+    from trie_semantic_search_tpu_torch.search.engine import SearchQuery
+
+    rec: dict = {}
+    rng = np.random.default_rng(seed + 4)
+    named = list(names.values())
+    name_qs = [named[i] for i in rng.choice(len(named), 8, replace=False)]
+    sem_qs = [f"semantic probe {i} " + " ".join(rng.choice(WORDS, 5)) for i in range(8)]
+    la = build_parser().parse_args([
+        "loadtest", "--requests", str(HTTP_REQUESTS), "--concurrency", str(HTTP_CONCURRENCY),
+        "--timeout", "300"])
+    load_qs = [la.query_template.format(i=i) for i in range(HTTP_REQUESTS)]
+    # only the 8 semantic queries are planted: the encoder's embeddings of
+    # the loadtest's queries lie close to theirs (cosine above 0.5), so the
+    # loadtest's queries are semantic hits of these rows; planting each of
+    # them too would make their top-k boundaries flat and escalate them
+    t0 = time.perf_counter()
+    planted = plant_rows(torch, engine, sem_qs)
+    rec["plant_s"] = time.perf_counter() - t0
+    engine.query_cache.clear()
+
+    # the default [server] section but the per-client rate limit (1,000 a
+    # minute), which would refuse most of a loadtest sent from one client
+    config = copy.deepcopy(engine.config)
+    config.server.rate_limit_rpm = 10**9
+    server = ApiServer(AppState(config=config, search_engine=engine, storage=engine.storage))
+    cfg = config.server
+    la.url = f"http://127.0.0.1:{free_port()}"
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="http-server", daemon=True)
+    thread.start()
+    runner = web.AppRunner(server.app, access_log=None)
+    on_loop = lambda coro: asyncio.run_coroutine_threadsafe(coro, loop).result(120)  # noqa: E731
+    on_loop(runner.setup())
+    on_loop(web.TCPSite(runner, "127.0.0.1", int(la.url.rsplit(":", 1)[1])).start())
+    log(f"  serving on {la.url}: batch_max {cfg.batch_max}, window {cfg.batch_window_ms} ms, "
+        f"inflight {cfg.batch_inflight}, max pending {cfg.batch_max_pending}, rate limit "
+        f"{cfg.rate_limit_rpm}/min; {len(planted)} semantic rows planted in {rec['plant_s']:.1f} s")
+
+    async def call(s, method, path, want, **kw):
+        async with s.request(method, path, **kw) as r:
+            body = await r.json() if r.content_type == "application/json" else await r.text()
+            if r.status != want:
+                raise AssertionError(f"{method} {path} {kw}: {r.status}, want {want}: {body}")
+            return body
+
+    async def drive() -> list:
+        async with aiohttp.ClientSession(base_url=la.url) as s:
+            h = await call(s, "GET", "/health", 200)
+            if set(h["components"].values()) != {"healthy"}:
+                raise AssertionError(f"/health: {h}")
+            posts = [await call(s, "POST", "/search", 200, json={"query": q}) for q in name_qs + sem_qs]
+            await call(s, "GET", "/search", 200, params={"query": name_qs[0], "limit": "5"})
+            gql = await call(s, "POST", "/graphql", 200, json={
+                "query": f'{{ search(query: "{sem_qs[0]}", limit: 3) {{ caseName score matchType }} }}'})
+            if gql["data"]["search"][0]["matchType"] != "semantic":
+                raise AssertionError(f"/graphql: {gql}")
+            comps = await call(s, "GET", "/completions", 200, params={"prefix": name_qs[1].split()[0]})
+            if not comps["completions"]:
+                raise AssertionError(f"/completions: {comps}")
+            await call(s, "GET", "/stats", 200)
+            await call(s, "POST", "/search", 400, json={"query": "a"})
+            await call(s, "POST", "/search", 400, data=b"not json")
+            await call(s, "GET", "/search", 400)
+            return posts
+
+    async def batching() -> dict:
+        async with aiohttp.ClientSession(base_url=la.url) as s:
+            return (await call(s, "GET", "/stats", 200))["batching"]
+
+    def clear_caches() -> None:
+        # between the loadtest's warm pass and its measured run: the warm
+        # pass sent the run's first 64 queries, which would otherwise come
+        # back from the query cache without reaching the batcher or the card
+        engine.query_cache.clear()
+        engine.vector_index.cache.clear()
+
+    # the counts of the http path: set to 0 just before the first request
+    # and read just after the loadtest, before any direct search_batch call
+    sk.reset_launch_counts()
+    try:
+        posts = asyncio.run(drive())
+        b0 = asyncio.run(batching())
+        spans0 = {n: (metrics.histogram(n).count, metrics.histogram(n).total_ms) for n in HTTP_SPANS}
+        t0 = time.perf_counter()
+        rec["loadtest"] = asyncio.run(run_loadtest(la, after_warm=clear_caches))
+        rec["loadtest_s"] = time.perf_counter() - t0
+        b1 = asyncio.run(batching())
+        launches = dict(sk.LAUNCHES)
+        # the engine's own spans over the loadtest (warm pass included):
+        # batches, ms per batch, and the batch workers' busy share of the wall
+        rec["spans"] = {}
+        for n, (c0, ms0) in spans0.items():
+            c, ms = metrics.histogram(n).count - c0, metrics.histogram(n).total_ms - ms0
+            rec["spans"][n] = dict(count=c, ms_per_batch=ms / max(c, 1),
+                                   busy_workers=ms / (rec["loadtest_s"] * 1e3))
+    finally:
+        on_loop(runner.cleanup())
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=60)
+        loop.close()
+    if thread.is_alive():
+        raise AssertionError("the HTTP server's thread did not stop")
+    lt = rec["loadtest"]
+    if lt["errors"] or lt["by_status"] != {"200": HTTP_REQUESTS}:
+        raise AssertionError(f"loadtest replies: {lt}")
+    batches, items = b1["batches"] - b0["batches"], b1["items"] - b0["items"]
+    rec.update(batches=batches, items=items, mean_batch=items / max(batches, 1),
+               ghosts=b1["ghosts_dropped"], shed=b1["shed"], batch_failures=b1["batch_failures"])
+    if rec["mean_batch"] <= 1.0:
+        raise AssertionError(f"the batcher did not coalesce: {items} items in {batches} batches")
+
+    # what the burst served (the query cache holds each coalesced batch's
+    # results) against the same queries served alone, on the same query
+    # embeddings (the embedding cache holds the last 1,000; the queries
+    # are taken from the run's second half). This comes before the checks
+    # of the single replies below, which clear the query cache.
+    step = (HTTP_REQUESTS // 2) // HTTP_REPEATS
+    qs = [SearchQuery(query=load_qs[i], max_results=5)
+          for i in range(HTTP_REQUESTS // 2, HTTP_REQUESTS, step)][:HTTP_REPEATS]
+    burst = [engine.query_cache.get(engine._cache_key(q)) for q in qs]
+    if any(b is None for b in burst) or any(engine.vector_index.cache.get(q.query) is None for q in qs):
+        raise AssertionError("a loadtest query is not in the query or embedding cache")
+    worst, served = 0.0, 0
+    for q, b in zip(qs, burst):
+        engine.query_cache.clear()
+        alone = engine.search_batch([q])[0]
+        worst = max(worst, same_results(alone, b, HTTP_SCORE_TOL))
+        served += len(alone)
+        if not alone or alone[0].match_type.value != "semantic":
+            raise AssertionError(f"{q.query!r}: no semantic hit first: {alone[:1]}")
+
+    # each single reply of drive() against search_batch([q]) with the query
+    # cache cleared (the server has stopped meanwhile)
+    for q, body in zip(name_qs + sem_qs, posts):
+        engine.query_cache.clear()
+        want = engine.search_batch([SearchQuery(query=q)])[0]
+        served_ids = [(uuid.UUID(r["case_metadata"]["id"]), r["match_type"]) for r in body["results"]]
+        if served_ids != [(r.case_metadata.id, r.match_type.value) for r in want] or any(
+                abs(r["score"] - w.score) > HTTP_SCORE_TOL for r, w in zip(body["results"], want)):
+            raise AssertionError(f"POST /search {q!r} differs from search_batch([q])")
+        top = want[0] if want else None
+        if q in planted:
+            ok = top is not None and top.match_type.value == "semantic" and \
+                engine.columns.row_of_case[top.case_metadata.id] == planted[q]
+        else:
+            ok = top is not None and top.case_metadata.name == q and \
+                top.match_type.value in ("case_name", "exact")
+        if not ok:
+            raise AssertionError(f"POST /search {q!r}: top hit {top and top.case_metadata.name}")
+    rec["post_checks"] = len(posts)
+    rec.update(single_vs_burst=len(qs), single_vs_burst_results=served,
+               single_vs_burst_max_score_diff=worst, escalated=engine.get_stats().escalated_queries)
+    return rec, launches
+
+
+def run_cli(args: list[str], toml: Path, timeout: float) -> tuple[str, float]:
+    """``python3 -m trie_semantic_search_tpu_torch.cli -c toml *args``:
+    its stdout and seconds; fails unless it exits 0."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "trie_semantic_search_tpu_torch.cli", "-c", str(toml),
+                          *args], cwd=HERE, capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"cli {args} exited {out.returncode}: {out.stderr[-3000:]}")
+    return out.stdout, time.perf_counter() - t0
+
+
+def cli_phase(np, seed: int, work: Path, out_dir: Path) -> dict:
+    """Phase H2: the CLI lifecycle over phase B's store and artifacts. A
+    TOML config; ``config-dump``, ``check-health``, ``search`` and
+    ``completions`` as subprocesses (started together); then ``serve`` in
+    the background until its log says "warmup complete"; /health and
+    POST /search; 64 new cases stored (ids after the old ones, so the
+    incremental branch runs); ``POST /admin/reindex?mode=incremental``;
+    /stats polled until they are indexed; a new case found by name;
+    ``quality.json`` beside the vectors; SIGINT, exit 0, "shutting down"
+    in the log. Each step's seconds."""
+    import concurrent.futures
+    import signal
+    import urllib.request
+
+    from trie_semantic_search_tpu_torch.core.config import Config
+    from trie_semantic_search_tpu_torch.core.types import CaseMetadata
+    from trie_semantic_search_tpu_torch.storage.store import StorageManager
+
+    cfg = Config()
+    cfg.storage.db_path = str(work / "pipeline.sqlite")
+    cfg.storage.backup.backup_dir = str(work / "backups")
+    cfg.trie.index_path = str(work / "trie")
+    cfg.vector.hnsw.index_path = str(work / "vec")
+    cfg.vector.pooling = "mean"
+    cfg.server.port = free_port()
+    toml = work / "serve.toml"
+    cfg.save_to_file(toml)
+    names = case_names(np, PIPE_CASES, PIPE_NAMES, seed)
+    name = names[min(names)]
+    prefix = " ".join(name.split()[:2])
+    rec: dict = {"steps_s": {}}
+    steps = rec["steps_s"]
+
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        jobs = {k: pool.submit(run_cli, a, toml, 600) for k, a in (
+            ("config-dump", ["config-dump"]), ("check-health", ["check-health"]),
+            ("search", ["search", name, "--limit", "5"]), ("completions", ["completions", prefix]))}
+        outs = {k: j.result() for k, j in jobs.items()}
+    for k, (_, sec) in outs.items():
+        steps[k] = sec
+    if outs["config-dump"][0] != Config.from_file(toml).to_toml() + "\n":
+        raise AssertionError("config-dump is not the config's TOML")
+    if json.loads(outs["check-health"][0])["status"] != "healthy":
+        raise AssertionError(f"check-health: {outs['check-health'][0]}")
+    hits = json.loads(outs["search"][0])
+    if not hits or hits[0]["case_metadata"]["name"] != name or hits[0]["match_type"] not in ("case_name", "exact"):
+        raise AssertionError(f"cli search {name!r}: {hits[:1]}")
+    comps = json.loads(outs["completions"][0])
+    if not comps or not all(c.startswith(prefix.lower().replace(".", "")) for c in comps):
+        raise AssertionError(f"cli completions {prefix!r}: {comps}")
+    log(f"  config-dump {steps['config-dump']:.1f} s, check-health {steps['check-health']:.1f} s, "
+        f"search {steps['search']:.1f} s ({len(hits)} hits, {name!r} first), completions "
+        f"{steps['completions']:.1f} s ({len(comps)}), all four started together")
+
+    log_path = work / "serve.log"
+    base = f"http://127.0.0.1:{cfg.server.port}"
+
+    def get(path, data=None, timeout=120):
+        req = urllib.request.Request(base + path, data=data,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+
+    def wait_for(what, cond, limit):
+        t0 = time.perf_counter()
+        while not cond():
+            if proc.poll() is not None:
+                raise AssertionError(f"serve exited {proc.returncode} before {what}: "
+                                     f"{log_path.read_text()[-3000:]}")
+            if time.perf_counter() - t0 > limit:
+                raise AssertionError(f"no {what} within {limit} s")
+            time.sleep(0.2)
+        return time.perf_counter() - t0
+
+    t_start = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen([sys.executable, "-m", "trie_semantic_search_tpu_torch.cli", "-c",
+                                 str(toml), "serve"], cwd=HERE, stdout=logf, stderr=subprocess.STDOUT)
+    try:
+        steps["serve_listening"] = wait_for(
+            "listening", lambda: "API server listening" in log_path.read_text(), 300)
+        wait_for("warmup complete", lambda: "warmup complete" in log_path.read_text(), 600)
+        steps["serve_warm"] = time.perf_counter() - t_start
+        status, h = get("/health")
+        if status != 200 or h["status"] != "healthy":
+            raise AssertionError(f"serve /health: {status} {h}")
+        status, body = get("/search", json.dumps({"query": name}).encode())
+        if status != 200 or body["results"][0]["case_metadata"]["name"] != name:
+            raise AssertionError(f"serve POST /search {name!r}: {status} {body['results'][:1]}")
+        before = get("/stats")[1]["engine"]["total_cases_indexed"]
+
+        t0 = time.perf_counter()
+        store = StorageManager(cfg.storage)
+        new_rows = range(PIPE_CASES, PIPE_CASES + H2_NEW_CASES)
+        new_names = {c: f"newly filed w{c % 500} v. state {c}" for c in new_rows}
+        court_ids, dates = case_columns(np, PIPE_CASES + H2_NEW_CASES)
+        for c in new_rows:
+            meta = case_meta(CaseMetadata, c, new_names, court_ids, dates)
+            store.store_case_metadata(meta)
+            store.store_case_text(meta.id, case_text(c))
+        store.close()
+        steps["store_new_cases"] = time.perf_counter() - t0
+        req = urllib.request.Request(base + "/admin/reindex?mode=incremental", data=b"", method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=60) as r:
+            if r.status != 202 or json.loads(r.read())["mode"] != "incremental":
+                raise AssertionError("reindex was not started")
+        steps["reindex"] = wait_for(
+            "the incremental reindex",
+            lambda: get("/stats")[1]["engine"]["total_cases_indexed"] == before + H2_NEW_CASES, 600)
+        new_name = new_names[PIPE_CASES + H2_NEW_CASES // 2]
+        status, body = get("/search", json.dumps({"query": new_name}).encode())
+        if status != 200 or body["results"][0]["case_metadata"]["name"] != new_name:
+            raise AssertionError(f"new case {new_name!r} not found first: {body['results'][:1]}")
+        quality = json.loads((work / "vec" / "quality.json").read_text())
+        if "incremental reindex complete" not in log_path.read_text():
+            raise AssertionError("the log does not record the incremental reindex")
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        steps["shutdown_stopped"] = wait_for(
+            "'stopped' in the log", lambda: "tss_torch.cli: stopped" in log_path.read_text(), 120)
+        rc = proc.wait(timeout=120)
+        steps["shutdown"] = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.copy(log_path, out_dir / "h2_serve.log")
+    text = log_path.read_text()
+    if rc != 0 or "shutting down" not in text:
+        raise AssertionError(f"serve exited {rc} on SIGINT; 'shutting down' logged: {'shutting down' in text}")
+    rec["update_log"] = next(ln for ln in text.splitlines() if "incremental update:" in ln)
+    rec.update(cases_before=before, cases_after=before + H2_NEW_CASES, new_case=new_name,
+               quality_gate=dict(mode=quality["mode"], degraded=quality["degraded"],
+                                 trained_mrr=quality["trained"]["all"]["mrr"],
+                                 control_mrr=quality["control"]["all"]["mrr"], probes=quality["probes"]))
+    return rec
 
 
 def main() -> int:
@@ -1818,7 +2243,7 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None) 
         f"{st['store_cases_batch_s'] / STORE_TIMED_CASES * n_cases:.0f} s at {n_cases} cases")
 
     log("phase: SearchEngine (counts reset just before the batches, read just after)")
-    warm_s, erecs, elaunches, stats = engine_phase(torch, np, fused, vi, names, db_path, seed)
+    warm_s, erecs, elaunches, stats, engine = engine_phase(torch, np, fused, vi, names, db_path, seed)
     log(f"  warmup(batch_sizes={WARM_SIZES}) {warm_s:.1f} s, is_warm True")
     for r in erecs:
         split = "" if r["embed_ms"] is None else (
@@ -1833,7 +2258,49 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None) 
         raise AssertionError(f"kernels not launched on the SearchEngine path: {missing}, or the "
                              f"dp4a fused scan launched: {elaunches}")
     detail["engine"] = dict(warmup_s=warm_s, batches=erecs)
-    paths = {"query_batch": launches, "SearchEngine": elaunches, **paths}
+
+    log("phase: H1 HTTP over the full-size engine (ApiServer + BatchingQueue; counts reset just "
+        "before the first request, read just after the loadtest)")
+    t0 = time.perf_counter()
+    h1, hlaunches = http_phase(torch, np, engine, names, seed)
+    engine.storage.close()
+    h1["seconds"] = time.perf_counter() - t0
+    lt = h1["loadtest"]
+    log(f"  {card}: loadtest {lt['requests']} requests at concurrency {lt['concurrency']}: errors "
+        f"{lt['errors']}, by_status {lt['by_status']}, {lt['qps']} QPS, p50 {lt['p50_ms']} ms, p95 "
+        f"{lt['p95_ms']} ms, p99 {lt['p99_ms']} ms ({lt['wall_s']} s)")
+    log(f"  batcher over the loadtest (warm pass included): {h1['items']} requests in {h1['batches']} "
+        f"batches, mean batch {h1['mean_batch']:.2f}; ghosts {h1['ghosts']}, shed {h1['shed']}, "
+        f"failed batches {h1['batch_failures']}; escalated queries {h1['escalated']}")
+    log("  engine spans over the loadtest (warm pass included): " + "; ".join(
+        f"{n} {v['count']} x {v['ms_per_batch']:.2f} ms, busy {v['busy_workers']:.2f} workers"
+        for n, v in h1["spans"].items()))
+    log(f"  {h1['post_checks']} single POST /search replies equal search_batch([q]); "
+        f"{h1['single_vs_burst']} loadtest queries served alone equal their burst results (ids, "
+        f"order, match types; max score difference {h1['single_vs_burst_max_score_diff']:.3g}, "
+        f"tolerance {HTTP_SCORE_TOL})")
+    log(f"  launches on the http path: {hlaunches} (fused_scan: {hlaunches['fused_scan']}; the "
+        f"coalesced batches of at most {HTTP_CONCURRENCY} probe); phase {h1['seconds']:.1f} s")
+    missing = [k for k in ("probe_candidates", "gather_rescore") if hlaunches[k] <= 0]
+    if missing or hlaunches["fused_scan_dp4a"]:
+        raise AssertionError(f"kernels not launched on the http path: {missing}, or the dp4a "
+                             f"fused scan launched: {hlaunches}")
+    detail["http"] = h1
+
+    log("phase: H2 CLI lifecycle over phase B's artifacts (subprocesses)")
+    t0 = time.perf_counter()
+    h2 = cli_phase(np, seed, work, out_dir)
+    h2["seconds"] = time.perf_counter() - t0
+    st = h2["steps_s"]
+    log(f"  {card}: serve listening {st['serve_listening']:.1f} s, warm {st['serve_warm']:.1f} s "
+        f"after start; {H2_NEW_CASES} cases stored in {st['store_new_cases']:.2f} s; incremental "
+        f"reindex {st['reindex']:.1f} s ({h2['cases_before']} -> {h2['cases_after']} cases, "
+        f"{h2['new_case']!r} found first; quality gate {h2['quality_gate']}); SIGINT -> 'stopped' "
+        f"logged in {st['shutdown_stopped']:.1f} s, exit 0 in {st['shutdown']:.1f} s; phase "
+        f"{h2['seconds']:.1f} s")
+    log(f"  serve's log: {h2['update_log'].split(': ', 1)[1]}")
+    detail["cli"] = h2
+    paths = {"query_batch": launches, "SearchEngine": elaunches, "http": hlaunches, **paths}
     return finish(torch, detail, kernels, paths, out_dir, card, t_start)
 
 

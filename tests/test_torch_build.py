@@ -13,6 +13,7 @@ Sizes stay small (D ≤ 64, P ≤ 32, N ≤ 4,096), so each test takes seconds.
 import datetime as dt
 import functools
 import uuid
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,7 @@ from trie_semantic_search_tpu.core.types import SearchConfig as JaxSearchConfig
 from trie_semantic_search_tpu.index import ann as ja
 from trie_semantic_search_tpu.index.builder import build_indexes as jax_build_indexes
 from trie_semantic_search_tpu.index.builder import load_artifacts as jax_load_artifacts
+from trie_semantic_search_tpu.index.builder import update_indexes as jax_update_indexes
 from trie_semantic_search_tpu.index.vector import VectorIndex as JaxVectorIndex
 from trie_semantic_search_tpu.models.embedder import Embedder as JaxEmbedder
 from trie_semantic_search_tpu.models.tokenizer import WordPieceTokenizer as JaxTokenizer
@@ -48,10 +50,11 @@ from trie_semantic_search_tpu_torch.index.builder import (
     build_indexes,
     load_artifacts,
     save_artifacts,
+    update_indexes,
 )
 from trie_semantic_search_tpu_torch.index.vector import VectorIndex
 from trie_semantic_search_tpu_torch.models import minilm as tm
-from trie_semantic_search_tpu_torch.models.embedder import Embedder
+from trie_semantic_search_tpu_torch.models.embedder import Embedder, EmbeddingResult
 from trie_semantic_search_tpu_torch.models.tokenizer import WordPieceTokenizer
 from trie_semantic_search_tpu_torch.search.engine import SearchEngine, SearchQuery
 from trie_semantic_search_tpu_torch.storage.store import StorageManager
@@ -431,14 +434,20 @@ def _cases(n=48):
     return out
 
 
+def _add_cases(store, meta_cls, cases, start=0):
+    """Store ``cases`` as case numbers ``start, start + 1, ...`` (ids in
+    another order than the rows)."""
+    for i, (name, cit, court, date, text) in enumerate(cases, start):
+        meta = meta_cls(id=uuid.UUID(int=(i * 7919) % 1000 + 1), name=name, citation=cit,
+                        court=court, decision_date=date, word_count=len(text.split()))
+        store.store_cases_batch([(meta, text)])
+
+
 def _write_store(store_cls, meta_cls, path, cases):
     cfg = JaxConfig().storage if store_cls is JaxStorage else Config().storage
     cfg.db_path = str(path)
     store = store_cls(cfg)
-    for i, (name, cit, court, date, text) in enumerate(cases):
-        meta = meta_cls(id=uuid.UUID(int=(i * 7919) % 1000 + 1), name=name, citation=cit,
-                        court=court, decision_date=date, word_count=len(text.split()))
-        store.store_cases_batch([(meta, text)])
+    _add_cases(store, meta_cls, cases)
     return store
 
 
@@ -550,9 +559,8 @@ def port_artifacts(tmp_path_factory):
     store = _write_store(StorageManager, CaseMetadata, pcfg.storage.db_path, cases)
     built = build_indexes(store, pcfg, device="cpu")
     assert built.vector.embedder.model_config.hidden_size == 384
-    save_artifacts(built, pcfg)
-    with pytest.raises(NotImplementedError):
-        save_artifacts(built, pcfg, storage=store)
+    save_artifacts(built, pcfg, storage=store)  # the quality gate is off: no report
+    assert not (Path(pcfg.vector.hnsw.index_path) / "quality.json").exists()
     store.close()
     return dict(root=root, jcfg=jcfg, pcfg=pcfg, built=built, cases=cases)
 
@@ -621,3 +629,90 @@ def test_port_artifacts_reload_in_port(port_artifacts):
                                   built.vector.embedder.embed(texts).embedding)
     assert [str(c) for c in cols.case_ids] == [str(c) for c in built.columns.case_ids]
 
+
+
+def _trie_arrays(trie):
+    return {(name, f): np.array(getattr(getattr(trie, name), f))
+            for name in ("name_trie", "content_trie", "citation_trie")
+            for f in getattr(trie, name)._ARRAY_FIELDS}
+
+
+@pytest.mark.parametrize("branch", ["incremental", "fallback"])
+def test_update_indexes_matches_jax(tmp_path, f32_jax_encoder, kernels_interpret, branch):
+    """Cases stored after a build, through both packages' ``update_indexes``:
+    the incremental branch (old rows lead the store) and the full-rebuild
+    fallback (the first case deleted: every row id moves). Both embed with
+    the JAX encoder's vectors (the port's embedder hands them over), and
+    both start from the same partitioning, so tries, refs, columns, vectors
+    and the ANN layout must be bitwise the JAX package's; the fallback's
+    fresh k-means agrees within 1e-5 and its layout is held from the JAX
+    centroids. The port leaves the indexes it was given untouched, and the
+    JAX engine serves the port's saved result with the same case ids."""
+    cases = _cases(56)
+    jcfg, pcfg = _configs(tmp_path, "u")
+    pcfg.storage.db_path = str(tmp_path / "u_port.sqlite")
+    jstore = _write_store(JaxStorage, JaxCaseMetadata, jcfg.storage.db_path, cases[:44])
+    pstore = _write_store(StorageManager, CaseMetadata, pcfg.storage.db_path, cases[:44])
+    vocab, params, mcfg, model = _encoders(cases)
+    jemb = JaxEmbedder(jcfg.vector.model, tokenizer=JaxTokenizer(vocab), params=params,
+                       model_config=mcfg)
+    pemb = Embedder(pcfg.vector.model, tokenizer=WordPieceTokenizer(vocab), model=model, device="cpu")
+    pemb.embed = lambda texts: EmbeddingResult(
+        np.asarray(jemb.embed(list(texts)).embedding, np.float32), 0.0)
+    jb = jax_build_indexes(jstore, jcfg, embedder=jemb)
+    pb = build_indexes(pstore, pcfg, embedder=pemb, device="cpu")
+    pb.vector.ann.build(pb.vector.vectors, reuse_centroids=np.asarray(jb.vector.ann.centroids))
+    _assert_same_layout(pb.vector.ann, jb.vector.ann)
+    live_trie, live_ann, live_refs = _trie_arrays(pb.trie), pb.vector.ann, len(pb.vector.refs)
+    if branch == "fallback":
+        first = uuid.UUID(int=1)
+        assert jstore.delete_case(first) and pstore.delete_case(first)
+    _add_cases(jstore, JaxCaseMetadata, cases[44:], start=44)
+    _add_cases(pstore, CaseMetadata, cases[44:], start=44)
+
+    ju = jax_update_indexes(jb, jstore, jcfg)
+    pu = update_indexes(pb, pstore, pcfg)
+    got = _trie_arrays(pb.trie)
+    for key, arr in live_trie.items():
+        np.testing.assert_array_equal(got[key], arr, err_msg=str(key))
+    assert pb.vector.ann is live_ann and len(pb.vector.refs) == live_refs
+    assert (pu.report.cases, pu.report.content_chunks, pu.report.citations) == (
+        ju.report.cases, ju.report.content_chunks, ju.report.citations)
+    for name in ("name_trie", "content_trie", "citation_trie"):
+        jt, tt = getattr(ju.trie, name), getattr(pu.trie, name)
+        assert tt.vocab == jt.vocab
+        for f in tt._ARRAY_FIELDS:
+            np.testing.assert_array_equal(getattr(tt, f), getattr(jt, f), err_msg=f"{name}.{f}")
+    np.testing.assert_array_equal(np.asarray(pu.vector.refs, np.int32),
+                                  np.asarray(ju.vector.refs, np.int32))
+    np.testing.assert_array_equal(pu.vector.vectors, np.asarray(ju.vector.vectors))
+    assert [str(c) for c in pu.columns.case_ids] == [str(c) for c in ju.columns.case_ids]
+    np.testing.assert_array_equal(pu.columns.dates, ju.columns.dates)
+    if branch == "fallback":
+        np.testing.assert_allclose(pu.vector.ann.centroids.numpy(),
+                                   np.asarray(ju.vector.ann.centroids), atol=1e-5, rtol=0)
+        pu.vector.ann.build(pu.vector.vectors, reuse_centroids=np.asarray(ju.vector.ann.centroids))
+    else:
+        assert pu.report.cases == len(cases) and pu.vector.ann is not live_ann
+    _assert_same_layout(pu.vector.ann, ju.vector.ann)
+    assert pu.vector.ann.tuned_nprobe == ju.vector.ann.tuned_nprobe
+
+    save_artifacts(pu, pcfg, storage=pstore)
+    jcfg.trie.index_path, jcfg.vector.hnsw.index_path = pcfg.trie.index_path, pcfg.vector.hnsw.index_path
+    jcfg.storage.db_path = pcfg.storage.db_path
+    jeng = JaxEngine(jcfg, JaxStorage(jcfg.storage), *jax_load_artifacts(jcfg))
+    peng = SearchEngine(pcfg, StorageManager(pcfg.storage), *load_artifacts(pcfg, device="cpu"),
+                        device="cpu")
+    jq, pq = _queries(JaxQuery, JaxSearchConfig, cases), _queries(SearchQuery, SearchConfig, cases)
+    jq.append(JaxQuery(query=cases[50][0].lower()))
+    pq.append(SearchQuery(query=cases[50][0].lower()))
+    texts = [q.query for q in jq]
+    for t, e in zip(texts, jeng.vector_index.generate_embeddings(texts)):
+        peng.vector_index.cache.put(t, e)
+    want, got = jeng.search_batch(jq), peng.search_batch(pq)
+    for g, w in zip(got, want):
+        assert [str(r.case_metadata.id) for r in g] == [str(r.case_metadata.id) for r in w]
+        assert [r.match_type.value for r in g] == [r.match_type.value for r in w]
+    assert got[-1][0].case_metadata.name == cases[50][0]
+    jstore.close()
+    pstore.close()

@@ -1,0 +1,303 @@
+"""The port's command line against the JAX package's, on the CPU.
+
+The one-shot commands read the store and artifacts the JAX package saved
+(``torch_engine_fixtures.art``), with ``mesh.enabled = false`` so the JAX
+side serves on one device as the port does; the port gets the JAX
+encoder's query vectors in its embedding cache, as in the engine tests.
+The JAX commands run through their parser's handlers, not ``main`` (which
+also sets JAX's compile cache).
+"""
+
+import asyncio
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import threading
+import time
+import tomllib
+import urllib.request
+from pathlib import Path
+
+import pytest
+import torch
+from aiohttp.test_utils import TestServer
+from torch_engine_fixtures import art, engines  # noqa: F401  (fixtures)
+
+from trie_semantic_search_tpu import cli as jcli
+from trie_semantic_search_tpu.core.config import Config as JaxConfig
+from trie_semantic_search_tpu_torch import cli as pcli
+from trie_semantic_search_tpu_torch.api.server import ApiServer
+from trie_semantic_search_tpu_torch.core.config import Config
+from trie_semantic_search_tpu_torch.core.types import AppState
+
+torch.set_num_threads(1)
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _jax(argv, capsys) -> tuple[int, str]:
+    args = jcli.build_parser().parse_args(argv)
+    rc = args.fn(args)
+    return rc, capsys.readouterr().out
+
+
+def _port(argv, capsys) -> tuple[int, str]:
+    rc = pcli.main(argv)
+    return rc, capsys.readouterr().out
+
+
+def _close(got, want):
+    """JSON equality with floats within 1e-5."""
+    if isinstance(want, dict):
+        assert got.keys() == want.keys()
+        for k in want:
+            _close(got[k], want[k])
+    elif isinstance(want, list):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _close(g, w)
+    elif isinstance(want, float):
+        assert abs(got - want) <= 1e-5
+    else:
+        assert got == want
+
+
+def _options(parser):
+    """{option strings: (dest, default, nargs, type, choices)} of a parser."""
+    return {
+        tuple(a.option_strings) or (a.dest,): (a.dest, a.default, a.nargs, a.type, a.choices)
+        for a in parser._actions
+        if a.dest not in ("help", "command")
+    }
+
+
+def _subparsers(parser):
+    return next(a for a in parser._actions if a.dest == "command").choices
+
+
+def test_parser_matches_jax():
+    """The same subcommands with the same options and defaults; at the top,
+    ``--device`` (default cuda) in place of ``--platform``."""
+    jp, pp = jcli.build_parser(), pcli.build_parser()
+    jtop, ptop = _options(jp), _options(pp)
+    assert jtop.pop(("--platform",))[1] is None
+    assert ptop.pop(("--device",))[:2] == ("device", "cuda")
+    assert ptop == jtop
+    jsub, psub = _subparsers(jp), _subparsers(pp)
+    assert list(psub) == list(jsub)
+    for name in jsub:
+        assert _options(psub[name]) == _options(jsub[name]), name
+        assert psub[name].description == jsub[name].description
+    args = pp.parse_args(["serve", "-p", "9000"])
+    assert args.port == 9000 and args.fn is pcli.cmd_serve and args.device == "cuda"
+    assert pcli.main([]) == 2
+
+
+@pytest.mark.parametrize("source", ["missing", "defaults", "edited", "env"])
+def test_config_dump_matches_jax(tmp_path, capsys, monkeypatch, source):
+    """``config-dump`` prints the JAX CLI's bytes for the same file."""
+    path = tmp_path / "c.toml"
+    if source != "missing":
+        cfg = JaxConfig()
+        if source == "edited":
+            cfg.server.port = 9123
+            cfg.server.api_key = 'se"cret'
+            cfg.ingestion.validation.required_fields = ["title"]
+            cfg.logging.json_format = True
+            cfg.performance.gc.interval_seconds = 7
+            cfg.mesh.enabled = False
+            cfg.vector.hnsw.partition_overalloc = 1.5
+        cfg.save_to_file(path)
+    if source == "env":
+        monkeypatch.setenv("LEGAL_SEARCH_PORT", "7777")
+        monkeypatch.setenv("LEGAL_SEARCH_DB_PATH", "/data/x.db")
+    want = _jax(["-c", str(path), "config-dump"], capsys)
+    got = _port(["-c", str(path), "config-dump"], capsys)
+    assert got == want and want[0] == 0
+    assert Config.from_dict(tomllib.loads(got[1])).to_toml() + "\n" == got[1]
+    if source == "edited":
+        assert "port = 9123" in got[1] and "[mesh]\nenabled = false" in got[1]
+
+
+@pytest.fixture()
+def one_device_toml(art, tmp_path):
+    cfg = JaxConfig.from_file(art["toml"])
+    cfg.mesh.enabled = False
+    cfg.save_to_file(tmp_path / "config.toml")
+    return tmp_path / "config.toml"
+
+
+def test_one_shot_commands_match_jax(art, one_device_toml, capsys, monkeypatch):
+    """``search``, ``completions`` and ``check-health`` print what the JAX
+    CLI prints (search scores within 1e-5)."""
+    jeng, _ = engines(art)
+    build = pcli._build_components
+
+    def shared(cfg, device, rebuild=False):
+        storage, engine = build(cfg, device, rebuild)
+        for q in ("miranda v. arizona", "right to remain silent", "contract breach damages"):
+            engine.vector_index.cache.put(q, jeng.vector_index.generate_embeddings([q])[0])
+        return storage, engine
+
+    monkeypatch.setattr(pcli, "_build_components", shared)
+    c = ["-c", str(one_device_toml)]
+    for argv in (["search", "miranda v. arizona", "--limit", "3"],
+                 ["search", "right to remain silent"],
+                 ["search", "contract breach damages", "--limit", "2"]):
+        rc, want = _jax(c + argv, capsys)
+        prc, got = _port(c + ["--device", "cpu"] + argv, capsys)
+        assert prc == rc == 0
+        _close(json.loads(got), json.loads(want))
+        assert json.loads(got)
+    rc, got = _port(c + ["--device", "cpu", "search", "miranda v. arizona"], capsys)
+    assert json.loads(got)[0]["case_metadata"]["name"] == "Miranda v. Arizona"
+    for argv in (["completions", "brown"], ["completions", "miranda", "--limit", "1"],
+                 ["completions", "zzz"], ["check-health"]):
+        want = _jax(c + argv, capsys)
+        assert _port(c + ["--device", "cpu"] + argv, capsys) == want and want[0] == 0
+    assert json.loads(want[1]) == {"status": "healthy", "storage": "healthy",
+                                   "search_engine": "healthy"}
+
+
+@pytest.mark.parametrize("argv,slice_name", [
+    (["ingest", "--source", "mock"], "slice 2"),
+    (["build-index", "--streaming"], "slice 3"),
+    (["build-index", "--tune-recall", "0.9"], "slice 3"),
+    (["build-index", "--pretrain-steps", "5"], "slice 4"),
+    (["eval-retrieval", "--control"], "slices 3 and 4"),
+    (["bench"], "not ported"),
+])
+def test_later_slices_raise(tmp_path, argv, slice_name):
+    with pytest.raises(NotImplementedError, match=slice_name):
+        pcli.main(["-c", str(tmp_path / "none.toml"), "--device", "cpu", *argv])
+
+
+def test_build_index_command_matches_jax(art, tmp_path, capsys):
+    """``build-index`` over a copy of the store (mean pooling, full-width
+    encoder from the config): the JAX CLI's counts, and the quality gate's
+    report beside the vectors; with ``pooling = "auto"`` the port's build
+    and ``serve``'s build on a store without artifacts say why they
+    refuse."""
+    import shutil
+
+    paths = {}
+    for tag in ("jax", "port"):
+        root = tmp_path / tag
+        root.mkdir()
+        shutil.copy(art["root"] / "db.sqlite", root / "db.sqlite")
+        cfg = JaxConfig.from_file(art["toml"])
+        cfg.storage.db_path = str(root / "db.sqlite")
+        cfg.trie.index_path = str(root / "trie")
+        cfg.vector.hnsw.index_path = str(root / "vec")
+        cfg.vector.dimension = 384
+        cfg.vector.pooling = "mean"
+        cfg.vector.quality_gate = "warn"
+        cfg.mesh.enabled = False
+        cfg.save_to_file(root / "config.toml")
+        paths[tag] = root
+    rc, want = _jax(["-c", str(paths["jax"] / "config.toml"), "build-index"], capsys)
+    prc, got = _port(["-c", str(paths["port"] / "config.toml"), "--device", "cpu", "build-index"],
+                     capsys)
+    assert prc == rc == 0
+    want, got = json.loads(want), json.loads(got)
+    for k in ("cases", "content_chunks", "citations"):
+        assert got[k] == want[k], k
+    assert got["cases"] == 7 and got["vector_path"].endswith("port/vec")
+    meta = json.loads((paths["port"] / "vec" / "quality.json").read_text())
+    assert meta["mode"] == "warn" and meta["probes"] > 0
+    toml = paths["port"] / "config.toml"
+    toml.write_text(toml.read_text().replace('pooling = "mean"', 'pooling = "auto"'))
+    with pytest.raises(NotImplementedError, match="pooling"):
+        pcli.main(["-c", str(toml), "--device", "cpu", "build-index"])
+    cfg = Config.from_file(toml)
+    cfg.trie.index_path = str(tmp_path / "no_artifacts")
+    with pytest.raises(NotImplementedError, match="pooling"):
+        pcli._build_components(cfg, "cpu")
+
+
+def test_serving_mesh_refuses_more_than_one_card(monkeypatch):
+    cfg = Config()
+    cuda = torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert pcli._serving_mesh(cfg, cuda) is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    with pytest.raises(NotImplementedError, match="slice 5.*mesh.enabled = false"):
+        pcli._serving_mesh(cfg, cuda)
+    assert pcli._serving_mesh(cfg, torch.device("cpu")) is None
+    cfg.mesh.model_parallel = 4
+    assert pcli._serving_mesh(cfg, cuda) is None
+    cfg.mesh.model_parallel, cfg.mesh.enabled = 1, False
+    assert pcli._serving_mesh(cfg, cuda) is None
+
+
+def test_loadtest_against_a_test_server(art, capsys):
+    """``loadtest`` drives a live port server and reports its numbers."""
+    _, peng = engines(art)
+    server = ApiServer(AppState(config=peng.config, search_engine=peng, storage=peng.storage))
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    ts = TestServer(server.app)
+    asyncio.run_coroutine_threadsafe(ts.start_server(), loop).result(30)
+    try:
+        rc, out = _port(["loadtest", "--url", f"http://127.0.0.1:{ts.port}", "--requests", "12",
+                         "--concurrency", "4", "--query-template", "right to remain silent {i}",
+                         "--wait-warm", "1"], capsys)
+        got = json.loads(out.strip().splitlines()[-1])
+        assert rc == 0 and got["requests"] == 12 and got["errors"] == 0
+        assert got["by_status"] == {"200": 12} and got["qps"] > 0 and got["p50_ms"] > 0
+        assert server.batcher.stats["items"] == 16  # the warm pass and the run
+    finally:
+        asyncio.run_coroutine_threadsafe(ts.close(), loop).result(30)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=5)
+        loop.close()
+    assert not thread.is_alive()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_serve_lifecycle(art, tmp_path):
+    """``python -m trie_semantic_search_tpu_torch.cli serve --device cpu``:
+    warms up, answers, and on SIGINT logs "shutting down" and exits 0."""
+    cfg = JaxConfig.from_file(art["toml"])
+    cfg.server.port = _free_port()
+    cfg.storage.backup.backup_dir = str(tmp_path / "backups")
+    cfg.save_to_file(tmp_path / "config.toml")
+    log = open(tmp_path / "serve.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "trie_semantic_search_tpu_torch.cli", "-c",
+         str(tmp_path / "config.toml"), "--device", "cpu", "serve"],
+        cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+        env={**os.environ, "PYTHONPATH": str(REPO)},
+    )
+    try:
+        deadline = time.monotonic() + 180
+        while "warmup complete" not in (tmp_path / "serve.log").read_text():
+            assert proc.poll() is None and time.monotonic() < deadline, \
+                (tmp_path / "serve.log").read_text()
+            time.sleep(0.2)
+        base = f"http://127.0.0.1:{cfg.server.port}"
+        health = json.loads(urllib.request.urlopen(base + "/health", timeout=30).read())
+        assert health["status"] == "healthy"
+        req = urllib.request.Request(base + "/search", data=b'{"query": "miranda v. arizona"}',
+                                     headers={"Content-Type": "application/json"})
+        res = json.loads(urllib.request.urlopen(req, timeout=60).read())
+        assert res["results"][0]["case_metadata"]["name"] == "Miranda v. Arizona"
+        stats = json.loads(urllib.request.urlopen(base + "/stats", timeout=30).read())
+        assert stats["engine"]["is_warm"] and stats["batching"]["items"] == 1
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    text = (tmp_path / "serve.log").read_text()
+    assert "shutting down" in text and list((tmp_path / "backups").glob("*.db"))

@@ -95,3 +95,28 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_cli_and_server_run_with_jax_unimportable():
+    """``python -m trie_semantic_search_tpu_torch.cli --help`` and the
+    server's import succeed where ``jax`` cannot be imported."""
+    block = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'ml_dtypes', 'trie_semantic_search_tpu'):\n"
+        "    sys.modules[name] = None\n"
+    )
+    cli = subprocess.run(
+        [sys.executable, "-c", block + "import runpy, sys\n"
+         "sys.argv = ['cli', '--help']\n"
+         "runpy.run_module('trie_semantic_search_tpu_torch.cli', run_name='__main__')\n"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert cli.returncode == 0, cli.stderr
+    assert "legal-search-server-torch" in cli.stdout and "config-dump" in cli.stdout
+    server = subprocess.run(
+        [sys.executable, "-c", block + "import trie_semantic_search_tpu_torch.api.server as s\n"
+         "print(s.ApiServer.__name__)\n"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert server.returncode == 0, server.stderr
+    assert server.stdout.strip() == "ApiServer"

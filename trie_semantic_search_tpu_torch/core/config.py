@@ -1,15 +1,19 @@
-"""Configuration: the sections the search engine reads and the TOML loader.
+"""Configuration: every section of the JAX package's config, the TOML
+loader and the TOML writer.
 
 Copies of the dataclasses in ``trie_semantic_search_tpu/core/config.py``
-with the same field names and defaults, and the same precedence
+with the same field names, order and defaults, and the same precedence
 (environment variables > TOML file > defaults), so a config file written
-for the JAX package means the same thing here. The sections of later
-slices (ingestion, logging, performance, mesh) are not carried over yet;
-their keys in a file are ignored, as unknown keys are.
+for the JAX package means the same thing here and ``to_toml`` writes the
+same bytes for the same values. The ingestion sections (``cap``,
+``courtlistener``, ``validation``, ``cache``) are plain data until the
+ingest slice reads them; ``mesh`` is read by the CLI, which refuses to
+serve sharded until the sharding slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import tomllib
 import typing
@@ -36,6 +40,69 @@ class ServerConfig:
     batch_window_ms: float = 2.0
     batch_inflight: int = 2
     batch_max_pending: int = 256
+
+
+@dataclass
+class CapConfig:
+    """Case.law source (same defaults as the JAX package)."""
+
+    api_url: str = "https://api.case.law/v1/"
+    api_key: Optional[str] = None
+    bulk_data_url: str = "https://bulk.case.law/"
+    cache_dir: str = "./data/cap_cache"
+
+
+@dataclass
+class CourtListenerConfig:
+    """CourtListener source (same defaults as the JAX package)."""
+
+    api_url: str = "https://www.courtlistener.com/api/rest/v3/"
+    api_key: Optional[str] = None
+    cache_dir: str = "./data/cl_cache"
+
+
+@dataclass
+class ValidationConfig:
+    """Ingest validation (same defaults as the JAX package)."""
+
+    min_text_length: int = 100
+    max_text_length: int = 1_000_000
+    required_fields: list[str] = field(
+        default_factory=lambda: ["title", "date", "court", "case_name"]
+    )
+    allow_empty_citations: bool = False
+    validate_dates: bool = True
+    validate_citations: bool = True
+
+
+@dataclass
+class CacheConfig:
+    """Ingest download cache (same defaults as the JAX package)."""
+
+    enabled: bool = True
+    max_memory_entries: int = 100_000
+    disk_cache_path: Optional[str] = None
+    max_disk_size_mb: int = 1024
+    ttl_hours: int = 24
+
+
+@dataclass
+class IngestionConfig:
+    """Ingestion section (same defaults as the JAX package)."""
+
+    cap: CapConfig = field(default_factory=CapConfig)
+    courtlistener: CourtListenerConfig = field(default_factory=CourtListenerConfig)
+    batch_size: int = 100
+    max_concurrent_downloads: int = 5
+    max_concurrent_jobs: int = 10
+    rate_limit_delay_ms: int = 500
+    max_memory_usage_mb: int = 1024
+    retry_attempts: int = 3
+    retry_delay_seconds: int = 5
+    enable_incremental_updates: bool = True
+    update_check_interval_hours: int = 24
+    validation: ValidationConfig = field(default_factory=ValidationConfig)
+    cache: CacheConfig = field(default_factory=CacheConfig)
 
 
 @dataclass
@@ -184,15 +251,75 @@ class SearchEngineConfig:
 
 
 @dataclass
+class LoggingConfig:
+    """Logging section (same defaults as the JAX package)."""
+
+    level: str = "info"
+    file_path: Optional[str] = None
+    json_format: bool = False
+    enable_metrics: bool = True
+    metrics_interval_seconds: int = 60
+
+
+@dataclass
+class GcConfig:
+    """Memory watchdog of ``serve`` (same defaults as the JAX package)."""
+
+    enabled: bool = True
+    interval_seconds: int = 300
+    memory_threshold_percent: int = 80
+
+
+@dataclass
+class PerformanceConfig:
+    """Performance section (same defaults as the JAX package; 0 threads
+    means the CPU count, 0 pool means twice it)."""
+
+    worker_threads: int = 0
+    cpu_pool_size: int = 0
+    enable_memory_pool: bool = True
+    gc: GcConfig = field(default_factory=GcConfig)
+
+    def __post_init__(self) -> None:
+        ncpu = os.cpu_count() or 1
+        if self.worker_threads <= 0:
+            self.worker_threads = ncpu
+        if self.cpu_pool_size <= 0:
+            self.cpu_pool_size = ncpu * 2
+
+
+@dataclass
+class MeshConfig:
+    """Multi-device section (same defaults as the JAX package). The port
+    serves on one card; ``cli serve`` refuses more than one visible card
+    while this is enabled, until the sharding slice."""
+
+    enabled: bool = True
+    data_parallel: int = 0
+    model_parallel: int = 1
+    axis_names: tuple[str, str] = ("data", "model")
+    shard_row_multiple: int = 1024
+
+
+@dataclass
 class Config:
-    """Top-level config: the sections the engine reads."""
+    """Top-level config: the JAX package's sections, in its order."""
 
     server: ServerConfig = field(default_factory=ServerConfig)
+    ingestion: IngestionConfig = field(default_factory=IngestionConfig)
     text_processing: TextProcessingConfig = field(default_factory=TextProcessingConfig)
     trie: TrieConfig = field(default_factory=TrieConfig)
     vector: VectorConfig = field(default_factory=VectorConfig)
     storage: StorageConfig = field(default_factory=StorageConfig)
     search: SearchEngineConfig = field(default_factory=SearchEngineConfig)
+    logging: LoggingConfig = field(default_factory=LoggingConfig)
+    performance: PerformanceConfig = field(default_factory=PerformanceConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+
+    @classmethod
+    def load(cls) -> "Config":
+        """``config.toml`` in the working directory (defaults when absent)."""
+        return cls.from_file("config.toml")
 
     @classmethod
     def from_file(cls, path: str | Path) -> "Config":
@@ -235,7 +362,7 @@ class Config:
             self.vector.model.model_path = env["LEGAL_SEARCH_MODEL_PATH"]
 
     def validate(self) -> None:
-        """The JAX package's checks on the sections carried over."""
+        """The JAX package's checks, in its order."""
         checks = (
             (self.server.port == 0, "server.port", "Port cannot be zero"),
             (self.vector.dimension <= 0, "vector.dimension",
@@ -245,6 +372,8 @@ class Config:
             (self.search.min_query_length > self.search.max_query_length,
              "search.min_query_length",
              "Minimum query length cannot be greater than maximum"),
+            (self.mesh.model_parallel <= 0, "mesh.model_parallel",
+             "model_parallel must be >= 1"),
             (self.vector.pooling not in ("auto", "mean", "sif"), "vector.pooling",
              f"Unsupported pooling '{self.vector.pooling}' (auto|mean|sif)"),
             (self.vector.quality_gate not in ("off", "warn", "refuse"),
@@ -263,6 +392,15 @@ class Config:
                 field="storage.db_type",
                 reason=f"Unsupported db_type '{self.storage.db_type}' (sqlite|memory)",
             )
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_toml(self) -> str:
+        return _to_toml(self.to_dict())
+
+    def save_to_file(self, path: str | Path) -> None:
+        Path(path).write_text(self.to_toml(), encoding="utf-8")
 
 
 def _dataclass_from_dict(cls: type, raw: dict[str, Any]) -> Any:
@@ -284,3 +422,36 @@ def _dataclass_from_dict(cls: type, raw: dict[str, Any]) -> Any:
         return cls(**kwargs)
     except TypeError as e:
         raise ConfigError(f"Bad config for {cls.__name__}: {e}") from e
+
+
+def _toml_value(v: Any) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, (int, float)):
+        return repr(v)
+    if isinstance(v, str):
+        return '"' + v.replace("\\", "\\\\").replace('"', '\\"') + '"'
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_toml_value(x) for x in v) + "]"
+    raise ConfigError(f"Cannot serialise {type(v).__name__} to TOML")
+
+
+def _to_toml(d: dict[str, Any], prefix: str = "") -> str:
+    """Scalars of a table first, then its sub-tables; ``None`` values are
+    left out (TOML has no null, and a missing key takes the default)."""
+    lines: list[str] = []
+    tables: list[tuple[str, dict[str, Any]]] = []
+    for k, v in d.items():
+        if isinstance(v, dict):
+            tables.append((k, v))
+        elif v is not None:
+            lines.append(f"{k} = {_toml_value(v)}")
+    out = ""
+    if prefix and (lines or not tables):
+        out += f"[{prefix}]\n"
+    out += "\n".join(lines)
+    if lines:
+        out += "\n"
+    for k, v in tables:
+        out += "\n" + _to_toml(v, f"{prefix}.{k}" if prefix else k)
+    return out

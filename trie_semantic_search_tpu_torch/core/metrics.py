@@ -1,17 +1,21 @@
-"""Metrics registry (copy of the JAX package's ``core/metrics.py``):
+"""Metrics registry (port of the JAX package's ``core/metrics.py``):
 counters and latency histograms (``metrics.inc``, ``metrics.timed``) that
-the engine feeds. The periodic reporter and the profiling hook come with
-the server slice, which calls them.
+the engine feeds, the periodic :class:`MetricsReporter` of ``serve``, and
+:func:`profile_trace`, a ``torch.profiler`` trace around a block.
 """
 
 from __future__ import annotations
 
 import bisect
 import contextlib
+import logging
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Iterator, Optional
+from pathlib import Path
+from typing import Callable, Iterator, Optional
+
+_log = logging.getLogger("tss_torch.metrics")
 
 
 @dataclass
@@ -87,3 +91,53 @@ class MetricsRegistry:
 
 #: process-wide default registry
 metrics = MetricsRegistry()
+
+
+class MetricsReporter:
+    """Logs a snapshot of the registry (plus ``extra()`` under
+    ``"system"``) every ``interval_seconds``, on a
+    :class:`..maintenance.PeriodicTask`."""
+
+    def __init__(
+        self,
+        interval_seconds: float = 60.0,
+        extra: Optional[Callable[[], dict]] = None,
+        registry: Optional[MetricsRegistry] = None,
+    ):
+        from .maintenance import PeriodicTask
+
+        self.extra = extra
+        self.registry = registry or metrics
+        self._task = PeriodicTask("metrics", interval_seconds, self._report)
+
+    def _report(self) -> None:
+        snap = self.registry.snapshot()
+        if self.extra:
+            try:
+                snap["system"] = self.extra()
+            except Exception as e:  # a failing probe must not stop the reports
+                snap["system"] = {"error": str(e)}
+        _log.info("metrics: %s", snap)
+
+    def start(self) -> None:
+        self._task.start()
+
+    def stop(self) -> None:
+        self._task.stop()
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str) -> Iterator[None]:
+    """A ``torch.profiler`` trace of the block, written as a Chrome trace
+    (``trace.json``) into ``log_dir``, with the card's activity when one is
+    visible."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(str(out / "trace.json"))

@@ -2,8 +2,8 @@
 
 ``CaseId``, ``DocRef``, ``Jurisdiction``, ``CaseMetadata`` and
 ``SearchConfig`` with the same fields, defaults and JSON forms, so a store
-or a request written for the JAX package reads the same here. ``AppState``
-comes with the HTTP slice.
+or a request written for the JAX package reads the same here, and
+``AppState``, what the HTTP server holds.
 """
 
 from __future__ import annotations
@@ -202,3 +202,18 @@ class SearchConfig:
     @classmethod
     def from_json(cls, d: dict[str, Any]) -> "SearchConfig":
         return cls(**{k: d[k] for k in d if k in cls.__dataclass_fields__})
+
+
+# ---------------------------------------------------------------------------
+# AppState
+# ---------------------------------------------------------------------------
+
+
+@dataclass(slots=True)
+class AppState:
+    """What the API server shares between its handlers: the config, the
+    search engine and the store (typed loosely to avoid import cycles)."""
+
+    config: Any
+    search_engine: Any
+    storage: Any

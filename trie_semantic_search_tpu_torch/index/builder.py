@@ -5,18 +5,23 @@ Port of ``trie_semantic_search_tpu/index/builder.py``: ``build_indexes``
 (cases streamed in rowid order, the dense device row order; names and
 citations into the name and citation tries; each case's sentences into the
 content trie and the vector index, embedded every 8,192 pending chunks;
-then everything frozen, the ANN built on ``device``), ``save_artifacts``
-and ``save_encoder`` (the encoder is part of the artifact set: corpus
-vectors only compare with query vectors of the same encoder), and
+then everything frozen, the ANN built on ``device``), ``update_indexes``
+(only the cases stored since, on the existing encoder and partitioning),
+``save_artifacts`` (after the build-time quality gate when given the
+store) and ``save_encoder`` (the encoder is part of the artifact set:
+corpus vectors only compare with query vectors of the same encoder), and
 ``load_artifacts`` / ``_load_encoder``. The artifacts are the JAX
 package's, so either package loads what the other saved.
 
+``update_indexes`` works on forks of the live trie and vector index
+(:meth:`TrieIndex.fork`, :meth:`VectorIndex.fork`) where the JAX package
+inserts into them in place: a server keeps answering from the live
+indexes until it swaps the result in, and the result is the same.
+
 Paths of later slices raise ``NotImplementedError`` rather than diverge:
 pooling selection (``vector.pooling`` other than ``"mean"`` with no
-embedder passed) and encoder pretraining come with the training slice; the
-build-time quality gate (``save_artifacts(..., storage=...)``) with
-``models/quality.py``; ``tune_recall`` with the case-level tuner of
-``index/tuning.py``.
+embedder passed) and encoder pretraining come with the training slice;
+``tune_recall`` with the case-level tuner of ``index/tuning.py``.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from ..models.tokenizer import WordPieceTokenizer, train_wordpiece_vocab
 from ..storage.columns import MetadataColumns
 from ..storage.store import StorageManager
 from ..text.processor import TextProcessor
+from .ann import PartitionedANN
 from .trie import TrieIndex
 from .vector import VectorIndex
 
@@ -121,23 +127,7 @@ def build_indexes(
 
     for row, meta, text in storage.iter_cases_rowid():
         assert columns.row_of_case[meta.id] == row
-        trie.insert_case_name(meta.name, row)
-        if meta.citation:
-            trie.insert_citation(meta.citation, row)
-            report.citations += 1
-        for cit in meta.citations:
-            trie.insert_citation(cit, row)
-            report.citations += 1
-        body = text or meta.full_text
-        if body:
-            processed = tp.process_text(body)
-            for para_idx, sentence in enumerate(processed.sentences[:max_chunks_per_case]):
-                trie.insert_content([t for t in sentence.lower().split() if t], row, para_idx)
-                vector.add_document(row, sentence, para_idx)
-                report.content_chunks += 1
-            for cit in processed.citations:
-                trie.insert_citation(cit.normalized, row)
-        report.cases += 1
+        _index_case(trie, vector, tp, report, row, meta, text, max_chunks_per_case)
         embedded = embed(EMBED_FLUSH)
         if embedded:
             _log.info("embedded %d chunks (%d cases done)", embedded, report.cases)
@@ -155,21 +145,108 @@ def build_indexes(
     return BuiltIndexes(trie=trie, vector=vector, columns=columns, report=report)
 
 
+def _index_case(trie, vector, tp, report, row, meta, text, max_chunks_per_case) -> None:
+    """One stored case into the tries and the vector index's pending
+    chunks (the JAX package's per-case loop)."""
+    trie.insert_case_name(meta.name, row)
+    if meta.citation:
+        trie.insert_citation(meta.citation, row)
+        report.citations += 1
+    for cit in meta.citations:
+        trie.insert_citation(cit, row)
+        report.citations += 1
+    body = text or meta.full_text
+    if body:
+        processed = tp.process_text(body)
+        for para_idx, sentence in enumerate(processed.sentences[:max_chunks_per_case]):
+            trie.insert_content([t for t in sentence.lower().split() if t], row, para_idx)
+            vector.add_document(row, sentence, para_idx)
+            report.content_chunks += 1
+        for cit in processed.citations:
+            trie.insert_citation(cit.normalized, row)
+    report.cases += 1
+
+
+def update_indexes(
+    built: BuiltIndexes,
+    storage: StorageManager,
+    config: Config,
+    text_processor: Optional[TextProcessor] = None,
+    max_chunks_per_case: int = 64,
+) -> BuiltIndexes:
+    """Index only the cases stored since ``built`` was produced, on its
+    encoder and its ANN partitioning (no re-embedding of old chunks, no
+    k-means), and return new indexes for an engine swap; ``built`` is not
+    changed. When the old cases no longer lead the store's row order (a
+    case was deleted), dense row ids have moved, and this falls back to a
+    full :func:`build_indexes` with the same encoder."""
+    t0 = time.perf_counter()
+    tp = text_processor or TextProcessor(config.text_processing)
+    columns = MetadataColumns.build(storage.fetch_filter_columns())
+    known = set(built.columns.row_of_case)
+    report = BuildReport(cases=built.report.cases, content_chunks=built.report.content_chunks,
+                         citations=built.report.citations)
+    new = [(row, meta, text) for row, meta, text in storage.iter_cases_rowid()
+           if meta.id not in known]
+    if not new:
+        report.seconds = time.perf_counter() - t0
+        return BuiltIndexes(trie=built.trie, vector=built.vector, columns=columns, report=report)
+    old_rows = built.columns.case_ids
+    if columns.case_ids[: len(old_rows)] != old_rows:
+        _log.info("row order changed; falling back to full rebuild")
+        return build_indexes(
+            storage, config, text_processor=tp, embedder=built.vector.embedder,
+            max_chunks_per_case=max_chunks_per_case, device=built.vector.device,
+        )
+    trie, vector = built.trie.fork(), built.vector.fork()
+    for row, meta, text in new:
+        _index_case(trie, vector, tp, report, row, meta, text, max_chunks_per_case)
+    inserted = time.perf_counter()
+    trie.freeze()
+    t = time.perf_counter()
+    report.freeze_seconds = t - inserted
+    vector.embed_pending()
+    report.embed_seconds = time.perf_counter() - t
+    t = time.perf_counter()
+    if vector.vectors is not None and len(vector.vectors):
+        live = built.vector.ann
+        vector.ann = PartitionedANN(vector.config.hnsw, device=vector.device)
+        vector.ann.tuned_nprobe = live.tuned_nprobe
+        if live.centroids is not None:
+            vector.ann.build(vector.vectors, reuse_centroids=live.centroids.cpu().numpy())
+        else:
+            vector.ann.build(vector.vectors)
+    ann_seconds = time.perf_counter() - t
+    report.freeze_seconds += ann_seconds
+    report.seconds = time.perf_counter() - t0
+    _log.info(
+        "incremental update: %d new cases in %.2fs (read and insert %.2f, trie freeze %.2f, "
+        "embed %.2f, ANN from centroids %.2f)", len(new), report.seconds, inserted - t0,
+        report.freeze_seconds - ann_seconds, report.embed_seconds, ann_seconds,
+    )
+    return BuiltIndexes(trie=trie, vector=vector, columns=columns, report=report)
+
+
 def save_artifacts(
     built: BuiltIndexes, config: Config, storage: Optional[StorageManager] = None,
 ) -> None:
     """Persist every frozen artifact: the tries and the columns under
     ``config.trie.index_path``, the vector index and the encoder under
-    ``config.vector.hnsw.index_path``."""
-    if storage is not None:
-        raise NotImplementedError(
-            "the build-time quality gate needs models/quality.py, which a later slice "
-            "ports; call save_artifacts without storage"
-        )
+    ``config.vector.hnsw.index_path``. Given the store, the build-time
+    quality gate (:mod:`.quality_gate`) runs first: in ``"refuse"`` mode a
+    degraded encoder raises before anything is written, and its report is
+    saved as ``quality.json`` beside the vector artifacts."""
+    from .quality_gate import run_quality_gate, save_quality_meta
+
+    quality = None
+    if storage is not None and built.vector.size:
+        quality = run_quality_gate(storage, config, built.vector.embedder)
+    vec_dir = Path(config.vector.hnsw.index_path)
     built.trie.save_to_disk(config.trie.index_path)
-    built.vector.save(config.vector.hnsw.index_path)
+    built.vector.save(vec_dir)
     built.columns.save(Path(config.trie.index_path) / "columns.npz")
-    save_encoder(built.vector.embedder, Path(config.vector.hnsw.index_path))
+    save_encoder(built.vector.embedder, vec_dir)
+    save_quality_meta(quality, vec_dir)
 
 
 def save_encoder(emb: Embedder, enc_dir: Path) -> None:

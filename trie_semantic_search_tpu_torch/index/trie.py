@@ -53,6 +53,17 @@ UNKNOWN_TOKEN = -2
 PAD_TOKEN = -1
 
 
+@dataclass
+class TrieSearchResult:
+    """One query's trie lookup: ``(case_row, paragraph)`` matches (dense row
+    ids; :class:`~..storage.columns.MetadataColumns` maps them to case ids)
+    and prefix completions."""
+
+    exact_matches: list[tuple[int, int]] = field(default_factory=list)
+    prefix_completions: list[str] = field(default_factory=list)
+    total_matches: int = 0
+
+
 def word_tokens(text: str) -> list[str]:
     return _WORD_RE.findall(text.lower())
 
@@ -329,6 +340,11 @@ class FrozenTrie:
             )
         return nodes, rows, valid
 
+    def postings_of(self, node: int) -> list[tuple[int, int]]:
+        """``(case_row, paragraph)`` postings ending at ``node``."""
+        s, e = self.post_offsets[node], self.post_offsets[node + 1]
+        return list(zip(self.post_case[s:e].tolist(), self.post_para[s:e].tolist()))
+
     def completions(
         self, prefix_tokens: Sequence[str], limit: int = 10, max_depth: int = 50
     ) -> list[str]:
@@ -497,6 +513,15 @@ class TrieIndex:
             self._content = self._content_builder.freeze()
         self._citation = self._citation_builder.freeze()
 
+    def fork(self) -> "TrieIndex":
+        """A new index over this one's frozen tries whose builders
+        rehydrate from them at its first insert: inserting into the fork
+        and freezing it leave this index, which may be serving, as it is."""
+        out = TrieIndex(self.config, device=self.device)
+        out._name, out._content, out._citation = self.name_trie, self.content_trie, self.citation_trie
+        out._builders_stale = True
+        return out
+
     def set_content_frozen(self, frozen: FrozenTrie) -> None:
         """Install a content trie built elsewhere: ``freeze()`` keeps it, and
         a later ``insert_content`` rehydrates the builder from it first."""
@@ -520,6 +545,44 @@ class TrieIndex:
         if self._citation is None:
             self._citation = self._citation_builder.freeze()
         return self._citation
+
+    def _search_one(
+        self, trie: FrozenTrie, tokens: Sequence[str], with_completions: bool,
+        prefix_postings: bool = False,
+    ) -> TrieSearchResult:
+        """One walk of ``tokens``: the postings at the node reached (its
+        whole subtree's with ``prefix_postings``) and its completions."""
+        ids = trie.encode_queries([list(tokens)], self.MAX_QUERY_TOKENS)
+        nodes, _, _ = trie.walk_and_gather(ids, self.device, prefix=prefix_postings)
+        node = int(nodes[0])
+        exact: list[tuple[int, int]] = []
+        if prefix_postings and node >= 0:
+            s_, e_ = trie.post_offsets[node], trie.subtree_post_end[node]
+            exact = list(zip(trie.post_case[s_:e_].tolist(), trie.post_para[s_:e_].tolist()))
+        elif node >= 0 and trie.is_end[node]:
+            exact = trie.postings_of(node)
+        completions: list[str] = []
+        if with_completions and node >= 0:
+            completions = trie.completions(
+                list(tokens), limit=10, max_depth=self.config.max_prefix_length
+            )
+        return TrieSearchResult(
+            exact_matches=exact,
+            prefix_completions=completions,
+            total_matches=len(exact) + len(completions),
+        )
+
+    def search(self, query: str) -> TrieSearchResult:
+        """One query: the name trie, else the citation trie, else the
+        content trie's subtree postings (the first with an exact match)."""
+        name_tokens = word_tokens(query)
+        res = self._search_one(self.name_trie, name_tokens, True)
+        if res.exact_matches:
+            return res
+        res = self._search_one(self.citation_trie, query.split(), True)
+        if res.exact_matches:
+            return res
+        return self._search_one(self.content_trie, name_tokens, True, prefix_postings=True)
 
     def search_batch_rows(
         self, queries: Sequence[str], max_postings: int = 64

@@ -17,6 +17,7 @@ chunks would be 8 GB.
 from __future__ import annotations
 
 import logging
+import os
 import shutil
 from dataclasses import dataclass
 from pathlib import Path
@@ -121,6 +122,18 @@ class VectorIndex:
         self.embed_pending()
         if self._vectors is not None and len(self._vectors):
             self.ann.build(self._vectors, seed=seed)
+
+    def fork(self) -> "VectorIndex":
+        """A new index with this one's encoder, embedding memo, refs,
+        vectors and ANN, for an update while this one serves: adding and
+        embedding documents makes new refs and vectors arrays, and the
+        caller installs a new ANN before building one."""
+        out = VectorIndex(self.config, embedder=self.embedder, device=self.device)
+        out.cache = self.cache
+        out._refs = list(self._refs) if isinstance(self._refs, list) else self._refs
+        out._vectors = self._vectors
+        out.ann = self.ann
+        return out
 
     # -- search ------------------------------------------------------------------
 
@@ -227,14 +240,18 @@ class VectorIndex:
                 and Path(src.filename).resolve() == vec_path.resolve()
             ):
                 return  # saved in place already (a re-save after load)
+            # written beside, then renamed over: a server may still map the
+            # old file (a loaded index's memmap), which must keep its pages
+            tmp = path / "vectors.npy.tmp"
             out = np.lib.format.open_memmap(
-                vec_path, mode="w+", dtype=np.float32, shape=(len(src), src.shape[1])
+                tmp, mode="w+", dtype=np.float32, shape=(len(src), src.shape[1])
             )
             step = 1 << 18
             for lo in range(0, len(src), step):
                 out[lo : lo + step] = src[lo : lo + step]
             out.flush()
             del out
+            os.replace(tmp, vec_path)
         elif vec_path.exists():
             vec_path.unlink()
 

@@ -1,0 +1,165 @@
+"""Retrieval-quality probes for the semantic encoder (port of the part of
+``trie_semantic_search_tpu/models/quality.py`` the build-time quality gate
+calls).
+
+Held-out probes are derived from corpus sentences, never verbatim corpus
+strings: the second half of a sentence (``"half"``), and a synonym-swap +
+stopword-drop rewrite (``"paraphrase"``). :func:`build_probes` draws them
+with the same numpy generator as the JAX package, so both packages build
+the same probes from the same documents. :func:`evaluate_embedder_direct`
+ranks a chunk sample by exact cosine and reports MRR and recall@{1,5,k} of
+each probe's source case.
+
+``evaluate_engine``, ``evaluate_stages`` and ``pair_ranking_accuracy`` (the
+``eval-retrieval`` command's engine-level metrics) come with the training
+slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..ops.scoring import l2_normalize
+
+#: meaning-preserving legal-domain rewrites
+SYNONYMS: dict[str, str] = {
+    "attorney": "lawyer",
+    "lawyer": "attorney",
+    "judgment": "ruling",
+    "ruling": "judgment",
+    "statute": "law",
+    "automobile": "car",
+    "vehicle": "car",
+    "defendant": "accused",
+    "petitioner": "applicant",
+    "counsel": "attorney",
+    "court": "tribunal",
+    "contract": "agreement",
+    "evidence": "proof",
+    "determined": "decided",
+    "concluded": "decided",
+    "held": "decided",
+    "reversed": "overturned",
+    "affirmed": "upheld",
+    "unlawful": "illegal",
+    "prohibited": "forbidden",
+    "obtained": "acquired",
+    "reasonable": "sensible",
+    "principles": "doctrines",
+    "framework": "structure",
+}
+
+_DROP_STOPWORDS = {
+    "the", "a", "an", "of", "in", "on", "at", "to", "and", "or", "is",
+    "was", "were", "be", "been", "that", "this", "it", "its", "by",
+}
+
+
+@dataclass
+class Probe:
+    query: str
+    target_case_row: int
+    kind: str  # "half" | "paraphrase"
+
+
+def _paraphrase(sentence: str, rng: np.random.Generator) -> Optional[str]:
+    """Synonym-swap + stopword-drop rewrite; None when no word was swapped
+    (the probe would be a verbatim corpus string)."""
+    out = []
+    swapped = 0
+    for w in sentence.split():
+        lw = w.lower().strip(".,;:()")
+        if lw in SYNONYMS:
+            out.append(SYNONYMS[lw])
+            swapped += 1
+        elif lw in _DROP_STOPWORDS and rng.random() < 0.5:
+            continue
+        else:
+            out.append(w)
+    if swapped == 0:
+        return None
+    return " ".join(out)
+
+
+def build_probes(
+    docs: Sequence[tuple[int, Sequence[str]]],  # (case_row, sentences)
+    max_probes: int = 256,
+    seed: int = 0,
+    min_tokens: int = 8,
+) -> list[Probe]:
+    """Held-out probes from corpus sentences: documents in a seeded random
+    order, one sentence of at least ``min_tokens`` words each, its second
+    half and (when a word swaps) its paraphrase."""
+    rng = np.random.default_rng(seed)
+    probes: list[Probe] = []
+    for di in rng.permutation(len(docs)):
+        case_row, sents = docs[di]
+        long_sents = [s for s in sents if len(s.split()) >= min_tokens]
+        if not long_sents:
+            continue
+        s = long_sents[int(rng.integers(0, len(long_sents)))]
+        words = s.split()
+        probes.append(Probe(" ".join(words[len(words) // 2 :]), int(case_row), "half"))
+        p = _paraphrase(s, rng)
+        if p is not None:
+            probes.append(Probe(p, int(case_row), "paraphrase"))
+        if len(probes) >= max_probes:
+            break
+    return probes[:max_probes]
+
+
+def evaluate_embedder_direct(
+    embedder,  # models.embedder.Embedder
+    chunk_texts: Sequence[str],
+    chunk_cases: Sequence[int],
+    probes: Sequence[Probe],
+    k: int = 10,
+) -> dict:
+    """Embed the probes and the chunk sample with ``embedder``, rank the
+    chunks by exact cosine (on the embedder's device) and score each probe
+    by the reciprocal rank of its source case among the first ``k``
+    distinct cases. Returns, per probe kind and ``"all"``: n, mrr and
+    recall@1/5/k, rounded to 4 places."""
+    dev = embedder.device
+
+    def embed(texts) -> torch.Tensor:
+        e = torch.as_tensor(embedder.embed(list(texts)).embedding, dtype=torch.float32, device=dev)
+        return l2_normalize(e)
+
+    corpus = embed(chunk_texts)
+    cases = np.asarray(chunk_cases, np.int64)
+    ranks: dict[str, list[float]] = {}
+    for lo in range(0, len(probes), 64):
+        chunk = probes[lo : lo + 64]
+        scores = (embed([p.query for p in chunk]) @ corpus.T).cpu().numpy()  # [b, N]
+        for row, p in zip(scores, chunk):
+            seen: list[int] = []
+            rank = 0.0
+            for idx in np.argsort(-row, kind="stable"):
+                c = int(cases[idx])
+                if c in seen:
+                    continue
+                seen.append(c)
+                if c == p.target_case_row:
+                    rank = 1.0 / len(seen)
+                    break
+                if len(seen) >= k:
+                    break
+            ranks.setdefault(p.kind, []).append(rank)
+            ranks.setdefault("all", []).append(rank)
+
+    def agg(rr: list[float]) -> dict:
+        a = np.asarray(rr, np.float64)
+        return {
+            "n": int(len(a)),
+            "mrr": round(float(a.mean()), 4),
+            "recall_at_1": round(float((a >= 1.0).mean()), 4),
+            "recall_at_5": round(float((a >= 1 / 5).mean()), 4),
+            f"recall_at_{k}": round(float((a > 0).mean()), 4),
+        }
+
+    return {kind: agg(rr) for kind, rr in ranks.items()}

@@ -90,9 +90,20 @@ LAUNCHES = {"int8_topk": 0, "int8_topk_dp4a": 0, "fused_scan": 0, "fused_scan_dp
             "probe_candidates": 0, "gather_rescore": 0}
 
 
+_launch_lock = threading.Lock()
+
+
+def _count_launch(name: str) -> None:
+    """One launch of ``name``: under a lock, since the server's batch
+    workers launch from two threads at once."""
+    with _launch_lock:
+        LAUNCHES[name] += 1
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def exact_float32() -> None:
@@ -442,10 +453,10 @@ def int8_topk_cuda(
     )
     if variant == "wgmma":
         _raise_on(lib.lib.tss_int8_topk(*args), "int8 top-k kernel")
-        LAUNCHES["int8_topk"] += 1
+        _count_launch("int8_topk")
     else:
         _raise_on(lib.lib.tss_int8_topk_dp4a(*args), "int8 top-k kernel (dp4a)")
-        LAUNCHES["int8_topk_dp4a"] += 1
+        _count_launch("int8_topk_dp4a")
     return out_v, out_i
 
 
@@ -613,10 +624,10 @@ def fused_scan_cuda(
     )
     if variant == "wgmma":
         _raise_on(lib.lib.tss_fused_scan_wgmma(*args), "fused scan kernel")
-        LAUNCHES["fused_scan"] += 1
+        _count_launch("fused_scan")
     else:
         _raise_on(lib.lib.tss_fused_scan_dp4a(*args), "fused scan kernel (dp4a)")
-        LAUNCHES["fused_scan_dp4a"] += 1
+        _count_launch("fused_scan_dp4a")
     return out_v, out_i
 
 
@@ -829,7 +840,7 @@ def probe_candidates_cuda(
             probe_max_groups(B, NP, P), B, NP, P, m, D, W, _stream(dev),
         )
         _raise_on(err, "probe kernel")
-        LAUNCHES["probe_candidates"] += 1
+        _count_launch("probe_candidates")
     return out_v, out_s
 
 
@@ -909,7 +920,7 @@ def gather_rescore_cuda(queries, segments, candidate_idx) -> torch.Tensor:
         _ptr(out), B, C, D, _stream(dev),
     )
     _raise_on(err, "gather rescore kernel")
-    LAUNCHES["gather_rescore"] += 1
+    _count_launch("gather_rescore")
     return out
 
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import datetime as _dt
 import logging
+import threading
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Optional, Sequence
@@ -143,6 +144,9 @@ class SearchEngine:
         self._text_cache: _LruTtl[str] = _LruTtl(max_size=8192)
         self._queries_served = 0
         self._fused = None  # lazily-built FusedHybridSearch
+        #: the server runs batches from two worker threads beside warmup:
+        #: the lazy fused state is built once and the served count adds up
+        self._lock = threading.Lock()
         #: set by :meth:`warmup` when every serve-time shape ran
         self.is_warm = False
 
@@ -172,13 +176,14 @@ class SearchEngine:
     ) -> None:
         """Atomic replacement of frozen artifacts (single assignment per
         attribute; readers see old or new, never a mix of a given index)."""
-        if trie_index is not None:
-            self.trie_index = trie_index
-        if vector_index is not None:
-            self.vector_index = vector_index
-        if columns is not None:
-            self.columns = columns
-        self._fused = None  # rebind to the new artifacts on demand
+        with self._lock:
+            if trie_index is not None:
+                self.trie_index = trie_index
+            if vector_index is not None:
+                self.vector_index = vector_index
+            if columns is not None:
+                self.columns = columns
+            self._fused = None  # rebind to the new artifacts on demand
         self.is_warm = False  # the new artifacts have not served yet
         self.query_cache.clear()
         self._sentences_cache.clear()  # reindex may have rewritten texts
@@ -321,24 +326,26 @@ class SearchEngine:
                 if use_cache:
                     self.query_cache.put(keys[i], fresh[j])
         metrics.inc("queries", len(queries))
-        self._queries_served += len(queries)
+        with self._lock:
+            self._queries_served += len(queries)
         return results  # type: ignore[return-value]
 
     # -- hybrid execution ------------------------------------------------------
 
     def _get_fused(self):
-        if self._fused is None:
-            self._fused = FusedHybridSearch(
-                self.trie_index,
-                self.vector_index,
-                self.columns,
-                ann_mode=self.config.search.fused_ann_mode,
-                flat_escalate_eps=(
-                    self.config.search.fused_flat_escalate_eps
-                    if self.config.search.fused_flat_escalate else 0.0
-                ),
-            )
-        return self._fused
+        with self._lock:
+            if self._fused is None:
+                self._fused = FusedHybridSearch(
+                    self.trie_index,
+                    self.vector_index,
+                    self.columns,
+                    ann_mode=self.config.search.fused_ann_mode,
+                    flat_escalate_eps=(
+                        self.config.search.fused_flat_escalate_eps
+                        if self.config.search.fused_flat_escalate else 0.0
+                    ),
+                )
+            return self._fused
 
     #: fused-path SRC_* code → MatchType (the staged path's span types)
     _SRC_MATCH_TYPE = {

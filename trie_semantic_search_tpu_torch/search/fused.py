@@ -20,6 +20,7 @@ come with the multi-GPU slice.
 from __future__ import annotations
 
 import datetime as _dt
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -74,8 +75,10 @@ class FusedHybridSearch:
         self.columns = columns
         self.device = dev = vector_index.device
         self.flat_escalate_eps = float(flat_escalate_eps)
-        #: total queries escalated
+        #: total queries escalated (under a lock: the server runs batches
+        #: from two threads)
         self.escalated = 0
+        self._escalated_lock = threading.Lock()
 
         t = lambda a: torch.tensor(np.asarray(a), device=dev)  # noqa: E731
         refs = np.asarray(vector_index.refs, np.int32)
@@ -215,7 +218,8 @@ class FusedHybridSearch:
             flagged = np.nonzero(full & (spread <= eps * np.abs(vv[:, 0]) + 1e-6))[0]
         if flagged.size == 0:
             return v, i, cases, src
-        self.escalated += int(flagged.size)
+        with self._escalated_lock:
+            self.escalated += int(flagged.size)
         out = tuple(np.array(a) for a in (v, i, cases, src))
         for g0 in range(0, int(flagged.size), ESCALATE_BUCKET):
             sel = flagged[g0 : g0 + ESCALATE_BUCKET]

@@ -4,9 +4,10 @@ court and date columns, and case text as gzip blobs. The schema and the
 encodings are the JAX package's, so either package reads a database the
 other wrote; dense row ids follow sqlite's rowid order
 (:meth:`StorageManager.fetch_filter_columns`). The serving side, the batch
-write and the index build's iteration (``iter_cases``,
-``iter_cases_rowid``); the ingest and backup helpers come with the slices
-that call them.
+write, the index build's iteration (``iter_cases``, ``iter_cases_rowid``),
+the lookups and deletes the server and the ingest dedup call
+(``find_case_id``, ``case_exists``, ``delete_case``) and timed backups
+with retention (``create_backup``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import json
 import logging
 import sqlite3
 import threading
+import time
 import uuid
 from dataclasses import dataclass
 from pathlib import Path
@@ -246,6 +248,33 @@ class StorageManager:
             ).fetchall()
         return [uuid.UUID(r[0]) for r in rows]
 
+    def find_case_id(self, name: str, citation: str) -> Optional[CaseId]:
+        """The id of the stored case with this name and citation (the
+        ingest dedup key: a re-fetched case gets a fresh UUID)."""
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT case_id FROM case_metadata WHERE name = ? AND citation = ?",
+                (name, citation),
+            ).fetchone()
+        return uuid.UUID(row[0]) if row else None
+
+    def case_exists(self, case_id: CaseId) -> bool:
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT 1 FROM case_metadata WHERE case_id = ?", (str(case_id),)
+            ).fetchone()
+        return row is not None
+
+    def delete_case(self, case_id: CaseId) -> bool:
+        """Delete a case's metadata and text; True when it was stored."""
+        with self._lock:
+            cur = self._conn.execute(
+                "DELETE FROM case_metadata WHERE case_id = ?", (str(case_id),)
+            )
+            self._conn.execute("DELETE FROM case_text WHERE case_id = ?", (str(case_id),))
+            self._conn.commit()
+        return cur.rowcount > 0
+
     def store_cases_batch(
         self, cases: Sequence[tuple[CaseMetadata, str]]
     ) -> tuple[int, list[tuple[CaseId, str]]]:
@@ -378,6 +407,27 @@ class StorageManager:
             raise StorageCorruption(
                 location="health_probe", details="read-back mismatch"
             )
+
+    def create_backup(self) -> Optional[Path]:
+        """A timestamped copy of the database in ``backup.backup_dir``
+        (sqlite's online backup, consistent under WAL), keeping the newest
+        ``backup.max_backups``; None when backups are off or the store is
+        in memory."""
+        if not self.config.backup.enabled or self._db_path == ":memory:":
+            return None
+        backup_dir = Path(self.config.backup.backup_dir)
+        backup_dir.mkdir(parents=True, exist_ok=True)
+        dest = backup_dir / f"legal_search_{time.strftime('%Y%m%d_%H%M%S')}.db"
+        with self._lock:
+            target = sqlite3.connect(dest)
+            try:
+                self._conn.backup(target)
+            finally:
+                target.close()
+        backups = sorted(backup_dir.glob("legal_search_*.db"))
+        for old in backups[: max(0, len(backups) - self.config.backup.max_backups)]:
+            old.unlink(missing_ok=True)
+        return dest
 
     def close(self) -> None:
         with self._lock:
