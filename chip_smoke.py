@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's index build and serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's ingest, index build and serving path on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -63,7 +63,19 @@ What it does, in order (any failure exits non-zero before the last line):
    tie-aware recall@10 >= 0.95 against ``search_brute`` through the probe
    and rescore kernels (counts reset just before, read just after: the
    ``build`` path); recall at nprobe 64 is printed too; ``save_dir`` then
-   ``load_dir`` serves bitwise the same. The index is freed after.
+   ``load_dir`` serves bitwise the same. Then the case-level tuner,
+   ``tune_nprobe_case_recall``, on the same index: 64 query-shaped probes
+   (two rows of one generated cluster mixed, plus noise), chunk → case
+   ``row // 4``, target and floor 0.95, its oracle in numpy over the f32
+   host rows (counts reset just before, read just after: the path
+   ``case_tuner``, which must launch the probe and the rescore). Every
+   probe and rescore call of the sweep (nprobe 1 to the cap, m=2,304) is
+   held against its plain version on the same inputs (probe bitwise,
+   rescore within 1e-5), and the pick must follow from the sweep's own
+   steps. Prints the two tuners' picks side by side, the case recall@10
+   and the row-level recall@10 at each, the oracle's seconds and every
+   sweep step's nprobe, route, recall and seconds. The index is freed
+   after.
 6. Build, pipeline end to end: a sqlite store of 32,768 cases with the
    fixture's texts (131,072 chunks), ``build_indexes(storage, cfg,
    device="cuda")`` with mean pooling and no embedder (a corpus vocab and
@@ -73,6 +85,34 @@ What it does, in order (any failure exits non-zero before the last line):
    in-memory indexes returns, name queries led by a case-name or exact
    hit. Prints each stage's time (vocab, text processing and trie inserts,
    embedding in chunks/s, trie freeze, ANN build, save, load).
+6b. I, ingest → tuned build → serve, as an operator runs it: 8,192 fixture
+   cases (phase 6's generator) under new ids, 64 planted cases that fail
+   validation (a short text, a future date) and 64 exact copies of cases
+   that pass, through ``IngestionManager.ingest_bulk("mock")`` (a
+   ``MockDataSource``) into a fresh store and cache directory, with the
+   ``[ingestion]`` defaults (printed) but no pause between batches
+   (``--ingest-cases N`` sets the fixture's count). The counts must follow
+   from the fixture: every case of row % 16 == 0 has no court and fails
+   validation, so processed 7,680, failed validation 512 + 64, skipped
+   duplicates 64, stored rows = processed; a second ``ingest_bulk`` stores
+   nothing and skips every stored case. Prints cases/s overall and per
+   eighth of the run, the time of one duplicate check (a full scan of the
+   table) at the end of each eighth (left out of the rates), the cache
+   and the job's status. Then ``build_indexes(storage, cfg,
+   tune_recall=0.95, device="cuda")`` over that store (counts reset just
+   before, read just after: the path ``tune``, where the probe and the
+   rescore must have launched and no sweep step may take the brute
+   route; every probe and rescore call of the sweep is held against its
+   plain version, and the pick must follow from the steps): stage times
+   with the tuner split into probe embedding, oracle and sweep; each sweep
+   step's nprobe, route (kernel, einsum or brute), mean, min and
+   tie-aware min case recall@10 and seconds; the tuned nprobe's case
+   recall@10 against the oracle over the tuner's own probes (it must equal
+   what the sweep measured at that nprobe); the probe texts through
+   ``SearchEngine.search_batch`` at B=64 (``min_similarity=-1.0``) and its
+   top 10's overlap with the oracle's; ``save_artifacts`` →
+   ``load_artifacts``, which must keep the tuned nprobe and serve B=8 and
+   B=64 name queries their case first.
 7. Serve: encoded text batches through ``FusedHybridSearch.query_batch``
    with the engine's settings (k=32 and the search config's defaults:
    overfetch 4, recall target 0.97, flat escalation 0.01): B=8 and B=64
@@ -121,14 +161,22 @@ What it does, in order (any failure exits non-zero before the last line):
    /search, 64 new cases stored, ``POST /admin/reindex?mode=incremental``
    until /stats counts them, a new case found by name, ``quality.json``
    beside the vectors, SIGINT: exit 0 with "shutting down" in its log
-   (``chiprun_out/h2_serve.log``). Each step's seconds.
+   (``chiprun_out/h2_serve.log``). Then, from an empty store with
+   ``[vector] pooling = "mean"``: ``ingest --source mock`` (3 cases
+   processed), the same again (3 skipped), ``build-index --tune-recall
+   0.95`` (the tuner skipped at 3 cases) and ``search "miranda v.
+   arizona"`` (Miranda first). Each step's seconds.
 
 The line before the last is a JSON object with one entry per kernel:
 ``launches`` counts the kernel on the path that reaches it (the
 ``query_batch`` run for the three serving kernels, ``fused_int8_topk`` for
 the int8 top-k (at D=48 for its dp4a variant), ``fused_scan_topk`` at T=17 for the fused scan's dp4a
 variant, which the serving paths must not launch) and ``launches_by_path``
-on each path (``build``: phase 5's recall search; ``http``: phase 10). The last line is
+on each path (``build``: phase 5's recall search; ``case_tuner``: phase
+5's case-level tuner; ``tune``: phase 6b's tuned build; ``http``: phase
+10). Each kernel's ``max_abs_err`` is the largest difference from its
+plain version over the kernel phase and every call held on the ``build``,
+``case_tuner`` and ``tune`` paths. The last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 
@@ -144,6 +192,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import datetime as dt
 import functools
 import json
@@ -1177,7 +1226,55 @@ def hold_against_plain(torch, sk, calls) -> dict:
     return err
 
 
-def ann_build_phase(torch, np, seed: int, work: Path) -> tuple[dict, dict]:
+def held_summary(calls) -> str:
+    """The kept probe calls' batch, nprobe range and partition capacity,
+    and the number of rescore calls, for the log."""
+    probes = [args[2].shape for n, args, _ in calls if n == "probe_candidates_cuda"]
+    caps = {args[3].shape[1] for n, args, _ in calls if n == "probe_candidates_cuda"}
+    nps = [s[1] for s in probes]
+    return (f"{len(probes)} probe calls (B {sorted({s[0] for s in probes})}, nprobe "
+            f"{min(nps, default=0)}..{max(nps, default=0)}, m {sorted(caps)}) and "
+            f"{len(calls) - len(probes)} rescore calls")
+
+
+def tuner_steps(records) -> tuple[float, list[dict], list[str]]:
+    """From the records of the ``tss_torch.index.tuning`` logger: the
+    oracle's seconds, each sweep step in the order measured (nprobe, mean,
+    min and tie-aware min case recall, route, seconds) and the settling
+    warnings."""
+    oracle_s = next(r.args[2] for r in records if r.msg.startswith("case-level oracle"))
+    steps = [dict(nprobe=r.args[1], mean=r.args[2], min=r.args[3], tie_min=r.args[4],
+                  route=r.args[5], s=r.args[6])
+             for r in records if r.msg.startswith("case recall@")]
+    settled = [r.getMessage() for r in records if r.levelno >= logging.WARNING]
+    return oracle_s, steps, settled
+
+
+def check_pick(steps: list[dict], pick: int, target: float, floor: float | None) -> str:
+    """The tuner's pick must follow from its own measured steps: the
+    smallest step whose mean reaches ``target`` and whose tie-aware worst
+    reaches ``floor``; when no step does, the smallest whose mean reaches
+    ``target`` and whose tie-aware worst is within 1e-3 of the best seen
+    (with a floor), else the largest step, the cap. No step may have taken
+    the brute route. Returns which rule picked."""
+    if not steps or any(st["route"] == "brute" for st in steps):
+        raise AssertionError(f"the sweep measured the brute scan or nothing: {steps}")
+    ok = [st["nprobe"] for st in steps
+          if st["mean"] >= target and (floor is None or st["tie_min"] >= floor)]
+    best = max(st["tie_min"] for st in steps)
+    plateau = [st["nprobe"] for st in steps if st["mean"] >= target and st["tie_min"] >= best - 1e-3]
+    if ok:
+        rule, want = "target met", min(ok)
+    elif floor is not None and plateau:
+        rule, want = "plateau of the worst probe", min(plateau)
+    else:
+        rule, want = "cap", max(st["nprobe"] for st in steps)
+    if pick != want:
+        raise AssertionError(f"the tuner picked nprobe {pick}, its steps give {want} ({rule}): {steps}")
+    return rule
+
+
+def ann_build_phase(torch, np, seed: int, work: Path) -> tuple[dict, dict, dict]:
     """Phase A, the ANN build at the served size: the 5,242,880 corpus rows
     of :func:`corpus_slabs` (drawn on the card from ``seed``, in generation
     order, copied to the host) through ``PartitionedANN(AnnConfig(),
@@ -1187,8 +1284,10 @@ def ann_build_phase(torch, np, seed: int, work: Path) -> tuple[dict, dict]:
     centroids is bitwise reproducible, that ``tune_nprobe`` picks an nprobe
     under P at which the probe and rescore kernels reach tie-aware
     recall@10 >= 0.95 against ``search_brute`` on fresh queries, and that
-    ``save_dir`` / ``load_dir`` serve bitwise the same. Returns the details
-    and the launch counts of that recall search."""
+    ``save_dir`` / ``load_dir`` serve bitwise the same; then the
+    case-level tuner on the same index (:func:`case_tuner_check`). Returns
+    the details, the launch counts of that recall search and those of the
+    case-level tuner."""
     from trie_semantic_search_tpu_torch.core.config import AnnConfig
     from trie_semantic_search_tpu_torch.index import kmeans as km
     from trie_semantic_search_tpu_torch.index.ann import PartitionedANN
@@ -1333,9 +1432,93 @@ def ann_build_phase(torch, np, seed: int, work: Path) -> tuple[dict, dict]:
         raise AssertionError("the index loaded from save_dir serves other results")
     log(f"  save_dir {out['save_dir_s']:.1f} s, load_dir {out['load_dir_s']:.1f} s: bitwise the same "
         "search results")
-    del ann, back, host
+    del back
     shutil.rmtree(work / "ann.mmap")
+
+    # the case-level tuner on the same index (counts reset just before,
+    # read just after: the path ``case_tuner``)
+    out["case_tuner"], tuner_launches = case_tuner_check(torch, np, sk, ann, host, seed, q, thresh)
+    del ann, host
     torch.cuda.empty_cache()
+    return out, launches, tuner_launches
+
+
+#: phase A's case-level tuner: query-shaped probes, the target and floor
+CASE_TUNE_PROBES, CASE_TUNE_RECALL = 64, 0.95
+
+
+def case_tuner_check(torch, np, sk, ann, host, seed: int, q, thresh) -> tuple[dict, dict]:
+    """``tune_nprobe_case_recall`` on phase A's index beside its row-level
+    ``tune_nprobe`` pick: ``CASE_TUNE_PROBES`` query-shaped probes (two rows
+    of one generated cluster mixed, plus noise), chunk → case ``row // 4``
+    (the engine's mapping), target and floor ``CASE_TUNE_RECALL``; the
+    oracle in numpy over the f32 host rows. Prints both picks, each one's
+    case recall@10 and the row-level tie-aware recall@10 on the fresh
+    queries ``q`` (``thresh``: the exact k-th score minus 1e-5) at both,
+    the oracle's seconds, and the sweep's steps and routes. The pick must
+    follow from the steps (:func:`check_pick`), and every probe and rescore
+    call of the sweep must match its plain version on the same inputs
+    (:func:`hold_against_plain`). Returns the details (``plain_err``: the
+    largest differences) and the launch counts of the tuner's run."""
+    from trie_semantic_search_tpu_torch.index import tuning
+
+    N = len(host)
+    row_pick = int(ann.tuned_nprobe)
+    rng = np.random.default_rng(seed + 13)
+    cl = rng.integers(0, P_PARTS, CASE_TUNE_PROBES)
+    j1, j2 = rng.integers(0, M_SLOTS, (2, CASE_TUNE_PROBES))
+    w = rng.random((CASE_TUNE_PROBES, 1)).astype(np.float32) * 0.5
+    probes = ((1 - w) * host[cl * M_SLOTS + j1] + w * host[cl * M_SLOTS + j2]
+              + 0.1 * rng.standard_normal((CASE_TUNE_PROBES, DIM)).astype(np.float32) / DIM**0.5)
+    chunk_case = np.arange(N, dtype=np.int64) // CHUNKS_PER_CASE
+    with (logged_records("tss_torch.index.tuning") as records,
+          kept_calls(sk, ("probe_candidates_cuda", "gather_rescore_cuda")) as calls):
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        case_pick = tuning.tune_nprobe_case_recall(
+            ann, chunk_case, host, probes, k=10, target_recall=CASE_TUNE_RECALL,
+            min_recall=CASE_TUNE_RECALL)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(sk.LAUNCHES)
+    oracle_s, sweep, settled = tuner_steps(records)
+    rule = check_pick(sweep, case_pick, CASE_TUNE_RECALL, CASE_TUNE_RECALL)
+    # every sweep step's kernel calls against the plain versions, same inputs
+    t0 = time.perf_counter()
+    plain_err = hold_against_plain(torch, sk, calls)
+    held = held_summary(calls)
+    plain_s = time.perf_counter() - t0
+    del calls
+    steps = {st["nprobe"]: st for st in sweep}
+    if row_pick not in steps:
+        oracle = tuning.case_level_oracle(host, chunk_case, probes, 10)
+        per = [len(set(s_) & set(o)) / 10 for s_, o in
+               zip(tuning._served_cases(ann, chunk_case, probes, 10, row_pick), oracle)]
+        steps[row_pick] = dict(nprobe=row_pick, mean=float(np.mean(per)), min=float(np.min(per)),
+                               route=ann.search_route(len(probes), row_pick), measured_apart=True)
+    row_recall = {n: float(np.mean(ann.search(q, 10, nprobe=n)[0] >= thresh)) for n in (row_pick, case_pick)}
+    out = dict(row_pick=row_pick, case_pick=case_pick, seconds=seconds, oracle_s=oracle_s,
+               sweep=list(steps.values()), settled=settled, rule=rule, launches=launches,
+               plain_err=plain_err, plain_s=plain_s,
+               case_recall_at_row_pick=steps[row_pick], case_recall_at_case_pick=steps[case_pick],
+               row_recall=row_recall)
+    log(f"  case-level tuner ({CASE_TUNE_PROBES} query-shaped probes, chunk -> case row // "
+        f"{CHUNKS_PER_CASE}, target and floor {CASE_TUNE_RECALL}) in {seconds:.1f} s (oracle over the "
+        f"{N} f32 host rows {oracle_s:.1f} s){'; ' + settled[0] if settled else ''}")
+    for st in sorted(steps.values(), key=lambda x: x["nprobe"]):
+        extra = f" tie-aware min {st['tie_min']:.4f}  {st['s']:.2f} s" if "s" in st else " (measured apart)"
+        log(f"    nprobe {st['nprobe']:5d} route {st['route']:6s} case recall@10 mean {st['mean']:.4f} "
+            f"min {st['min']:.4f}{extra}")
+    log(f"  picks side by side: tune_nprobe (rows as queries) {row_pick}: case recall@10 mean "
+        f"{steps[row_pick]['mean']:.4f} min {steps[row_pick]['min']:.4f}, row recall@10 "
+        f"{row_recall[row_pick]:.4f}; tune_nprobe_case_recall {case_pick}: case recall@10 mean "
+        f"{steps[case_pick]['mean']:.4f} min {steps[case_pick]['min']:.4f}, row recall@10 "
+        f"{row_recall[case_pick]:.4f}; the pick follows from the steps ({rule}); launches on the "
+        f"case_tuner path {launches}")
+    log(f"  the sweep's {held} against the plain versions in {plain_s:.1f} s: probe bitwise "
+        f"equal, rescore within {plain_err['gather_rescore']:.3g}")
+    if launches["probe_candidates"] <= 0 or launches["gather_rescore"] <= 0:
+        raise AssertionError(f"the case-level tuner did not run the probe and rescore kernels: {launches}")
     return out, launches
 
 
@@ -1415,6 +1598,264 @@ def pipeline_phase(torch, np, seed: int, work: Path) -> dict:
     del in_memory, from_disk, loaded, built
     torch.cuda.empty_cache()
     return out
+
+
+#: phase I: fixture cases fed to ingest by default (each row % 16 == 0 has
+#: no court and fails validation; one in eight is named); planted rejects
+#: and duplicates. The duplicate check scans the whole table twice per
+#: stored case, so the ingest time grows with the square of the count:
+#: 8,192 cases keep the script inside its time limit (with
+#: ``--ingest-cases 16384`` it ran 1,151 s on an H100 host, phase I 661 s)
+ING_CASES, ING_PLANTED = 8192, 64
+#: phase I: duplicate-check scans timed on the table at the end of each
+#: eighth of the ingest
+ING_SCANS = 20
+#: phase I: the tuner's target case recall@10
+ING_TUNE_RECALL = 0.95
+
+
+def ingest_cases(np, CaseMetadata, n_cases: int, seed: int) -> tuple[list, int]:
+    """Phase I's payloads: the fixture cases of rows ``0 .. n_cases - 1``
+    (the names, citations and texts :func:`fixture_cases` makes, one in
+    eight named) under new ids; ``ING_PLANTED`` cases that fail validation (half with a text under
+    the 100 characters, half dated a year ahead) spread over the run; and
+    ``ING_PLANTED`` exact copies, under new ids, of cases that pass, each
+    at least 500 cases after its original. Returns the payloads and the
+    number of fixture cases that must fail (no court)."""
+    cases = list(fixture_cases(np, CaseMetadata, range(n_cases), n_cases, n_cases // 8, seed))
+    for c, (meta, _) in enumerate(cases):
+        meta.id = uuid.UUID(int=(9 << 96) + c)
+    rng = np.random.default_rng(seed + 11)
+    courtless = sum(1 for meta, _ in cases if not meta.court)
+    originals = rng.choice([c for c in range(n_cases - 600) if cases[c][0].court], ING_PLANTED,
+                           replace=False)
+    dups = {}
+    for i, c in enumerate(originals):
+        meta, text = cases[c]
+        copy = CaseMetadata(id=uuid.UUID(int=(10 << 96) + i), name=meta.name, citation=meta.citation,
+                            court=meta.court, decision_date=meta.decision_date,
+                            word_count=meta.word_count)
+        dups.setdefault(int(c) + 500, []).append((copy, text))
+    future = dt.date.today() + dt.timedelta(days=365)
+    bad = {}
+    for i in range(ING_PLANTED):
+        short = i % 2 == 0
+        meta = CaseMetadata(id=uuid.UUID(int=(11 << 96) + i), name=f"Rejected filing {i}",
+                            citation=f"{i + 1} F. {i + 7} (2001)", court=COURTS[1 + i % 15],
+                            decision_date=dt.date(2001, 1, 1) if short else future)
+        bad[(i * n_cases) // ING_PLANTED] = (meta, "Too short." if short else case_text(i))
+    out = []
+    for c, payload in enumerate(cases):
+        out.append(payload)
+        out.extend(dups.get(c, []))
+        if c in bad:
+            out.append(bad[c])
+    return out, courtless
+
+
+def tuner_probes(storage, cfg, vector) -> tuple[list[str], object]:
+    """The tuner's probes as ``build_indexes`` makes them: the texts that
+    ``tuning.build_probe_embeddings`` embeds with ``vector``'s encoder, and
+    their embeddings."""
+    from trie_semantic_search_tpu_torch.index import tuning
+    from trie_semantic_search_tpu_torch.text.processor import TextProcessor
+
+    texts: list[str] = []
+
+    def embed(batch):
+        texts.extend(batch)
+        return vector.generate_embeddings(batch)
+
+    return texts, tuning.build_probe_embeddings(storage, TextProcessor(cfg.text_processing), embed)
+
+
+def ingest_phase(torch, np, sk, n_cases: int, seed: int, work: Path) -> tuple[dict, dict]:
+    """Phase I, the operator's pipeline from an empty store: the payloads
+    of :func:`ingest_cases` (``n_cases`` fixture cases) through
+    ``IngestionManager.ingest_bulk("mock")`` (a ``MockDataSource``) into a
+    fresh store and cache directory, with the ``[ingestion]`` defaults but
+    no pause between batches; the counts checked against the fixture; one
+    duplicate check timed at each eighth (left out of the rates); a second
+    ``ingest_bulk`` that must store nothing; then
+    ``build_indexes(tune_recall=0.95, device="cuda")`` over the ingested
+    store (launch counts reset just before, read just after: path
+    ``tune``), the sweep's steps and routes, the pick checked against them
+    and every probe and rescore call of the sweep against its plain
+    version, the tuned nprobe's case recall@10 against the oracle (equal to
+    the sweep's at that step), the probes served through
+    ``SearchEngine.search_batch`` at B=64, and ``save_artifacts`` →
+    ``load_artifacts``, which must keep the tuned nprobe and serve name
+    queries their case first. Returns the details and the ``tune``
+    launch counts."""
+    import asyncio
+
+    from trie_semantic_search_tpu_torch.core.config import Config
+    from trie_semantic_search_tpu_torch.core.types import CaseMetadata, SearchConfig
+    from trie_semantic_search_tpu_torch.index import tuning
+    from trie_semantic_search_tpu_torch.index.builder import build_indexes, load_artifacts, save_artifacts
+    from trie_semantic_search_tpu_torch.ingest import IngestionManager, JobStatus
+    from trie_semantic_search_tpu_torch.ingest.sources import MockDataSource
+    from trie_semantic_search_tpu_torch.search.engine import SearchEngine, SearchQuery
+    from trie_semantic_search_tpu_torch.storage.store import StorageManager
+
+    cfg = Config()
+    cfg.storage.db_path = str(work / "ingest.sqlite")
+    cfg.trie.index_path = str(work / "ingest_trie")
+    cfg.vector.hnsw.index_path = str(work / "ingest_vec")
+    cfg.vector.pooling = "mean"
+    cfg.ingestion.cache.disk_cache_path = str(work / "ingest_cache")
+    cfg.ingestion.rate_limit_delay_ms = 0
+    ing = cfg.ingestion
+    out: dict = {"settings": dict(
+        batch_size=ing.batch_size, max_concurrent_jobs=ing.max_concurrent_jobs,
+        rate_limit_delay_ms=ing.rate_limit_delay_ms, retry_attempts=ing.retry_attempts,
+        max_memory_usage_mb=ing.max_memory_usage_mb, validation=dataclasses.asdict(ing.validation),
+        cache=dataclasses.asdict(ing.cache))}
+    log(f"  [ingestion] settings: {out['settings']}")
+    payloads, courtless = ingest_cases(np, CaseMetadata, n_cases, seed)
+    fed = len(payloads)
+    storage = StorageManager(cfg.storage)
+    mgr = IngestionManager(cfg, storage)
+    mgr.register_source(MockDataSource(cases=payloads))
+    marks: list[tuple[float, int]] = []  # each batch's end (scans left out) and size
+    scans: list[tuple[int, float]] = []  # (stored rows, ms a duplicate check) at each eighth
+    spent = [0.0]  # seconds of those scans
+    batch_run = mgr.pipeline._process_batch
+
+    async def timed_batch(batch):  # no worker runs between two batches
+        await batch_run(batch)
+        marks.append((time.perf_counter() - spent[0], len(batch)))
+        if len(scans) < 8 and sum(n for _, n in marks) >= (len(scans) + 1) * fed / 8:
+            t = time.perf_counter()
+            for i in range(ING_SCANS):  # misses: each scans every row
+                storage.find_case_id(f"no such case {i}", "")
+            ms = (time.perf_counter() - t) / ING_SCANS * 1e3
+            scans.append((storage.get_stats().total_cases, ms))
+            spent[0] += time.perf_counter() - t
+
+    mgr.pipeline._process_batch = timed_batch
+
+    async def twice():  # one event loop: the pipeline's semaphore binds to it
+        t0 = time.perf_counter()
+        job = await mgr.ingest_bulk("mock")
+        t1 = time.perf_counter()
+        first = mgr.pipeline.stats
+        again = await mgr.ingest_bulk("mock")
+        return job, first, again, t0, t1, time.perf_counter()
+
+    job, first, again, t0, t1, t2 = asyncio.run(twice())
+    t1 -= spent[0]
+    out["ingest_s"], out["reingest_s"] = t1 - t0, t2 - spent[0] - t1
+    marks = [mk for mk in marks if mk[0] <= t1]
+    done, rates, t_prev, n_prev = 0, [], t0, 0
+    for t, n in marks:
+        done += n
+        if done >= (len(rates) + 1) * fed / 8:
+            rates.append((done - n_prev) / (t - t_prev))
+            t_prev, n_prev = t, done
+    stored = storage.get_stats().total_cases
+    want = dict(processed=n_cases - courtless, failed_validation=courtless + ING_PLANTED,
+                skipped_duplicates=ING_PLANTED, failed_processing=0)
+    have = {k: getattr(first, k) for k in want}
+    out.update(fed=fed, job_status=job.status.value, counts=have, stored=stored,
+               cases_per_s=fed / out["ingest_s"], eighth_cases_per_s=rates, cache_hits=first.cache_hits,
+               cache=dataclasses.asdict(mgr.cache.get_stats()), eighth_scans=scans, scan_ms=scans[-1][1])
+    log(f"  ingest_bulk of {fed} cases in {out['ingest_s']:.1f} s ({out['cases_per_s']:.1f} cases/s; "
+        f"by eighth: {', '.join(f'{r:.1f}' for r in rates)}); job {job.status.value}, {have}, "
+        f"{stored} stored; pipeline cache hits {first.cache_hits}; cache {out['cache']}")
+    log("  one duplicate check (find_case_id, a miss) at the end of each eighth: " + ", ".join(
+        f"{rows} rows {ms:.3f} ms ({ms * 1e6 / max(rows, 1):.0f} ns a row)" for rows, ms in scans))
+    if job.status != JobStatus.COMPLETED or have != want or stored != want["processed"]:
+        raise AssertionError(f"ingest: job {job.status.value} {job.error}, counts {have} (want {want}), "
+                             f"{stored} stored")
+    second = {k: getattr(mgr.pipeline.stats, k) for k in want}
+    out["reingest_counts"] = second
+    log(f"  ingest_bulk again in {out['reingest_s']:.1f} s: job {again.status.value}, {second}")
+    if (again.status != JobStatus.COMPLETED or second["processed"]
+            or second["skipped_duplicates"] != stored + ING_PLANTED
+            or storage.get_stats().total_cases != stored):
+        raise AssertionError(f"the second ingest stored something or skipped other cases: {second}")
+
+    with (logged_records("tss_torch.index.tuning") as records,
+          kept_calls(sk, ("probe_candidates_cuda", "gather_rescore_cuda")) as calls):
+        sk.reset_launch_counts()
+        built = build_indexes(storage, cfg, tune_recall=ING_TUNE_RECALL, device="cuda")
+        torch.cuda.synchronize()
+        launches = dict(sk.LAUNCHES)
+    r, ann = built.report, built.vector.ann
+    oracle_s, steps, settled = tuner_steps(records)
+    ann_s = sum(ann.build_seconds.values())
+    nprobe = ann.tuned_nprobe
+    out.update(build_s=r.seconds, vocab_s=r.vocab_seconds, embed_s=r.embed_seconds,
+               text_and_trie_s=r.seconds - r.vocab_seconds - r.embed_seconds - r.freeze_seconds
+               - r.tune_seconds, trie_freeze_s=r.freeze_seconds - ann_s, ann_build_s=ann_s,
+               tune_s=r.tune_seconds, tune_probe_s=r.tune_probe_seconds, tune_oracle_s=oracle_s,
+               tune_sweep_s=sum(st["s"] for st in steps), chunks=ann.num_vectors,
+               partitions=int(ann.part_rows.shape[0]), capacity=int(ann.part_rows.shape[1]),
+               sweep=steps, settled=settled, nprobe=nprobe, launches=launches)
+    log(f"  build_indexes(tune_recall={ING_TUNE_RECALL}) {r.seconds:.1f} s = vocab {r.vocab_seconds:.1f} + "
+        f"text processing and trie inserts {out['text_and_trie_s']:.1f} + embed {r.embed_seconds:.1f} "
+        f"({ann.num_vectors / r.embed_seconds:.0f} chunks/s) + trie freeze {out['trie_freeze_s']:.1f} + "
+        f"ANN build {ann_s:.1f} (P={out['partitions']} m={out['capacity']}) + tune "
+        f"{r.tune_seconds:.2f} (probe embedding {r.tune_probe_seconds:.2f}, oracle {oracle_s:.2f}, "
+        f"sweep {out['tune_sweep_s']:.2f})")
+    for st in steps:
+        log(f"    nprobe {st['nprobe']:5d} route {st['route']:6s} case recall@10 mean {st['mean']:.4f} "
+            f"min {st['min']:.4f} tie-aware min {st['tie_min']:.4f}  {st['s']:.3f} s")
+    out["rule"] = check_pick(steps, nprobe, ING_TUNE_RECALL, cfg.vector.hnsw.tune_min_recall or None)
+    log(f"  launches on the tune path: {launches}; the pick follows from the steps ({out['rule']})"
+        f"{'; ' + settled[0] if settled else ''}")
+    if launches["probe_candidates"] <= 0 or launches["gather_rescore"] <= 0:
+        raise AssertionError(f"the tuned build did not run the probe and rescore kernels: {launches}")
+    out["plain_err"] = hold_against_plain(torch, sk, calls)
+    log(f"  the sweep's {held_summary(calls)} against the plain versions: probe bitwise equal, "
+        f"rescore within {out['plain_err']['gather_rescore']:.3g}")
+    del calls
+
+    texts, embs = tuner_probes(storage, cfg, built.vector)
+    chunk_case = np.asarray(built.vector.refs)[:, 0]
+    oracle = tuning.case_level_oracle(built.vector.vectors, chunk_case, embs, 10)
+    served = tuning._served_cases(ann, chunk_case, embs, 10, nprobe)
+    per = [len(set(s) & set(o)) / len(o) for s, o in zip(served, oracle)]
+    at_pick = next(st for st in steps if st["nprobe"] == nprobe)
+    if (float(np.mean(per)), float(np.min(per))) != (at_pick["mean"], at_pick["min"]):
+        raise AssertionError(f"case recall@10 at nprobe {nprobe} is {np.mean(per)} mean, {np.min(per)} "
+                             f"min over the tuner's probes; the sweep measured {at_pick}")
+    engine = SearchEngine(cfg, storage, built.trie, built.vector, built.columns, device="cuda")
+    qs = [SearchQuery(query=t, config=SearchConfig(min_similarity=-1.0)) for t in texts]
+    t0 = time.perf_counter()
+    res = engine.search_batch(qs)
+    out["engine_B64_ms"] = (time.perf_counter() - t0) * 1e3
+    row_of = built.columns.row_of_case
+    eng = [len({row_of[x.case_metadata.id] for x in rs} & set(o)) / len(o) for rs, o in zip(res, oracle)]
+    out.update(probes=len(texts), recall_mean=float(np.mean(per)), recall_min=float(np.min(per)),
+               engine_overlap_mean=float(np.mean(eng)), engine_overlap_min=float(np.min(eng)))
+    log(f"  tuned nprobe {nprobe} (P={out['partitions']}): case recall@10 vs the oracle over {len(texts)} "
+        f"probes (the tuner's; as its sweep measured) mean {out['recall_mean']:.4f} min {out['recall_min']:.4f}; SearchEngine.search_batch "
+        f"B={len(qs)} of the probes in {out['engine_B64_ms']:.1f} ms, its top 10 cases overlap the "
+        f"oracle's by mean {out['engine_overlap_mean']:.4f} min {out['engine_overlap_min']:.4f}")
+
+    t0 = time.perf_counter()
+    save_artifacts(built, cfg)
+    out["save_s"] = time.perf_counter() - t0
+    loaded = load_artifacts(cfg, device="cuda")
+    if loaded[1].ann.tuned_nprobe != nprobe:
+        raise AssertionError(f"the loaded ANN has nprobe {loaded[1].ann.tuned_nprobe}, tuned {nprobe}")
+    from_disk = SearchEngine(cfg, storage, *loaded, device="cuda")
+    names, (court_ids, _) = case_names(np, n_cases, n_cases // 8, seed), case_columns(np, n_cases)
+    named = [names[c] for c in sorted(names) if court_ids[c]]  # the stored named cases
+    for B in (8, 64):
+        names = named[:: max(1, len(named) // B)][:B]
+        res = from_disk.search_batch([SearchQuery(query=n) for n in names])
+        missed = [n for n, rs in zip(names, res) if not rs or rs[0].case_metadata.name != n]
+        if missed:
+            raise AssertionError(f"B={B}: name queries not led by their case: {missed[:3]}")
+    log(f"  save_artifacts {out['save_s']:.1f} s; load_artifacts keeps nprobe {nprobe}; name queries at "
+        "B=8 and 64 over the loaded artifacts lead with their case")
+    storage.close()
+    del engine, from_disk, loaded, built
+    torch.cuda.empty_cache()
+    return out, launches
 
 
 def small_reference(torch, np, seed, devices=("cpu", "cuda")):
@@ -2072,11 +2513,53 @@ def cli_phase(np, seed: int, work: Path, out_dir: Path) -> dict:
     if rc != 0 or "shutting down" not in text:
         raise AssertionError(f"serve exited {rc} on SIGINT; 'shutting down' logged: {'shutting down' in text}")
     rec["update_log"] = next(ln for ln in text.splitlines() if "incremental update:" in ln)
+    rec["fresh"] = cli_fresh_lifecycle(work / "h2_fresh")
     rec.update(cases_before=before, cases_after=before + H2_NEW_CASES, new_case=new_name,
                quality_gate=dict(mode=quality["mode"], degraded=quality["degraded"],
                                  trained_mrr=quality["trained"]["all"]["mrr"],
                                  control_mrr=quality["control"]["all"]["mrr"], probes=quality["probes"]))
     return rec
+
+
+def cli_fresh_lifecycle(root: Path) -> dict:
+    """H2 from an empty store, as an operator starts: a TOML with ``[vector]
+    pooling = "mean"``, then ``ingest --source mock`` (the 3 landmark cases
+    stored), ``ingest --source mock`` again (all 3 skipped),
+    ``build-index --tune-recall 0.95`` (with 3 cases the tuner is skipped,
+    as in the JAX package) and ``search "miranda v. arizona"`` (Miranda
+    first, a case-name or exact hit), one after another. Each command's
+    seconds and last output line."""
+    from trie_semantic_search_tpu_torch.core.config import Config
+
+    root.mkdir()
+    cfg = Config()
+    cfg.storage.db_path = str(root / "db.sqlite")
+    cfg.trie.index_path = str(root / "trie")
+    cfg.vector.hnsw.index_path = str(root / "vec")
+    cfg.vector.pooling = "mean"
+    toml = root / "config.toml"
+    cfg.save_to_file(toml)
+    steps = {}
+    plan = (
+        ("ingest", ["ingest", "--source", "mock"],
+         lambda o: json.loads(o.splitlines()[-1])["processed"] == 3),
+        ("ingest again", ["ingest", "--source", "mock"],
+         lambda o: (lambda d: d["skipped"] == 3 and d["processed"] == 0)(json.loads(o.splitlines()[-1]))),
+        ("build-index --tune-recall 0.95", ["build-index", "--tune-recall", "0.95"],
+         lambda o: json.loads(o.splitlines()[-1])["cases"] == 3),
+        ("search", ["search", "miranda v. arizona"],
+         lambda o: (lambda h: h[0]["case_metadata"]["name"] == "Miranda v. Arizona"
+                    and h[0]["match_type"] in ("case_name", "exact"))(json.loads(o))),
+    )
+    for key, argv, ok in plan:
+        out, sec = run_cli(argv, toml, 600)
+        if not ok(out):
+            raise AssertionError(f"cli {argv} from an empty store: {out[-2000:]}")
+        first = json.loads(out)[0] if key == "search" else None
+        steps[key] = dict(s=sec, out=out.splitlines()[-1] if first is None else
+                          f"{first['case_metadata']['name']} ({first['match_type']})")
+        log(f"  fresh store: {key} exit 0 in {sec:.1f} s: {steps[key]['out']}")
+    return steps
 
 
 def main() -> int:
@@ -2087,6 +2570,9 @@ def main() -> int:
                          "only (no index builds, serving, profile, store or engine); "
                          "int8-ablations: the device time of each ablation build of the int8 "
                          "top-k's wgmma variant at its timed case")
+    ap.add_argument("--ingest-cases", type=int, default=ING_CASES,
+                    help="fixture cases phase I ingests (at least 1,024; its time grows with the "
+                         "square of the count)")
     args = ap.parse_args()
     try:
         import torch
@@ -2111,14 +2597,15 @@ def main() -> int:
             target=build_store, args=(db_path, n_cases, N_NAMES, args.seed))
         store.start()
         try:
-            return run(torch, np, sk, args.seed, db_path, store)
+            return run(torch, np, sk, args.seed, db_path, store, ingest_cases=args.ingest_cases)
         finally:
             if store.is_alive():
                 store.terminate()
             store.join()
 
 
-def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None) -> int:
+def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None,
+        ingest_cases: int = ING_CASES) -> int:
     t_start = time.perf_counter()
     card = gpu_line()
     log(f"gpu: {card}")
@@ -2181,12 +2668,22 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None) 
     work = Path(db_path).parent
     log(f"phase: build: ANN at full size ({P_PARTS * M_SLOTS} rows, D={DIM}; counts reset just "
         "before the recall search, read just after)")
-    detail["build_ann"], paths["build"] = ann_build_phase(torch, np, seed, work)
-    for k, e in detail["build_ann"]["plain_err"].items():
-        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], e)
+    detail["build_ann"], paths["build"], paths["case_tuner"] = ann_build_phase(torch, np, seed, work)
+    for errs in (detail["build_ann"]["plain_err"], detail["build_ann"]["case_tuner"]["plain_err"]):
+        for k, e in errs.items():
+            kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], e)
     log("phase: build: pipeline end to end (build_indexes -> save_artifacts -> load_artifacts "
         "-> SearchEngine)")
     detail["build_pipeline"] = pipeline_phase(torch, np, seed, work)
+    log(f"phase: I, ingest -> tuned build -> serve ({ingest_cases} fixture cases and {2 * ING_PLANTED} "
+        "planted through ingest_bulk; counts reset just before build_indexes(tune_recall), read "
+        "just after)")
+    t0 = time.perf_counter()
+    detail["ingest"], paths["tune"] = ingest_phase(torch, np, sk, ingest_cases, seed, work)
+    detail["ingest"]["seconds"] = time.perf_counter() - t0
+    for k, e in detail["ingest"]["plain_err"].items():
+        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], e)
+    log(f"  {card}: phase I {detail['ingest']['seconds']:.1f} s")
 
     log("phase: serve through query_batch (counts reset just before, read just after)")
     records, launches = serve(torch, np, fused, vi, names, words, courts, seed)

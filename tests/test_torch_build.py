@@ -524,9 +524,8 @@ def test_build_indexes_matches_jax(tmp_path, f32_jax_encoder):
 def test_build_indexes_refuses_later_slices(tmp_path):
     _, pcfg = _configs(tmp_path, "r")
     store = _write_store(StorageManager, CaseMetadata, pcfg.storage.db_path, _cases(4))
-    for kw in (dict(tune_recall=0.95), dict(pretrain_steps=10)):
-        with pytest.raises(NotImplementedError):
-            build_indexes(store, pcfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        build_indexes(store, pcfg, device="cpu", pretrain_steps=10)
     pcfg.vector.pooling = "auto"
     with pytest.raises(NotImplementedError):
         build_indexes(store, pcfg, device="cpu")

@@ -162,9 +162,7 @@ def test_one_shot_commands_match_jax(art, one_device_toml, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,slice_name", [
-    (["ingest", "--source", "mock"], "slice 2"),
     (["build-index", "--streaming"], "slice 3"),
-    (["build-index", "--tune-recall", "0.9"], "slice 3"),
     (["build-index", "--pretrain-steps", "5"], "slice 4"),
     (["eval-retrieval", "--control"], "slices 3 and 4"),
     (["bench"], "not ported"),
@@ -172,6 +170,80 @@ def test_one_shot_commands_match_jax(art, one_device_toml, capsys, monkeypatch):
 def test_later_slices_raise(tmp_path, argv, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         pcli.main(["-c", str(tmp_path / "none.toml"), "--device", "cpu", *argv])
+
+
+def _fresh_tomls(tmp_path):
+    """A config per package over an empty store of its own (mean pooling,
+    the default full-width encoder)."""
+    paths = {}
+    for tag in ("jax", "port"):
+        root = tmp_path / tag
+        root.mkdir()
+        cfg = JaxConfig()
+        cfg.storage.db_path = str(root / "db.sqlite")
+        cfg.trie.index_path = str(root / "trie")
+        cfg.vector.hnsw.index_path = str(root / "vec")
+        cfg.vector.pooling = "mean"
+        cfg.mesh.enabled = False
+        cfg.save_to_file(root / "config.toml")
+        paths[tag] = root / "config.toml"
+    return paths
+
+
+@pytest.mark.parametrize("argv", [["ingest", "--source", "mock"],
+                                  ["ingest", "--source", "mock", "--incremental"],
+                                  ["ingest", "--source", "mock", "--limit", "2"],
+                                  ["ingest", "--source", "nope"]])
+def test_ingest_command_matches_jax(tmp_path, capsys, argv):
+    """``ingest`` twice into an empty store prints the JAX CLI's JSON (the
+    job id aside), and both stores hold the same cases (an unknown source
+    fails the job in both)."""
+    from trie_semantic_search_tpu.storage.store import StorageManager as JaxStorage
+    from trie_semantic_search_tpu_torch.storage.store import StorageManager
+
+    paths = _fresh_tomls(tmp_path)
+    outs = []
+    for _ in range(2):
+        rc, want = _jax(["-c", str(paths["jax"])] + argv, capsys)
+        prc, got = _port(["-c", str(paths["port"]), "--device", "cpu"] + argv, capsys)
+        want, got = json.loads(want.splitlines()[-1]), json.loads(got.splitlines()[-1])
+        assert prc == rc and got.pop("job") > 0 and want.pop("job") > 0
+        assert got == want
+        outs.append(want)
+    names = []
+    for store_cls, cfg_cls, tag in ((JaxStorage, JaxConfig, "jax"), (StorageManager, Config, "port")):
+        store = store_cls(cfg_cls.from_file(paths[tag]).storage)
+        names.append(sorted(m.name for m, _ in store.iter_cases()))
+        store.close()
+    assert names[0] == names[1]
+    if argv == ["ingest", "--source", "mock"]:
+        assert rc == 0 and outs[0]["processed"] == 3 and outs[1] == dict(
+            outs[0], processed=0, skipped=3) and len(names[0]) == 3
+
+
+def test_build_index_tune_recall_command_matches_jax(tmp_path, capsys):
+    """``ingest --source mock`` then ``build-index --tune-recall 0.95``
+    into empty stores: the same JSON (seconds and paths aside) and the
+    same saved nprobe; with 3 cases the tuner is skipped in both."""
+    from trie_semantic_search_tpu_torch.index.ann import PartitionedANN
+
+    paths = _fresh_tomls(tmp_path)
+    _jax(["-c", str(paths["jax"]), "ingest", "--source", "mock"], capsys)
+    _port(["-c", str(paths["port"]), "--device", "cpu", "ingest", "--source", "mock"], capsys)
+    argv = ["build-index", "--tune-recall", "0.95"]
+    rc, want = _jax(["-c", str(paths["jax"])] + argv, capsys)
+    prc, got = _port(["-c", str(paths["port"]), "--device", "cpu"] + argv, capsys)
+    want, got = json.loads(want.splitlines()[-1]), json.loads(got.splitlines()[-1])
+    for d in (want, got):
+        assert d.pop("seconds") > 0
+        d.pop("trie_path"), d.pop("vector_path")
+    assert prc == rc == 0 and got == want and want["cases"] == 3
+    saved = [PartitionedANN.load(p.parent / "vec" / "ann.npz", device="cpu").tuned_nprobe
+             for p in (paths["jax"], paths["port"])]
+    assert saved[0] == saved[1]
+    rc, got = _port(["-c", str(paths["port"]), "--device", "cpu", "search", "miranda v. arizona"], capsys)
+    hit = json.loads(got)[0]
+    assert rc == 0 and hit["case_metadata"]["name"] == "Miranda v. Arizona"
 
 
 def test_build_index_command_matches_jax(art, tmp_path, capsys):

@@ -120,3 +120,26 @@ def test_cli_and_server_run_with_jax_unimportable():
     )
     assert server.returncode == 0, server.stderr
     assert server.stdout.strip() == "ApiServer"
+
+
+def test_ingest_and_tuner_stand_alone():
+    """The ingest package, its sources and the case-level tuner are among
+    the files checked above, and import where ``jax`` cannot be imported."""
+    files = {str(f.relative_to(REPO)) for f in _port_files()}
+    for name in ("ingest/__init__.py", "ingest/validation.py", "ingest/cache.py", "ingest/pipeline.py",
+                 "ingest/manager.py", "ingest/sources/base.py", "ingest/sources/mock.py",
+                 "ingest/sources/cap.py", "ingest/sources/courtlistener.py", "index/tuning.py"):
+        assert f"trie_semantic_search_tpu_torch/{name}" in files, name
+    block = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'ml_dtypes', 'trie_semantic_search_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "from trie_semantic_search_tpu_torch.ingest import IngestionManager\n"
+        "from trie_semantic_search_tpu_torch.ingest.sources import CapDataSource, MockDataSource\n"
+        "from trie_semantic_search_tpu_torch.index.tuning import tune_nprobe_case_recall\n"
+        "print(IngestionManager.__name__, CapDataSource.__name__, tune_nprobe_case_recall.__name__)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", block], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["IngestionManager", "CapDataSource", "tune_nprobe_case_recall"]

@@ -6,17 +6,21 @@ with ``--device`` in place of ``--platform``).
   build from the store when there are none or with ``--rebuild-index``) →
   health check → maintenance tasks → warmup in a background thread → the
   API server, until SIGINT or SIGTERM
-* ``build-index``  — build and save every artifact (quality gate first)
+* ``ingest``       — one ingestion job from a named source (``mock``,
+  ``cap``, ``courtlistener``; every source without ``--source``), bulk or
+  ``--incremental``
+* ``build-index``  — build and save every artifact (quality gate first;
+  ``--tune-recall`` tunes the ANN's nprobe by case-level recall)
 * ``check-health`` — component probes, exit code 0/1
 * ``search``       — one query from the command line
 * ``completions``  — trie prefix completions
 * ``config-dump``  — the effective config as TOML
 * ``loadtest``     — concurrent ``POST /search`` against a running server
 
-``ingest``, ``build-index --streaming``, ``build-index --tune-recall``,
-``build-index --pretrain-steps`` and ``eval-retrieval`` raise
-``NotImplementedError`` naming the later slice of ``ROADMAP.md`` §1 that
-brings them; ``bench`` does too (the benchmark is not ported).
+``build-index --streaming``, ``build-index --pretrain-steps`` and
+``eval-retrieval`` raise ``NotImplementedError`` naming the later slice of
+``ROADMAP.md`` §1 that brings them; ``bench`` does too (the benchmark is
+not ported).
 
 Shared flags: ``--config/-c``, ``--device`` (default ``cuda``; a missing
 card is an error, ``--device cpu`` runs on the CPU), ``--port/-p`` for
@@ -168,10 +172,36 @@ def cmd_serve(args: argparse.Namespace) -> int:
 
 
 def cmd_ingest(args: argparse.Namespace) -> int:
-    raise NotImplementedError(
-        "ingest comes with ROADMAP.md §1 slice 2 (ingest: the pipeline, validation, "
-        "cache and the mock, CAP and CourtListener sources)"
-    )
+    """One ingestion job into the configured store (host code: no
+    device); prints the job's outcome as one JSON line, exit 1 when the
+    job failed."""
+    cfg = _load_config(args)
+    init_logging(cfg.logging)
+    from .ingest.manager import IngestionManager
+    from .ingest.sources import CapDataSource, CourtListenerDataSource, MockDataSource
+    from .storage.store import StorageManager
+
+    storage = StorageManager(cfg.storage)
+    mgr = IngestionManager(cfg, storage)
+    mgr.register_source(MockDataSource())
+    mgr.register_source(CapDataSource(cfg.ingestion.cap))
+    mgr.register_source(CourtListenerDataSource(cfg.ingestion.courtlistener))
+
+    async def _run():
+        if args.incremental:
+            return await mgr.check_for_updates(args.source, args.limit)
+        return await mgr.ingest_bulk(args.source, args.limit)
+
+    job = asyncio.run(_run())
+    print(json.dumps({
+        "job": job.id,
+        "status": job.status.value,
+        "processed": job.stats.processed if job.stats else 0,
+        "skipped": job.stats.skipped_duplicates if job.stats else 0,
+        "failed_validation": job.stats.failed_validation if job.stats else 0,
+        "error": job.error,
+    }))
+    return 0 if job.error is None else 1
 
 
 def cmd_build_index(args: argparse.Namespace) -> int:
@@ -179,11 +209,6 @@ def cmd_build_index(args: argparse.Namespace) -> int:
         raise NotImplementedError(
             "build-index --streaming comes with ROADMAP.md §1 slice 3 (the streaming "
             "build: index/streaming.py, build_streaming, spill.py)"
-        )
-    if args.tune_recall is not None:
-        raise NotImplementedError(
-            "build-index --tune-recall comes with ROADMAP.md §1 slice 3 (the case-level "
-            "tuner of index/tuning.py)"
         )
     if args.pretrain_steps > 0:
         raise NotImplementedError(
@@ -195,7 +220,7 @@ def cmd_build_index(args: argparse.Namespace) -> int:
     from .storage.store import StorageManager
 
     storage = StorageManager(cfg.storage)
-    built = build_indexes(storage, cfg, device=args.device)
+    built = build_indexes(storage, cfg, tune_recall=args.tune_recall, device=args.device)
     save_artifacts(built, cfg, storage=storage)
     print(json.dumps({
         "cases": built.report.cases,
@@ -248,8 +273,8 @@ def cmd_search(args: argparse.Namespace) -> int:
 
 def cmd_eval_retrieval(args: argparse.Namespace) -> int:
     raise NotImplementedError(
-        "eval-retrieval comes with ROADMAP.md §1 slices 3 and 4 (the case-level tuner and "
-        "training: evaluate_engine, evaluate_stages in models/quality.py)"
+        "eval-retrieval comes with ROADMAP.md §1 slices 3 and 4 (the rest of the index "
+        "build and training: evaluate_engine, evaluate_stages in models/quality.py)"
     )
 
 

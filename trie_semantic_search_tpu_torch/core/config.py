@@ -6,9 +6,9 @@ with the same field names, order and defaults, and the same precedence
 (environment variables > TOML file > defaults), so a config file written
 for the JAX package means the same thing here and ``to_toml`` writes the
 same bytes for the same values. The ingestion sections (``cap``,
-``courtlistener``, ``validation``, ``cache``) are plain data until the
-ingest slice reads them; ``mesh`` is read by the CLI, which refuses to
-serve sharded until the sharding slice.
+``courtlistener``, ``validation``, ``cache``) configure ``ingest/``;
+``mesh`` is read by the CLI, which refuses to serve sharded until the
+sharding slice.
 """
 
 from __future__ import annotations

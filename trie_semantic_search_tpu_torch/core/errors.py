@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
+CATEGORY_NETWORK = "network"
+CATEGORY_INGESTION = "ingestion"
 CATEGORY_CONFIG = "config"
 CATEGORY_INTERNAL = "internal"
 CATEGORY_VALIDATION = "validation"
@@ -29,6 +31,80 @@ class SearchError(Exception):
     @property
     def message(self) -> str:
         return str(self)
+
+    def is_recoverable(self) -> bool:
+        """Whether a retry may succeed (the ingest pipeline's retry loop
+        reads it)."""
+        return self.recoverable
+
+    def recovery_suggestion(self) -> Optional[str]:
+        return self.suggestion
+
+    def to_json(self) -> dict[str, Any]:
+        return {
+            "error": self.__class__.__name__,
+            "message": self.message,
+            "category": self.category,
+            "recoverable": self.recoverable,
+            "suggestion": self.recovery_suggestion(),
+            **{k: v for k, v in self.fields.items() if _jsonable(v)},
+        }
+
+
+def _jsonable(v: Any) -> bool:
+    return isinstance(v, (str, int, float, bool, type(None), list, dict))
+
+
+class NetworkError(SearchError):
+    """Network-related error."""
+
+    category = CATEGORY_NETWORK
+    recoverable = True
+    suggestion = "Check network connectivity; the operation will be retried"
+
+    def __init__(self, details: str = "", **kw: Any):
+        super().__init__(f"Network error: {details}", details=details, **kw)
+
+
+class RateLimitExceeded(SearchError):
+    """Upstream source rate limit hit."""
+
+    category = CATEGORY_NETWORK
+    recoverable = True
+    suggestion = "Back off and retry after the rate-limit window"
+
+    def __init__(self, source: str = "", **kw: Any):
+        super().__init__(f"Rate limit exceeded for {source}", source=source, **kw)
+
+
+class SourceUnavailable(SearchError):
+    """Data source down or not registered."""
+
+    category = CATEGORY_NETWORK
+    recoverable = True
+    suggestion = "Retry later or switch to an alternate data source"
+
+    def __init__(self, source: str = "", details: str = "", **kw: Any):
+        super().__init__(
+            f"Data source '{source}' is unavailable: {details}",
+            source=source,
+            details=details,
+            **kw,
+        )
+
+
+class ParseError(SearchError):
+    """Failed to parse upstream data."""
+
+    category = CATEGORY_INGESTION
+
+    def __init__(self, source: str = "", details: str = "", **kw: Any):
+        super().__init__(
+            f"Failed to parse data from {source}: {details}",
+            source=source,
+            details=details,
+            **kw,
+        )
 
 
 class ConfigError(SearchError):

@@ -443,15 +443,40 @@ class PartitionedANN:
 
     # -- search ----------------------------------------------------------------
 
+    def _use_kernels(self) -> bool:
+        """Whether :meth:`search` runs the probe and rescore kernels: int8
+        blocks of whole 128-slot sub-blocks and 128-wide rows (the JAX
+        package's shape rule)."""
+        m, D = int(self.part_rows.shape[1]), int(self.part_int8.shape[-1])
+        forced = os.environ.get("TSS_PROBE_INTERPRET") == "1"
+        return bool(self.config.quantize_int8) and m % 128 == 0 and (D % 128 == 0 or forced)
+
+    def search_route(self, batch: int, nprobe: int) -> str:
+        """How :meth:`search` serves ``batch`` queries at ``nprobe``:
+        ``"brute"`` (the exact scan: ``nprobe * m`` covers the corpus or
+        ``nprobe >= P``), ``"kernel"`` (the probe kernel, then the rescore
+        kernel) or ``"einsum"`` (the probe stage as a per-partition einsum
+        loop, past the probe kernel's 768 KiB candidate budget or off its
+        shape rule; the rescore kernel still runs where the rule holds)."""
+        self._require_built()
+        P, m = (int(s) for s in self.part_rows.shape)
+        if nprobe * m >= self.num_vectors or nprobe >= P:
+            return "brute"
+        if self._use_kernels() and batch * nprobe * 4 <= 768 * 1024:
+            return "kernel"
+        return "einsum"
+
     def search(
         self, queries, k: int, nprobe: Optional[int] = None
     ) -> tuple[np.ndarray, np.ndarray]:
         """Top-k ``(scores, rows)`` per query through the probe → int8 scan
-        → bf16 rescore stages; rows -1 when fewer than k exist."""
+        → bf16 rescore stages (:meth:`search_route` says which); rows -1
+        when fewer than k exist."""
         self._require_built()
         nprobe = nprobe or self.default_nprobe
-        P, m = (int(s) for s in self.part_rows.shape)
-        if nprobe * m >= self.num_vectors or nprobe >= P:
+        queries = np.asarray(queries)
+        route = self.search_route(len(queries), nprobe)
+        if route == "brute":
             return self.search_brute(queries, k)
         exact_float32()
         cfg = self.config
@@ -460,12 +485,10 @@ class PartitionedANN:
             self.num_vectors,
         )
         quantize = bool(cfg.quantize_int8)
-        D = int(self.part_int8.shape[-1])
-        forced = os.environ.get("TSS_PROBE_INTERPRET") == "1"
-        use_kernel = quantize and m % 128 == 0 and (D % 128 == 0 or forced)
+        use_kernel = self._use_kernels()
 
         dev = self.device
-        qn = l2_normalize(torch.as_tensor(np.asarray(queries), device=dev).to(torch.float32))
+        qn = l2_normalize(torch.as_tensor(queries, device=dev).to(torch.float32))
         B = qn.shape[0]
         cs = qn @ self.centroids.T
         _, top_p = exact_topk(cs, nprobe)
@@ -473,7 +496,7 @@ class PartitionedANN:
         q_scale = torch.clamp(q_abs, min=1e-12) / 127.0
         q8 = torch.clamp(torch.round(qn / q_scale), -127, 127).to(torch.int8)
         rows_all = self.part_rows
-        if use_kernel and B * nprobe * 4 <= 768 * 1024:
+        if route == "kernel":
             i32 = torch.int32
             pcw = torch.where(rows_all >= 0, 0, -1).to(i32)
             kc_v, kc_s = probe_candidates(

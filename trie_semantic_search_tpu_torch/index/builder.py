@@ -18,10 +18,14 @@ package's, so either package loads what the other saved.
 inserts into them in place: a server keeps answering from the live
 indexes until it swaps the result in, and the result is the same.
 
+``build_indexes(tune_recall=...)`` tunes the built ANN's nprobe by
+case-level recall of query-shaped probes (:mod:`.tuning`), or by the
+row-level ``tune_nprobe`` on 64 sampled rows when the corpus yields no
+probe; ``save_artifacts`` persists the tuned nprobe with the ANN.
+
 Paths of later slices raise ``NotImplementedError`` rather than diverge:
 pooling selection (``vector.pooling`` other than ``"mean"`` with no
-embedder passed) and encoder pretraining come with the training slice;
-``tune_recall`` with the case-level tuner of ``index/tuning.py``.
+embedder passed) and encoder pretraining come with the training slice.
 """
 
 from __future__ import annotations
@@ -58,8 +62,10 @@ EMBED_FLUSH = 8192
 @dataclass
 class BuildReport:
     """What the build did and where its time went: ``seconds`` in all, of
-    which the corpus vocab, the chunk embedding and the freeze (tries and
-    ANN); the rest is text processing and trie inserts."""
+    which the corpus vocab, the chunk embedding, the freeze (tries and
+    ANN) and the nprobe tuning (``tune_seconds``, of which embedding the
+    probes ``tune_probe_seconds``); the rest is text processing and trie
+    inserts."""
 
     cases: int = 0
     content_chunks: int = 0
@@ -68,6 +74,8 @@ class BuildReport:
     vocab_seconds: float = 0.0
     embed_seconds: float = 0.0
     freeze_seconds: float = 0.0
+    tune_seconds: float = 0.0
+    tune_probe_seconds: float = 0.0
 
 
 @dataclass
@@ -91,12 +99,9 @@ def build_indexes(
     """Build all frozen search artifacts from the document store, on
     ``device`` (default ``"cuda"``). With no ``embedder``, a WordPiece
     vocab is trained on the corpus and the encoder comes from
-    ``config.vector.model`` (its checkpoint, else a seeded init)."""
-    if tune_recall:
-        raise NotImplementedError(
-            "tune_recall needs the case-level tuner of index/tuning.py, which a later "
-            "slice ports; call vector.ann.tune_nprobe on the built index instead"
-        )
+    ``config.vector.model`` (its checkpoint, else a seeded init). With
+    ``tune_recall``, the ANN's nprobe is tuned to that case-level
+    recall@10 (:func:`_tune_nprobe`)."""
     if pretrain_steps > 0:
         raise NotImplementedError("encoder pretraining comes with the training slice")
     if embedder is None and config.vector.pooling != "mean":
@@ -137,12 +142,42 @@ def build_indexes(
     trie.freeze()
     vector.freeze()
     report.freeze_seconds = time.perf_counter() - t
+    if tune_recall and vector.ann.num_vectors >= 100 and vector.vectors is not None:
+        t = time.perf_counter()
+        _tune_nprobe(storage, config, tp, vector, tune_recall, report)
+        report.tune_seconds = time.perf_counter() - t
     report.seconds = time.perf_counter() - t0
     _log.info(
         "built indexes: %d cases, %d chunks, %d citations in %.2fs",
         report.cases, report.content_chunks, report.citations, report.seconds,
     )
     return BuiltIndexes(trie=trie, vector=vector, columns=columns, report=report)
+
+
+def _tune_nprobe(storage, config, tp, vector, tune_recall, report) -> None:
+    """The built ANN's nprobe, tuned by the case-level recall@10 of
+    query-shaped probes embedded by the serving encoder (the worst probe
+    held to ``vector.hnsw.tune_min_recall`` when it is above 0); by the
+    row-level ``tune_nprobe`` on 64 sampled rows when the corpus yields no
+    probe. Kept in ``vector.ann.tuned_nprobe``."""
+    from .tuning import build_probe_embeddings, tune_nprobe_case_recall
+
+    t = time.perf_counter()
+    probes = build_probe_embeddings(storage, tp, vector.generate_embeddings)
+    report.tune_probe_seconds = time.perf_counter() - t
+    if probes is not None and len(vector.refs):
+        mn = config.vector.hnsw.tune_min_recall
+        nprobe = tune_nprobe_case_recall(
+            vector.ann, np.asarray(vector.refs)[:, 0], vector.vectors, probes, k=10,
+            target_recall=tune_recall, min_recall=mn if mn > 0 else None,
+        )
+        _log.info("tuned nprobe=%d for case recall>=%.2f", nprobe, tune_recall)
+    else:
+        rng = np.random.default_rng(0)
+        n = vector.ann.num_vectors
+        sample = vector.vectors[rng.choice(n, min(64, n), replace=False)]
+        nprobe = vector.ann.tune_nprobe(sample, k=10, target_recall=tune_recall)
+        _log.info("tuned nprobe=%d for recall>=%.2f", nprobe, tune_recall)
 
 
 def _index_case(trie, vector, tp, report, row, meta, text, max_chunks_per_case) -> None:
