@@ -74,7 +74,22 @@ What it does, in order (any failure exits non-zero before the last line):
    rescore within 1e-5), and the pick must follow from the sweep's own
    steps. Prints the two tuners' picks side by side, the case recall@10
    and the row-level recall@10 at each, the oracle's seconds and every
-   sweep step's nprobe, route, recall and seconds. The index is freed
+   sweep step's nprobe, route, recall and seconds.
+5b. S1, the streaming ANN build at the same size: after a check of the
+   free disk (the 8 GB input and the ~8.6 GB of emit files), phase 5's
+   host rows written to a ``.npy`` file and memmapped, then
+   ``PartitionedANN.build_streaming`` from phase 5's centroids in
+   262,144-row slabs into a memmap emit directory, host-deferred (the
+   anonymous RSS sampled above its level before the build, beside phase
+   5's in-memory build's). The first search promotes the arrays to the
+   card (counts reset just before, read just after: path ``stream_ann``);
+   ``part_rows``, ``part_int8``, ``part_scale``, the centroids and the
+   5,242,880 rescore rows must be bitwise phase 5's (its rescore segments
+   split the rows otherwise), and the search phase 5's results; every probe
+   and rescore call is held against its plain version. ``save_dir`` must
+   adopt the emit directory by a rename (the files keep their inodes);
+   ``load_dir`` of it serves the same. Prints each pass's seconds, the RSS
+   peak, the promotion and ``save_dir`` seconds. Both indexes are freed
    after.
 6. Build, pipeline end to end: a sqlite store of 32,768 cases with the
    fixture's texts (131,072 chunks), ``build_indexes(storage, cfg,
@@ -85,6 +100,24 @@ What it does, in order (any failure exits non-zero before the last line):
    in-memory indexes returns, name queries led by a case-name or exact
    hit. Prints each stage's time (vocab, text processing and trie inserts,
    embedding in chunks/s, trie freeze, ANN build, save, load).
+6a. S2, the operator's streaming build over that store, killed and
+   resumed: phase 6's saved encoder copied into a new vector directory (no
+   pretraining runs), ``cli build-index --streaming`` as a subprocess
+   (8,192-chunk shards, so 16; content spill and ``tune_on_build`` on)
+   SIGKILLed once its manifest records 6 shards, then
+   ``StreamingIndexBuilder(...).build(resume=True)`` in this process
+   (counts reset just before, read just after: path ``stream_build``;
+   every probe and rescore call of its tuner held against the plain
+   versions, the pick checked against the steps). It must resume past row
+   0 and embed only the chunks after the watermark; its three tries (the
+   content trie spill-built) must be bitwise phase 6's, its refs equal and
+   its vectors within 1e-5. Over the loaded artifacts: the tuner's probes
+   through ``SearchEngine`` at B=64 against the exact case-level oracle;
+   ``evaluate_engine`` and ``evaluate_stages`` (path ``eval``, every call
+   held); ``eval-retrieval --control`` as subprocesses over phase 6's and
+   the streamed artifacts. Prints chunks/s, shards, the spill's run sort,
+   merge and CSR seconds, the store fill, ANN and tune seconds, peak RSS
+   and anonymous RSS, and the seconds from the kill to the resume.
 6b. I, ingest → tuned build → serve, as an operator runs it: 8,192 fixture
    cases (phase 6's generator) under new ids, 64 planted cases that fail
    validation (a short text, a future date) and 64 exact copies of cases
@@ -161,11 +194,12 @@ What it does, in order (any failure exits non-zero before the last line):
    /search, 64 new cases stored, ``POST /admin/reindex?mode=incremental``
    until /stats counts them, a new case found by name, ``quality.json``
    beside the vectors, SIGINT: exit 0 with "shutting down" in its log
-   (``chiprun_out/h2_serve.log``). Then, from an empty store with
-   ``[vector] pooling = "mean"``: ``ingest --source mock`` (3 cases
-   processed), the same again (3 skipped), ``build-index --tune-recall
-   0.95`` (the tuner skipped at 3 cases) and ``search "miranda v.
-   arizona"`` (Miranda first). Each step's seconds.
+   (``chiprun_out/h2_serve.log``). Then, from an empty store with the
+   default ``[vector] pooling = "auto"``: ``ingest --source mock`` (3
+   cases processed), the same again (3 skipped), ``build-index
+   --tune-recall 0.95`` (the pooling pick from its log; the tuner skipped
+   at 3 cases) and ``search "miranda v. arizona"`` (Miranda first). Each
+   step's seconds.
 
 The line before the last is a JSON object with one entry per kernel:
 ``launches`` counts the kernel on the path that reaches it (the
@@ -173,10 +207,12 @@ The line before the last is a JSON object with one entry per kernel:
 the int8 top-k (at D=48 for its dp4a variant), ``fused_scan_topk`` at T=17 for the fused scan's dp4a
 variant, which the serving paths must not launch) and ``launches_by_path``
 on each path (``build``: phase 5's recall search; ``case_tuner``: phase
-5's case-level tuner; ``tune``: phase 6b's tuned build; ``http``: phase
-10). Each kernel's ``max_abs_err`` is the largest difference from its
-plain version over the kernel phase and every call held on the ``build``,
-``case_tuner`` and ``tune`` paths. The last line is
+5's case-level tuner; ``stream_ann``: S1's first search; ``stream_build``:
+S2's resumed build; ``eval``: S2's evaluation; ``tune``: phase 6b's tuned
+build; ``http``: phase 10). Each kernel's ``max_abs_err`` is the largest
+difference from its plain version over the kernel phase and every call
+held on the ``build``, ``case_tuner``, ``stream_ann``, ``stream_build``,
+``eval`` and ``tune`` paths. The last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 
@@ -186,6 +222,8 @@ the engine: about a minute, for iterating on a kernel. Its serving kernels
 print ``"launches": null``. ``--only int8-ablations`` builds the ablation
 variants of the int8 top-k's wgmma kernel (``TSS_INT8_TOPK_ABLATE``) and
 prints the device time of each at B=256, k=32 over the corpus of phase 3.
+``--only stream`` runs phases 1, 2, 5, 5b, 6 and 6a: the builds and their
+kernel checks, with no kernel timing, serving, store or engine.
 """
 
 from __future__ import annotations
@@ -1274,7 +1312,7 @@ def check_pick(steps: list[dict], pick: int, target: float, floor: float | None)
     return rule
 
 
-def ann_build_phase(torch, np, seed: int, work: Path) -> tuple[dict, dict, dict]:
+def ann_build_phase(torch, np, seed: int, work: Path) -> tuple[dict, dict, dict, dict]:
     """Phase A, the ANN build at the served size: the 5,242,880 corpus rows
     of :func:`corpus_slabs` (drawn on the card from ``seed``, in generation
     order, copied to the host) through ``PartitionedANN(AnnConfig(),
@@ -1285,9 +1323,10 @@ def ann_build_phase(torch, np, seed: int, work: Path) -> tuple[dict, dict, dict]
     under P at which the probe and rescore kernels reach tie-aware
     recall@10 >= 0.95 against ``search_brute`` on fresh queries, and that
     ``save_dir`` / ``load_dir`` serve bitwise the same; then the
-    case-level tuner on the same index (:func:`case_tuner_check`). Returns
-    the details, the launch counts of that recall search and those of the
-    case-level tuner."""
+    case-level tuner on the same index (:func:`case_tuner_check`), and
+    phase S1 over the same rows (:func:`stream_ann_phase`). Returns the
+    details, the launch counts of that recall search, those of the
+    case-level tuner and those of S1's first search."""
     from trie_semantic_search_tpu_torch.core.config import AnnConfig
     from trie_semantic_search_tpu_torch.index import kmeans as km
     from trie_semantic_search_tpu_torch.index.ann import PartitionedANN
@@ -1306,11 +1345,12 @@ def ann_build_phase(torch, np, seed: int, work: Path) -> tuple[dict, dict, dict]
 
     ann = PartitionedANN(AnnConfig(), device=dev)
     t0 = time.perf_counter()
-    with logged_records("tss_torch.ann") as records:
+    with logged_records("tss_torch.ann") as records, anon_rss_peak() as rss:
         ann.build(host, seed)
     torch.cuda.synchronize()
     out["build_s"] = time.perf_counter() - t0
     out["stages_s"] = dict(ann.build_seconds)
+    out["rss"] = rss
     moved = [r.args[0] for r in records if r.msg.startswith("partition overflow")]
     out["overflow_rows"] = moved[0] if moved else 0
     out["replica_rows"] = int((ann.part_rows >= 0).sum()) - N
@@ -1318,7 +1358,8 @@ def ann_build_phase(torch, np, seed: int, work: Path) -> tuple[dict, dict, dict]
     out["partitions"], out["capacity"], out["bytes"] = P, m, ann.get_stats().nbytes_total
     if P != P_PARTS:
         raise AssertionError(f"_auto_partitions gave P={P}, expected {P_PARTS}")
-    log(f"  build {out['build_s']:.1f} s: " + ", ".join(f"{k} {v:.2f} s" for k, v in out["stages_s"].items()))
+    log(f"  build {out['build_s']:.1f} s: " + ", ".join(f"{k} {v:.2f} s" for k, v in out["stages_s"].items())
+        + "; " + rss_line(rss))
     log(f"  P={P} m={m}; {out['overflow_rows']} rows moved by the overflow rebalance, "
         f"{out['replica_rows']} pad replicas; index {out['bytes'] / 2**30:.2f} GiB on the card")
 
@@ -1438,9 +1479,13 @@ def ann_build_phase(torch, np, seed: int, work: Path) -> tuple[dict, dict, dict]
     # the case-level tuner on the same index (counts reset just before,
     # read just after: the path ``case_tuner``)
     out["case_tuner"], tuner_launches = case_tuner_check(torch, np, sk, ann, host, seed, q, thresh)
+    log(f"phase: S1, build_streaming of the same {N} rows from the same centroids into a memmap "
+        "emit directory (counts reset just before the first search, read just after)")
+    out["stream_ann"], stream_launches = stream_ann_phase(
+        torch, np, sk, ann, host, nprobe, q, gv, gi, work, out["save_dir_s"])
     del ann, host
     torch.cuda.empty_cache()
-    return out, launches, tuner_launches
+    return out, launches, tuner_launches, stream_launches
 
 
 #: phase A's case-level tuner: query-shaped probes, the target and floor
@@ -1522,6 +1567,189 @@ def case_tuner_check(torch, np, sk, ann, host, seed: int, q, thresh) -> tuple[di
     return out, launches
 
 
+@contextlib.contextmanager
+def anon_rss_peak(period: float = 0.5):
+    """While open, a thread samples this process's anonymous RSS
+    (``SystemUtils.anon_memory_usage``: ``RssAnon``, else the
+    ``Anonymous`` lines of ``smaps_rollup`` or ``smaps``, named in
+    ``source``; None where the kernel gives neither) and its whole RSS
+    (``rss_*``, file pages included) every ``period`` seconds; the dict it
+    yields holds the levels when it opened (``base``) and the highest
+    samples (``peak``)."""
+    import threading
+
+    from trie_semantic_search_tpu_torch.utils import SystemUtils
+
+    def source() -> str:
+        with open("/proc/self/status") as f:
+            if "RssAnon:" in f.read():
+                return "RssAnon"
+        for name in ("smaps_rollup", "smaps"):
+            try:
+                with open(f"/proc/self/{name}") as f:
+                    if any(line.startswith("Anonymous:") for line in f):
+                        return f"{name} Anonymous"
+            except OSError:
+                continue
+        return "not measured: this kernel reports no anonymous RSS"
+
+    anon = SystemUtils.anon_memory_usage() or 0
+    rss = SystemUtils.memory_usage() or 0
+    rec = {"base": anon, "peak": anon, "rss_base": rss, "rss_peak": rss, "source": source()}
+    stop = threading.Event()
+
+    def sample() -> None:
+        while not stop.wait(period):
+            rec["peak"] = max(rec["peak"], SystemUtils.anon_memory_usage() or 0)
+            rec["rss_peak"] = max(rec["rss_peak"], SystemUtils.memory_usage() or 0)
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield rec
+    finally:
+        stop.set()
+        t.join()
+        rec["peak"] = max(rec["peak"], SystemUtils.anon_memory_usage() or 0)
+        rec["rss_peak"] = max(rec["rss_peak"], SystemUtils.memory_usage() or 0)
+
+
+def rss_line(rss: dict) -> str:
+    """The anonymous and whole RSS peaks above their levels before, for
+    the log."""
+    return (f"anonymous RSS ({rss['source']}) peak {(rss['peak'] - rss['base']) / 2**30:.2f} GiB above "
+            f"the {rss['base'] / 2**30:.2f} GiB before; whole RSS (file pages included) peak "
+            f"{(rss['rss_peak'] - rss['rss_base']) / 2**30:.2f} GiB above the "
+            f"{rss['rss_base'] / 2**30:.2f} GiB before")
+
+
+def rows_equal(torch, a_segs, b_segs, n: int, step: int = 1 << 20) -> bool:
+    """Whether two bf16 rescore stores hold the same bits in their first
+    ``n`` rows, whatever their segment boundaries."""
+
+    def rows(segs, lo, hi):
+        out, base = [], 0
+        for s in segs:
+            s_lo, s_hi = max(lo, base), min(hi, base + s.shape[0])
+            if s_lo < s_hi:
+                out.append(s[s_lo - base : s_hi - base])
+            base += s.shape[0]
+        return torch.cat(out).view(torch.int16)
+
+    return all(torch.equal(rows(a_segs, lo, min(lo + step, n)), rows(b_segs, lo, min(lo + step, n)))
+               for lo in range(0, n, step))
+
+
+#: phase S1: input rows per slab of the streaming ANN build
+S1_SLAB_ROWS = 262_144
+
+
+def stream_ann_phase(torch, np, sk, ann, host, nprobe: int, q, gv, gi, work: Path,
+                     save_dir_s: float) -> tuple[dict, dict]:
+    """Phase S1, the ANN streaming build at full size: phase A's host rows
+    written to ``<work>/s1/vectors.npy`` and memmapped, then
+    ``PartitionedANN.build_streaming`` from phase A's centroids with
+    ``S1_SLAB_ROWS``-row slabs into a memmap emit directory, host-deferred.
+    Checks the free disk first (the input and the emit files). The
+    anonymous RSS is sampled above its level before the build. The first
+    search promotes the arrays to the card (launch counts reset just
+    before, read just after: path ``stream_ann``); the promoted
+    ``part_rows``, ``part_int8``, ``part_scale`` and rescore rows must be
+    bitwise phase A's ``build`` arrays, and the search phase A's results;
+    every probe and rescore call is held against its plain version.
+    ``save_dir`` must adopt the emit directory by a rename (the array
+    files keep their inodes), and ``load_dir`` of it must serve the same.
+    Returns the details and the launch counts."""
+    from trie_semantic_search_tpu_torch.core.config import AnnConfig
+    from trie_semantic_search_tpu_torch.index.ann import PartitionedANN
+
+    dev = torch.device("cuda")
+    root = work / "s1"
+    root.mkdir()
+    P, m = (int(x) for x in ann.part_rows.shape)
+    N, D = host.shape
+    emit_bytes = P * m * (D + 8) + 2 * N * D
+    need = host.nbytes + emit_bytes + (1 << 30)
+    free = shutil.disk_usage(root).free
+    log(f"  free disk {free / 2**30:.1f} GiB, needed {need / 2**30:.1f} GiB (input "
+        f"{host.nbytes / 2**30:.1f}, emit files {emit_bytes / 2**30:.1f}, 1 GiB spare)")
+    if free < need:
+        raise AssertionError(f"phase S1 needs {need} bytes of free disk under {root}, has {free}")
+    out: dict = {"free_disk_bytes": free}
+    t0 = time.perf_counter()
+    np.save(root / "vectors.npy", host)
+    out["write_input_s"] = time.perf_counter() - t0
+    mm = np.load(root / "vectors.npy", mmap_mode="r")
+    cents = ann.centroids.cpu().numpy()
+    s1 = PartitionedANN(AnnConfig(), device=dev)
+    t0 = time.perf_counter()
+    with anon_rss_peak() as rss:
+        s1.build_streaming(mm, reuse_centroids=cents, slab_rows=S1_SLAB_ROWS,
+                           emit_dir=root / "ann.mmap.emit", device_resident=False)
+    out["build_s"] = time.perf_counter() - t0
+    out["stages_s"] = dict(s1.build_seconds)
+    out["rss"] = rss
+    if not s1._host_deferred or isinstance(s1.part_int8, torch.Tensor):
+        raise AssertionError("build_streaming(device_resident=False) left tensors on the card")
+    log(f"  input written in {out['write_input_s']:.1f} s; build_streaming {out['build_s']:.1f} s: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in out["stages_s"].items())
+        + "; " + rss_line(rss))
+
+    # the first search promotes the arrays (counts reset just before)
+    with kept_calls(sk, ("probe_candidates_cuda", "gather_rescore_cuda")) as calls:
+        sk.reset_launch_counts()
+        sv, si = s1.search(q, 10, nprobe=nprobe)
+        torch.cuda.synchronize()
+        launches = dict(sk.LAUNCHES)
+    out["promote_s"] = s1.promote_seconds
+    if launches["probe_candidates"] <= 0 or launches["gather_rescore"] <= 0:
+        raise AssertionError(f"the streamed index's search did not run the probe and rescore kernels: "
+                             f"{launches}")
+    same = {
+        "part_rows": torch.equal(s1.part_rows, ann.part_rows),
+        "part_int8": torch.equal(s1.part_int8, ann.part_int8),
+        "part_scale": torch.equal(s1.part_scale.view(torch.int32), ann.part_scale.view(torch.int32)),
+        "centroids": torch.equal(s1.centroids, ann.centroids),
+        "rescore_rows": rows_equal(torch, s1.corpus_bf16, ann.corpus_bf16, N),
+    }
+    out["bitwise"] = same
+    out["segments"] = [[int(s.shape[0]) for s in a.corpus_bf16] for a in (ann, s1)]
+    if not all(same.values()) or s1._replicated != ann._replicated:
+        raise AssertionError(f"the streamed layout differs from phase A's build: {same}")
+    if not (np.array_equal(sv.view(np.int32), gv.view(np.int32)) and np.array_equal(si, gi)):
+        raise AssertionError("the streamed index serves other results than phase A's build")
+    out["plain_err"] = hold_against_plain(torch, sk, calls)
+    log(f"  first search promoted the arrays in {out['promote_s']:.1f} s; part_rows, part_int8, "
+        f"part_scale, centroids and the {N} rescore rows bitwise phase A's build (rescore segments "
+        f"{out['segments'][0]} vs {out['segments'][1]} rows); its results at nprobe {nprobe} bitwise "
+        f"phase A's; launches on the stream_ann path {launches}; {held_summary(calls)} against the "
+        f"plain versions: probe bitwise, rescore within {out['plain_err']['gather_rescore']:.3g}")
+    del calls
+
+    emit = root / "ann.mmap.emit"
+    inodes = {f.name: f.stat().st_ino for f in emit.iterdir()}
+    t0 = time.perf_counter()
+    s1.save_dir(root / "ann.mmap")
+    out["save_dir_s"] = time.perf_counter() - t0
+    adopted = {f.name: f.stat().st_ino for f in (root / "ann.mmap").iterdir()}
+    if emit.exists() or any(adopted.get(k) != v for k, v in inodes.items()):
+        raise AssertionError("save_dir rewrote the emit files instead of adopting the directory")
+    t0 = time.perf_counter()
+    back = PartitionedANN.load_dir(root / "ann.mmap", device=dev)
+    torch.cuda.synchronize()
+    out["load_dir_s"] = time.perf_counter() - t0
+    bv, bi = back.search(q, 10, nprobe=nprobe)
+    if not (np.array_equal(bv.view(np.int32), sv.view(np.int32)) and np.array_equal(bi, si)):
+        raise AssertionError("the adopted directory serves other results after load_dir")
+    log(f"  save_dir adopted the emit directory by a rename in {out['save_dir_s']:.2f} s (phase A's "
+        f"save_dir of the same arrays: {save_dir_s:.2f} s); load_dir {out['load_dir_s']:.1f} s serves "
+        "the same results")
+    del back, s1, mm
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 #: phase B: cases in the store the pipeline builds from, and of them named
 PIPE_CASES, PIPE_NAMES = 32_768, 4096
 
@@ -1598,6 +1826,227 @@ def pipeline_phase(torch, np, seed: int, work: Path) -> dict:
     del in_memory, from_disk, loaded, built
     torch.cuda.empty_cache()
     return out
+
+
+#: phase S2: shards in the killed build's manifest before the SIGKILL; the
+#: vectors' tolerance against phase B's (the port's tests hold a streamed
+#: build's vectors against a one-shot build's within it)
+S2_KILL_SHARDS, S2_VECTOR_TOL = 6, 1e-5
+
+
+def stream_build_phase(torch, np, sk, work: Path, out_dir: Path) -> tuple[dict, dict, dict]:
+    """Phase S2, the operator's streaming build over phase B's store, killed
+    and resumed. Phase B's saved encoder is copied into a new vector
+    directory (so nothing is pretrained); ``cli build-index --streaming``
+    runs as a subprocess (shards of 8,192 chunks, content spill on,
+    ``tune_on_build`` on) and gets SIGKILL once its manifest records
+    ``S2_KILL_SHARDS`` shards; ``StreamingIndexBuilder(...).build(resume=
+    True)`` then finishes it in this process (launch counts reset just
+    before, read just after: path ``stream_build``; every probe and rescore
+    call of its tuner held against the plain versions, the pick checked
+    against the sweep's steps). Checks: it resumed past row 0 and embedded
+    only the chunks after the watermark; the three tries (the content trie
+    spill-built) are bitwise phase B's, the refs equal, the vectors within
+    ``S2_VECTOR_TOL``. Over the loaded artifacts: the tuner's probes
+    through ``SearchEngine`` at B=64 against the exact case-level oracle;
+    ``evaluate_engine`` and ``evaluate_stages`` in this process (path
+    ``eval``, every call held); ``eval-retrieval --control`` as
+    subprocesses over phase B's and the streamed artifacts. Returns the
+    details and the launch counts of both paths."""
+    import concurrent.futures
+    import signal
+
+    from trie_semantic_search_tpu_torch.core.config import Config
+    from trie_semantic_search_tpu_torch.core.types import SearchConfig
+    from trie_semantic_search_tpu_torch.index import tuning
+    from trie_semantic_search_tpu_torch.index.builder import load_artifacts
+    from trie_semantic_search_tpu_torch.index.streaming import StreamingIndexBuilder, _Manifest
+    from trie_semantic_search_tpu_torch.index.trie import TrieIndex
+    from trie_semantic_search_tpu_torch.models import quality
+    from trie_semantic_search_tpu_torch.search.engine import SearchEngine, SearchQuery
+    from trie_semantic_search_tpu_torch.storage.store import StorageManager
+
+    root = work / "s2"
+    (root / "vec").mkdir(parents=True)
+    shutil.copy(work / "vec" / "tokenizer.json", root / "vec" / "tokenizer.json")
+    shutil.copytree(work / "vec" / "encoder", root / "vec" / "encoder")
+    cfg = Config()
+    cfg.storage.db_path = str(work / "pipeline.sqlite")
+    cfg.trie.index_path = str(root / "trie")
+    cfg.vector.hnsw.index_path = str(root / "vec")
+    toml = root / "config.toml"
+    cfg.save_to_file(toml)
+    wd = root / "work"
+    out: dict = {}
+
+    t0 = time.perf_counter()
+    log_path = root / "build.log"
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "trie_semantic_search_tpu_torch.cli", "-c", str(toml), "build-index",
+             "--streaming", "--work-dir", str(wd)], cwd=HERE, stdout=logf, stderr=subprocess.STDOUT)
+    try:
+        while len(_Manifest.load(wd / "manifest.json").shards) < S2_KILL_SHARDS:
+            if proc.poll() is not None:
+                raise AssertionError(f"build-index --streaming exited {proc.returncode} before "
+                                     f"{S2_KILL_SHARDS} shards: {log_path.read_text()[-3000:]}")
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError(f"no {S2_KILL_SHARDS} shards within 600 s")
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait()
+        t_kill = time.perf_counter()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.copy(log_path, out_dir / "s2_build.log")
+    at_kill = _Manifest.load(wd / "manifest.json")
+    out.update(killed_after_s=t_kill - t0, returncode=proc.returncode, kill_shards=len(at_kill.shards),
+               kill_row=at_kill.next_row, kill_chunks=at_kill.chunks)
+    log(f"  build-index --streaming SIGKILLed {out['killed_after_s']:.1f} s after its start (exit "
+        f"{proc.returncode}); the manifest records {len(at_kill.shards)} shards, watermark row "
+        f"{at_kill.next_row}, {at_kill.chunks} chunks; checkpoint {at_kill.trie_ckpt}")
+
+    storage = StorageManager(cfg.storage)
+    sb = StreamingIndexBuilder(storage, cfg, work_dir=wd, device="cuda")
+    embedded: list[int] = []
+    write = sb._write_shard
+
+    def counted(manifest, texts, refs):
+        embedded.append(len(texts))
+        write(manifest, texts, refs)
+
+    sb._write_shard = counted
+    with (logged_records("tss_torch.index.tuning") as records,
+          kept_calls(sk, ("probe_candidates_cuda", "gather_rescore_cuda")) as calls):
+        sk.reset_launch_counts()
+        t_resume = time.perf_counter()
+        built = sb.build(resume=True)
+        torch.cuda.synchronize()
+        launches = dict(sk.LAUNCHES)
+    out["kill_to_resume_s"] = t_resume - t_kill
+    out["resume_s"] = time.perf_counter() - t_resume
+    r, ann = built.report, built.vector.ann
+    out.update(cases=r.cases, chunks=r.content_chunks, shards=r.shards,
+               resumed_from_row=r.resumed_from_row, embedded_chunks=r.embedded_chunks,
+               chunks_per_s=r.chunks_per_second, embed_s=r.embed_seconds, finalize_s=r.finalize_seconds,
+               peak_rss_bytes=r.peak_rss_bytes, peak_anon_rss_bytes=r.peak_anon_rss_bytes,
+               partitions=int(ann.part_rows.shape[0]), capacity=int(ann.part_rows.shape[1]),
+               nprobe=ann.tuned_nprobe, launches=launches)
+    if not (0 < r.resumed_from_row == at_kill.next_row and r.cases == PIPE_CASES
+            and r.content_chunks == CHUNKS_PER_CASE * PIPE_CASES
+            and sum(embedded) == r.embedded_chunks == r.content_chunks - at_kill.chunks):
+        raise AssertionError(f"resume: from row {r.resumed_from_row} (watermark {at_kill.next_row}), "
+                             f"{r.cases} cases, {r.content_chunks} chunks, embedded {sum(embedded)} "
+                             f"({r.embedded_chunks} reported; {at_kill.chunks} before the kill)")
+    fin = r.finalize_seconds
+    log(f"  resumed {out['kill_to_resume_s']:.1f} s after the kill from row {r.resumed_from_row}: "
+        f"{r.cases} cases, {r.content_chunks} chunks in {r.shards} shards, embedded only the "
+        f"{r.embedded_chunks} chunks after the watermark ({r.chunks_per_second:.0f} chunks/s, embed "
+        f"{r.embed_seconds:.1f} s); build {out['resume_s']:.1f} s, of which the finalize: spill run sort "
+        f"{fin['run_sort']:.2f} s, merge {fin['merge']:.2f} s, CSR {fin['csr']:.2f} s; store fill "
+        f"{fin['store_fill']:.2f} s; ANN {fin['ann']:.2f} s (P={out['partitions']} m={out['capacity']}); "
+        f"tune {fin.get('tune', 0.0):.2f} s; peak RSS {r.peak_rss_bytes / 2**30:.2f} GiB, anonymous "
+        + (f"{r.peak_anon_rss_bytes / 2**30:.2f} GiB" if r.peak_anon_rss_bytes else "not measured"))
+    oracle_s, steps, settled = tuner_steps(records)
+    out.update(sweep=steps, settled=settled, tune_oracle_s=oracle_s,
+               rule=check_pick(steps, ann.tuned_nprobe, 0.95, cfg.vector.hnsw.tune_min_recall or None))
+    if launches["probe_candidates"] <= 0 or launches["gather_rescore"] <= 0:
+        raise AssertionError(f"the resumed build's tuner did not run the probe and rescore kernels: "
+                             f"{launches}")
+    out["plain_err"] = hold_against_plain(torch, sk, calls)
+    log(f"  tuned nprobe {ann.tuned_nprobe} in {len(steps)} steps ({out['rule']}); launches on the "
+        f"stream_build path {launches}; the tuner's {held_summary(calls)} against the plain "
+        f"versions: probe bitwise, rescore within {out['plain_err']['gather_rescore']:.3g}")
+    del calls
+
+    ref = TrieIndex.load_from_disk(work / "trie", cfg.trie, device="cpu")
+    for name in ("name_trie", "content_trie", "citation_trie"):
+        a, b = getattr(built.trie, name), getattr(ref, name)
+        if a.vocab != b.vocab or not all(np.array_equal(getattr(a, f), getattr(b, f))
+                                         for f in a._ARRAY_FIELDS):
+            raise AssertionError(f"the streamed {name} differs from phase B's")
+    with np.load(work / "vec" / "refs.npz") as z:
+        if not np.array_equal(np.asarray(built.vector.refs), z["refs"]):
+            raise AssertionError("the streamed refs differ from phase B's")
+    vb, va, step = np.load(work / "vec" / "vectors.npy", mmap_mode="r"), built.vector.vectors, 1 << 16
+    if va.shape != vb.shape:
+        raise AssertionError(f"the streamed vectors are {va.shape}, phase B's {vb.shape}")
+    out["vector_max_diff"] = max(float(np.abs(va[lo : lo + step] - vb[lo : lo + step]).max())
+                                 for lo in range(0, len(vb), step))
+    if not out["vector_max_diff"] <= S2_VECTOR_TOL:
+        raise AssertionError(f"the streamed vectors differ from phase B's by {out['vector_max_diff']}")
+    log(f"  name, content (spill-built) and citation tries bitwise phase B's, refs equal, vectors "
+        f"within {out['vector_max_diff']:.3g} of phase B's (tolerance {S2_VECTOR_TOL})")
+
+    t0 = time.perf_counter()
+    trie, vector, columns = load_artifacts(cfg, device="cuda")
+    engine = SearchEngine(cfg, storage, trie, vector, columns, device="cuda")
+    out["load_s"] = time.perf_counter() - t0
+    texts, embs = tuner_probes(storage, cfg, vector)
+    chunk_case = np.asarray(vector.refs)[:, 0]
+    oracle = tuning.case_level_oracle(vector.vectors, chunk_case, embs, 10)
+    res = engine.search_batch([SearchQuery(query=t, config=SearchConfig(min_similarity=-1.0)) for t in texts])
+    row_of = columns.row_of_case
+    eng = [len({row_of[x.case_metadata.id] for x in rs} & set(o)) / len(o) for rs, o in zip(res, oracle)]
+    at_pick = next(st for st in steps if st["nprobe"] == ann.tuned_nprobe)
+    out.update(probes=len(texts), engine_overlap_mean=float(np.mean(eng)),
+               engine_overlap_min=float(np.min(eng)), ann_recall_mean=at_pick["mean"],
+               ann_recall_min=at_pick["min"])
+    log(f"  load_artifacts {out['load_s']:.1f} s; the tuner's {len(texts)} probes through "
+        f"SearchEngine.search_batch at B={len(texts)}: top 10 cases vs the exact case-level oracle, "
+        f"overlap mean {out['engine_overlap_mean']:.4f} min {out['engine_overlap_min']:.4f} (the ANN "
+        f"alone at nprobe {ann.tuned_nprobe}: mean {at_pick['mean']:.4f} min {at_pick['min']:.4f})")
+
+    tp = engine._text_processor
+    docs = []
+    for row, _meta, text in storage.iter_cases_rowid():
+        if len(docs) >= 2000:
+            break
+        if text:
+            docs.append((row, tp.extract_sentences(tp.normalize_text(text))))
+    probes = quality.build_probes(docs, max_probes=256)
+    with kept_calls(sk, ("probe_candidates_cuda", "gather_rescore_cuda")) as calls:
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        trained = quality.evaluate_engine(engine, columns, probes)
+        stages = quality.evaluate_stages(engine, columns, probes)
+        torch.cuda.synchronize()
+        eval_launches = dict(sk.LAUNCHES)
+    out["eval"] = dict(seconds=time.perf_counter() - t0, probes=len(probes), trained=trained, stages=stages,
+                       launches=eval_launches)
+    if eval_launches["probe_candidates"] <= 0 or eval_launches["gather_rescore"] <= 0:
+        raise AssertionError(f"the evaluation did not run the probe and rescore kernels: {eval_launches}")
+    out["eval"]["plain_err"] = hold_against_plain(torch, sk, calls)
+    log(f"  evaluate_engine + evaluate_stages of {len(probes)} probes in {out['eval']['seconds']:.1f} s: "
+        f"engine MRR {trained['all']['mrr']}, exact_full {stages['exact_full']['all']['mrr']}, ann_only "
+        f"{stages.get('ann_only', {}).get('all', {}).get('mrr')} at nprobe {stages['tuned_nprobe']}; "
+        f"launches on the eval path {eval_launches}; {held_summary(calls)} against the plain "
+        f"versions: probe bitwise, rescore within {out['eval']['plain_err']['gather_rescore']:.3g}")
+    del calls, engine, trie, vector, columns, built, sb
+    storage.close()
+    torch.cuda.empty_cache()
+
+    bcfg = Config.from_file(toml)
+    bcfg.trie.index_path, bcfg.vector.hnsw.index_path = str(work / "trie"), str(work / "vec")
+    btoml = root / "phase_b.toml"
+    bcfg.save_to_file(btoml)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        jobs = {k: pool.submit(run_cli, ["eval-retrieval", "--control"], t, 600)
+                for k, t in (("phase_b", btoml), ("streamed", toml))}
+        evals = {k: (json.loads(j.result()[0]), j.result()[1]) for k, j in jobs.items()}
+    out["eval_retrieval"] = {k: dict(v, seconds=s) for k, (v, s) in evals.items()}
+    for k, (e, sec) in evals.items():
+        st = e["stages"]
+        log(f"  eval-retrieval --control over the {k} artifacts ({sec:.1f} s, {e['probes']} probes): "
+            f"trained MRR {e['trained']['all']['mrr']} recall@10 {e['trained']['all']['recall_at_10']}; "
+            f"stages exact_full {st['exact_full']['all']['mrr']}, ann_only "
+            f"{st.get('ann_only', {}).get('all', {}).get('mrr')} at tuned nprobe {st['tuned_nprobe']}; "
+            f"trained_direct {e['trained_direct']['all']['mrr']}, random_control "
+            f"{e['random_control']['all']['mrr']}")
+    shutil.rmtree(wd)
+    return out, launches, eval_launches
 
 
 #: phase I: fixture cases fed to ingest by default (each row % 16 == 0 has
@@ -2370,14 +2819,17 @@ def http_phase(torch, np, engine, names, seed: int) -> tuple[dict, dict]:
     return rec, launches
 
 
-def run_cli(args: list[str], toml: Path, timeout: float) -> tuple[str, float]:
+def run_cli(args: list[str], toml: Path, timeout: float, stderr: list | None = None) -> tuple[str, float]:
     """``python3 -m trie_semantic_search_tpu_torch.cli -c toml *args``:
-    its stdout and seconds; fails unless it exits 0."""
+    its stdout and seconds (its stderr, the log, appended to ``stderr``
+    when given); fails unless it exits 0."""
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "trie_semantic_search_tpu_torch.cli", "-c", str(toml),
                           *args], cwd=HERE, capture_output=True, text=True, timeout=timeout)
     if out.returncode != 0:
         raise AssertionError(f"cli {args} exited {out.returncode}: {out.stderr[-3000:]}")
+    if stderr is not None:
+        stderr.append(out.stderr)
     return out.stdout, time.perf_counter() - t0
 
 
@@ -2522,13 +2974,15 @@ def cli_phase(np, seed: int, work: Path, out_dir: Path) -> dict:
 
 
 def cli_fresh_lifecycle(root: Path) -> dict:
-    """H2 from an empty store, as an operator starts: a TOML with ``[vector]
-    pooling = "mean"``, then ``ingest --source mock`` (the 3 landmark cases
-    stored), ``ingest --source mock`` again (all 3 skipped),
-    ``build-index --tune-recall 0.95`` (with 3 cases the tuner is skipped,
-    as in the JAX package) and ``search "miranda v. arizona"`` (Miranda
-    first, a case-name or exact hit), one after another. Each command's
-    seconds and last output line."""
+    """H2 from an empty store, as an operator starts: a TOML with the
+    default ``[vector] pooling = "auto"``, then ``ingest --source mock``
+    (the 3 landmark cases stored), ``ingest --source mock`` again (all 3
+    skipped), ``build-index --tune-recall 0.95`` (the pooling picked on
+    probe merit, its record read from the build's log; with 3 cases the
+    tuner is skipped, as in the JAX package) and ``search "miranda v.
+    arizona"`` (Miranda first, a case-name or exact hit), one after
+    another. Each command's seconds and last output line, and the pooling
+    record."""
     from trie_semantic_search_tpu_torch.core.config import Config
 
     root.mkdir()
@@ -2536,7 +2990,8 @@ def cli_fresh_lifecycle(root: Path) -> dict:
     cfg.storage.db_path = str(root / "db.sqlite")
     cfg.trie.index_path = str(root / "trie")
     cfg.vector.hnsw.index_path = str(root / "vec")
-    cfg.vector.pooling = "mean"
+    if cfg.vector.pooling != "auto":
+        raise AssertionError(f"the default pooling is {cfg.vector.pooling!r}, not 'auto'")
     toml = root / "config.toml"
     cfg.save_to_file(toml)
     steps = {}
@@ -2552,24 +3007,35 @@ def cli_fresh_lifecycle(root: Path) -> dict:
                     and h[0]["match_type"] in ("case_name", "exact"))(json.loads(o))),
     )
     for key, argv, ok in plan:
-        out, sec = run_cli(argv, toml, 600)
+        logs: list[str] = []
+        out, sec = run_cli(argv, toml, 600, stderr=logs)
         if not ok(out):
             raise AssertionError(f"cli {argv} from an empty store: {out[-2000:]}")
         first = json.loads(out)[0] if key == "search" else None
         steps[key] = dict(s=sec, out=out.splitlines()[-1] if first is None else
                           f"{first['case_metadata']['name']} ({first['match_type']})")
         log(f"  fresh store: {key} exit 0 in {sec:.1f} s: {steps[key]['out']}")
+        if key.startswith("build-index"):
+            pick = [ln.split("pooling selection: ", 1)[1] for ln in logs[0].splitlines()
+                    if "pooling selection: " in ln]
+            if not pick:
+                raise AssertionError(f"the build with pooling 'auto' logged no pooling selection: "
+                                     f"{logs[0][-2000:]}")
+            steps["pooling"] = pick[-1]
+            log(f"  fresh store: pooling 'auto' picked {pick[-1]}")
     return steps
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["kernels", "int8-ablations"],
+    ap.add_argument("--only", choices=["kernels", "int8-ablations", "stream"],
                     help="kernels: the device, kernel build, small-reference and kernel phases "
                          "only (no index builds, serving, profile, store or engine); "
                          "int8-ablations: the device time of each ablation build of the int8 "
-                         "top-k's wgmma variant at its timed case")
+                         "top-k's wgmma variant at its timed case; stream: the build phases only "
+                         "(A with S1, B with S2 and the evaluation), with no kernel timing, "
+                         "serving, store or engine")
     ap.add_argument("--ingest-cases", type=int, default=ING_CASES,
                     help="fixture cases phase I ingests (at least 1,024; its time grows with the "
                          "square of the count)")
@@ -2588,9 +3054,11 @@ def main() -> int:
 
     from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
 
-    if args.only:
+    if args.only in ("kernels", "int8-ablations"):
         return run(torch, np, sk, args.seed, "", None, only=args.only)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        if args.only:
+            return run(torch, np, sk, args.seed, str(Path(tmp) / "cases.sqlite"), None, only=args.only)
         db_path = str(Path(tmp) / "cases.sqlite")
         n_cases = P_PARTS * M_SLOTS // CHUNKS_PER_CASE
         store = multiprocessing.get_context("spawn").Process(
@@ -2623,6 +3091,40 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None,
     detail["small_reference_max_score_diff"] = small_reference(torch, np, seed)
     log(f"  agree; max score difference {detail['small_reference_max_score_diff']:.3g}")
 
+    out_dir = Path.cwd() / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    work = Path(db_path).parent
+
+    def note_errs(kernels, *errs) -> None:
+        for err in errs:
+            for k, e in err.items():
+                if k in kernels:
+                    kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], e)
+
+    def build_phases(kernels, paths) -> None:
+        log(f"phase: build: ANN at full size ({P_PARTS * M_SLOTS} rows, D={DIM}; counts reset just "
+            "before the recall search, read just after)")
+        (detail["build_ann"], paths["build"], paths["case_tuner"],
+         paths["stream_ann"]) = ann_build_phase(torch, np, seed, work)
+        note_errs(kernels, detail["build_ann"]["plain_err"], detail["build_ann"]["case_tuner"]["plain_err"],
+                  detail["build_ann"]["stream_ann"]["plain_err"])
+        log("phase: build: pipeline end to end (build_indexes -> save_artifacts -> load_artifacts "
+            "-> SearchEngine)")
+        detail["build_pipeline"] = pipeline_phase(torch, np, seed, work)
+        log(f"phase: S2, build-index --streaming over phase B's store ({PIPE_CASES} cases), SIGKILLed "
+            f"at {S2_KILL_SHARDS} shards and resumed in this process (counts reset just before the "
+            "resume and before the evaluation, read just after each)")
+        t0 = time.perf_counter()
+        detail["stream_build"], paths["stream_build"], paths["eval"] = stream_build_phase(
+            torch, np, sk, work, out_dir)
+        detail["stream_build"]["seconds"] = time.perf_counter() - t0
+        note_errs(kernels, detail["stream_build"]["plain_err"], detail["stream_build"]["eval"]["plain_err"])
+        log(f"  {card}: phase S2 {detail['stream_build']['seconds']:.1f} s")
+
+    if only == "stream":
+        paths: dict = {}
+        build_phases({}, paths)
+        return finish(torch, detail, {}, paths, out_dir, card, t_start)
     log(f"phase: build state on the card (P={P_PARTS} m={M_SLOTS} D={DIM})")
     t0 = time.perf_counter()
     dev = torch.device("cuda")
@@ -2635,8 +3137,6 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None,
     detail["build_state_s"] = time.perf_counter() - t0
     log(f"  {vi.ann.num_vectors} chunks, mode {fused.ann_mode}, nprobe {vi.ann.default_nprobe}, "
         f"{len(vi.ann.corpus_bf16)} rescore segments, {detail['build_state_s']:.1f} s")
-    out_dir = Path.cwd() / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     if only == "int8-ablations":
         log(f"phase: int8 top-k ablation builds at B=256 k={K} (device ms, two turns)")
         detail["int8_ablations"] = int8_ablation_phase(torch, vi)
@@ -2665,24 +3165,14 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None,
             kernels[k]["launches"] = None
         return finish(torch, detail, kernels, paths, out_dir, card, t_start)
 
-    work = Path(db_path).parent
-    log(f"phase: build: ANN at full size ({P_PARTS * M_SLOTS} rows, D={DIM}; counts reset just "
-        "before the recall search, read just after)")
-    detail["build_ann"], paths["build"], paths["case_tuner"] = ann_build_phase(torch, np, seed, work)
-    for errs in (detail["build_ann"]["plain_err"], detail["build_ann"]["case_tuner"]["plain_err"]):
-        for k, e in errs.items():
-            kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], e)
-    log("phase: build: pipeline end to end (build_indexes -> save_artifacts -> load_artifacts "
-        "-> SearchEngine)")
-    detail["build_pipeline"] = pipeline_phase(torch, np, seed, work)
+    build_phases(kernels, paths)
     log(f"phase: I, ingest -> tuned build -> serve ({ingest_cases} fixture cases and {2 * ING_PLANTED} "
         "planted through ingest_bulk; counts reset just before build_indexes(tune_recall), read "
         "just after)")
     t0 = time.perf_counter()
     detail["ingest"], paths["tune"] = ingest_phase(torch, np, sk, ingest_cases, seed, work)
     detail["ingest"]["seconds"] = time.perf_counter() - t0
-    for k, e in detail["ingest"]["plain_err"].items():
-        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], e)
+    note_errs(kernels, detail["ingest"]["plain_err"])
     log(f"  {card}: phase I {detail['ingest']['seconds']:.1f} s")
 
     log("phase: serve through query_batch (counts reset just before, read just after)")

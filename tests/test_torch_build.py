@@ -33,6 +33,7 @@ from trie_semantic_search_tpu.core.types import SearchConfig as JaxSearchConfig
 from trie_semantic_search_tpu.index import ann as ja
 from trie_semantic_search_tpu.index.builder import build_indexes as jax_build_indexes
 from trie_semantic_search_tpu.index.builder import load_artifacts as jax_load_artifacts
+from trie_semantic_search_tpu.index.builder import save_artifacts as jax_save_artifacts
 from trie_semantic_search_tpu.index.builder import update_indexes as jax_update_indexes
 from trie_semantic_search_tpu.index.vector import VectorIndex as JaxVectorIndex
 from trie_semantic_search_tpu.models.embedder import Embedder as JaxEmbedder
@@ -522,14 +523,63 @@ def test_build_indexes_matches_jax(tmp_path, f32_jax_encoder):
 
 
 def test_build_indexes_refuses_later_slices(tmp_path):
+    """Pretraining comes with the training slice."""
     _, pcfg = _configs(tmp_path, "r")
     store = _write_store(StorageManager, CaseMetadata, pcfg.storage.db_path, _cases(4))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="slice 4"):
         build_indexes(store, pcfg, device="cpu", pretrain_steps=10)
-    pcfg.vector.pooling = "auto"
-    with pytest.raises(NotImplementedError):
-        build_indexes(store, pcfg, device="cpu")
     store.close()
+
+
+@pytest.mark.parametrize("pooling", ["auto", "sif"])
+def test_build_indexes_pooling_selection_matches_jax(tmp_path, f32_jax_encoder, monkeypatch, pooling):
+    """``build_indexes`` with no embedder and ``vector.pooling`` ``"auto"``
+    (the default) or ``"sif"``, the encoder each package makes from the
+    corpus vocab carrying the same parameters: the same pooling pick and
+    SIF weights bitwise, tries, refs and counts equal, vectors within
+    1e-5, and ``token_weights.npy`` saved beside the encoder exactly when
+    the JAX package saves it."""
+    import trie_semantic_search_tpu.index.builder as jbuilder
+    import trie_semantic_search_tpu_torch.index.builder as tbuilder
+
+    cases = _cases(64)
+    jcfg, pcfg = _configs(tmp_path, "p")
+    pcfg.storage.db_path = str(tmp_path / "p_port.sqlite")
+    for c in (jcfg, pcfg):
+        c.vector.pooling = pooling
+    jstore = _write_store(JaxStorage, JaxCaseMetadata, jcfg.storage.db_path, cases)
+    pstore = _write_store(StorageManager, CaseMetadata, pcfg.storage.db_path, cases)
+    mcfg = dict(TINY, vocab_size=8192)
+    params = jm.init_params(jax.random.PRNGKey(3), jm.MiniLMConfig(**mcfg))
+    model = tm.MiniLM(tm.MiniLMConfig(**mcfg), device="cpu").load_params(
+        tm.params_from_jax(jax.tree.map(np.asarray, params)))
+    model.compute_dtype = torch.float32
+    monkeypatch.setattr(jbuilder, "Embedder", lambda cfg, tokenizer: JaxEmbedder(
+        cfg, tokenizer=tokenizer, params=params, model_config=jm.MiniLMConfig(**mcfg)))
+    monkeypatch.setattr(tbuilder, "Embedder", lambda cfg, tokenizer, device: Embedder(
+        cfg, tokenizer=tokenizer, model=model, device=device))
+    jb = jax_build_indexes(jstore, jcfg)
+    pb = build_indexes(pstore, pcfg, device="cpu")
+    jw, tw = jb.vector.embedder.token_weights, pb.vector.embedder.token_weights
+    assert (jw is None) == (tw is None)
+    if pooling == "sif":
+        assert tw is not None
+    if tw is not None:
+        np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    assert (pb.report.cases, pb.report.content_chunks, pb.report.citations) == (
+        jb.report.cases, jb.report.content_chunks, jb.report.citations)
+    for name in ("name_trie", "content_trie", "citation_trie"):
+        jt, tt = getattr(jb.trie, name), getattr(pb.trie, name)
+        for f in tt._ARRAY_FIELDS:
+            np.testing.assert_array_equal(getattr(tt, f), getattr(jt, f), err_msg=f"{name}.{f}")
+    np.testing.assert_array_equal(np.asarray(pb.vector.refs, np.int32), np.asarray(jb.vector.refs, np.int32))
+    np.testing.assert_allclose(pb.vector.vectors, jb.vector.vectors, atol=1e-5, rtol=0)
+    save_artifacts(pb, pcfg)
+    jax_save_artifacts(jb, jcfg)
+    assert (Path(pcfg.vector.hnsw.index_path) / "token_weights.npy").exists() == (
+        Path(jcfg.vector.hnsw.index_path) / "token_weights.npy").exists() == (tw is not None)
+    jstore.close()
+    pstore.close()
 
 
 @pytest.fixture()

@@ -162,14 +162,22 @@ def test_one_shot_commands_match_jax(art, one_device_toml, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,slice_name", [
-    (["build-index", "--streaming"], "slice 3"),
+    (["build-index", "--streaming"], "slice 4"),
     (["build-index", "--pretrain-steps", "5"], "slice 4"),
-    (["eval-retrieval", "--control"], "slices 3 and 4"),
     (["bench"], "not ported"),
 ])
 def test_later_slices_raise(tmp_path, argv, slice_name):
+    """Pretraining (``--pretrain-steps``, and ``--streaming`` over an empty
+    store with no saved encoder, where the JAX package pretrains) and
+    ``bench`` refuse, naming what brings them; nothing is written."""
+    cfg = Config()
+    cfg.storage.db_path = str(tmp_path / "db.sqlite")
+    cfg.trie.index_path = str(tmp_path / "trie")
+    cfg.vector.hnsw.index_path = str(tmp_path / "vec")
+    cfg.save_to_file(tmp_path / "config.toml")
     with pytest.raises(NotImplementedError, match=slice_name):
-        pcli.main(["-c", str(tmp_path / "none.toml"), "--device", "cpu", *argv])
+        pcli.main(["-c", str(tmp_path / "config.toml"), "--device", "cpu", *argv])
+    assert not (tmp_path / "vec").exists() and not (tmp_path / "trie").exists()
 
 
 def _fresh_tomls(tmp_path):
@@ -249,9 +257,11 @@ def test_build_index_tune_recall_command_matches_jax(tmp_path, capsys):
 def test_build_index_command_matches_jax(art, tmp_path, capsys):
     """``build-index`` over a copy of the store (mean pooling, full-width
     encoder from the config): the JAX CLI's counts, and the quality gate's
-    report beside the vectors; with ``pooling = "auto"`` the port's build
-    and ``serve``'s build on a store without artifacts say why they
-    refuse."""
+    report beside the vectors; with ``pooling = "auto"`` (the default) both
+    builds select the pooling and print the same counts, and ``serve``'s
+    build on a store without artifacts runs too (the pick itself is held
+    against the JAX package's with a shared encoder in
+    ``test_torch_build.py``)."""
     import shutil
 
     paths = {}
@@ -279,14 +289,105 @@ def test_build_index_command_matches_jax(art, tmp_path, capsys):
     assert got["cases"] == 7 and got["vector_path"].endswith("port/vec")
     meta = json.loads((paths["port"] / "vec" / "quality.json").read_text())
     assert meta["mode"] == "warn" and meta["probes"] > 0
-    toml = paths["port"] / "config.toml"
-    toml.write_text(toml.read_text().replace('pooling = "mean"', 'pooling = "auto"'))
-    with pytest.raises(NotImplementedError, match="pooling"):
-        pcli.main(["-c", str(toml), "--device", "cpu", "build-index"])
-    cfg = Config.from_file(toml)
+    for tag in ("jax", "port"):
+        toml = paths[tag] / "config.toml"
+        toml.write_text(toml.read_text().replace('pooling = "mean"', 'pooling = "auto"'))
+        argv = ["-c", str(toml), "build-index"]
+        rc, out = _jax(argv, capsys) if tag == "jax" else _port(argv[:2] + ["--device", "cpu"] + argv[2:],
+                                                                capsys)
+        got = json.loads(out.splitlines()[-1])
+        assert rc == 0 and {k: got[k] for k in ("cases", "content_chunks", "citations")} == {
+            k: want[k] for k in ("cases", "content_chunks", "citations")}
+    cfg = Config.from_file(paths["port"] / "config.toml")
     cfg.trie.index_path = str(tmp_path / "no_artifacts")
-    with pytest.raises(NotImplementedError, match="pooling"):
-        pcli._build_components(cfg, "cpu")
+    _, engine = pcli._build_components(cfg, "cpu")
+    assert engine.vector_index.size == want["content_chunks"]
+
+
+def _streaming_roots(art, tmp_path):
+    """A copy of the store and of the saved encoder (tokenizer, checkpoint)
+    per package, with a TOML config: ``build-index --streaming`` loads the
+    encoder, so nothing is pretrained."""
+    import shutil
+
+    roots = {}
+    for tag in ("jax", "port"):
+        root = tmp_path / tag
+        (root / "vec").mkdir(parents=True)
+        shutil.copy(art["root"] / "db.sqlite", root / "db.sqlite")
+        shutil.copy(art["root"] / "vec" / "tokenizer.json", root / "vec" / "tokenizer.json")
+        shutil.copytree(art["root"] / "vec" / "encoder", root / "vec" / "encoder")
+        cfg = JaxConfig.from_file(art["toml"])
+        cfg.storage.db_path = str(root / "db.sqlite")
+        cfg.trie.index_path = str(root / "trie")
+        cfg.vector.hnsw.index_path = str(root / "vec")
+        cfg.vector.quality_gate = "off"
+        cfg.mesh.enabled = False
+        cfg.save_to_file(root / "config.toml")
+        roots[tag] = root
+    return roots
+
+
+@pytest.mark.parametrize("extra", [[], ["--no-resume"]])
+def test_build_index_streaming_command_matches_jax(art, tmp_path, capsys, extra):
+    """``build-index --streaming --shard-chunks 8`` with a saved encoder,
+    twice: the JAX CLI's JSON but for seconds, rate, RSS and paths (the
+    second run resumes at the end of the store, or with ``--no-resume``
+    builds again from row 0); both vector directories hold the same files,
+    and the port's artifacts serve ``search``."""
+    roots = _streaming_roots(art, tmp_path)
+    for run in range(2):
+        outs = {}
+        for tag, root in roots.items():
+            argv = ["-c", str(root / "config.toml"), "build-index", "--streaming", "--shard-chunks", "8",
+                    "--work-dir", str(root / "work"), *(extra if run else [])]
+            rc, out = _jax(argv, capsys) if tag == "jax" else _port(
+                argv[:2] + ["--device", "cpu"] + argv[2:], capsys)
+            assert rc == 0
+            outs[tag] = json.loads(out.splitlines()[-1])
+            for k in ("seconds", "chunks_per_second", "peak_rss_bytes"):
+                assert outs[tag].pop(k) >= 0
+            for k in ("trie_path", "vector_path"):
+                assert outs[tag].pop(k).startswith(str(root))
+        assert outs["port"] == outs["jax"]
+        assert outs["port"]["cases"] == 7 and outs["port"]["shards"] >= 2
+        assert outs["port"]["resumed_from_row"] == (7 if run and not extra else 0)
+    files = {tag: sorted(str(p.relative_to(root / "vec")) for p in (root / "vec").rglob("*"))
+             for tag, root in roots.items()}
+    assert files["port"] == files["jax"]
+    rc, out = _port(["-c", str(roots["port"] / "config.toml"), "--device", "cpu", "search",
+                     "miranda v. arizona"], capsys)
+    assert rc == 0 and json.loads(out)[0]["case_metadata"]["name"] == "Miranda v. Arizona"
+
+
+@pytest.mark.parametrize("argv", [["eval-retrieval", "--control"],
+                                  ["eval-retrieval", "--probes", "5", "--max-cases", "4"]])
+def test_eval_retrieval_command_matches_jax(art, one_device_toml, capsys, monkeypatch, argv):
+    """``eval-retrieval`` over the JAX package's artifacts, the port's
+    encoder handing over the JAX encoder's vectors: the JAX CLI's JSON,
+    but for the random control's MRRs (its weights are the port's own
+    seeded init, not the JAX package's ``PRNGKey(1234)``)."""
+    from trie_semantic_search_tpu_torch.models.embedder import EmbeddingResult
+
+    jeng, _ = engines(art)
+    build = pcli._build_components
+
+    def shared(cfg, device, rebuild=False):
+        storage, engine = build(cfg, device, rebuild)
+        engine.vector_index.embedder.embed = lambda texts: EmbeddingResult(
+            jeng.vector_index.embedder.embed(list(texts)).embedding, 0.0)
+        return storage, engine
+
+    monkeypatch.setattr(pcli, "_build_components", shared)
+    c = ["-c", str(one_device_toml)]
+    rc, want = _jax(c + argv, capsys)
+    prc, got = _port(c + ["--device", "cpu"] + argv, capsys)
+    assert prc == rc == 0
+    want, got = json.loads(want), json.loads(got)
+    if "--control" in argv:
+        w, g = want.pop("random_control"), got.pop("random_control")
+        assert g.keys() == w.keys() and all(g[k]["n"] == w[k]["n"] for k in w)
+    assert got == want and want["probes"] > 0 and "ann_only" in want["stages"]
 
 
 def test_serving_mesh_refuses_more_than_one_card(monkeypatch):

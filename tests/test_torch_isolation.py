@@ -143,3 +143,28 @@ def test_ingest_and_tuner_stand_alone():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["IngestionManager", "CapDataSource", "tune_nprobe_case_recall"]
+
+
+def test_streaming_build_stands_alone():
+    """The streaming build, its spill, the pooling selection and the
+    retrieval evaluation are among the files checked above, and import
+    where ``jax`` cannot be imported."""
+    files = {str(f.relative_to(REPO)) for f in _port_files()}
+    for name in ("index/spill.py", "index/streaming.py", "models/train.py", "models/quality.py"):
+        assert f"trie_semantic_search_tpu_torch/{name}" in files, name
+    block = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'ml_dtypes', 'trie_semantic_search_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "from trie_semantic_search_tpu_torch.index.spill import SpillContentBuilder\n"
+        "from trie_semantic_search_tpu_torch.index.streaming import StreamingIndexBuilder\n"
+        "from trie_semantic_search_tpu_torch.models.train import select_pooling_guarded\n"
+        "from trie_semantic_search_tpu_torch.models.quality import evaluate_stages\n"
+        "print(SpillContentBuilder.__name__, StreamingIndexBuilder.__name__,\n"
+        "      select_pooling_guarded.__name__, evaluate_stages.__name__)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", block], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["SpillContentBuilder", "StreamingIndexBuilder",
+                                  "select_pooling_guarded", "evaluate_stages"]

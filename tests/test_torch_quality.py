@@ -1,4 +1,5 @@
-"""The port's build-time quality gate against the JAX package's, on the CPU.
+"""The port's build-time quality gate, pooling selection and retrieval
+evaluation against the JAX package's, on the CPU.
 
 Both packages read the same cases (each from its own store, written the
 same way). The encoders are the same tiny MiniLM, the JAX parameters
@@ -27,20 +28,27 @@ import trie_semantic_search_tpu.models.minilm as jm
 from trie_semantic_search_tpu.core.config import Config as JaxConfig
 from trie_semantic_search_tpu.core.types import CaseMetadata as JaxCaseMetadata
 from trie_semantic_search_tpu.index import quality_gate as jgate
+from trie_semantic_search_tpu.index.builder import build_indexes as jax_build_indexes
+from trie_semantic_search_tpu.index.builder import load_artifacts as jax_load_artifacts
+from trie_semantic_search_tpu.index.builder import save_artifacts as jax_save_artifacts
+from trie_semantic_search_tpu.models import train as jtrain
 from trie_semantic_search_tpu.models import quality as jq
 from trie_semantic_search_tpu.models.embedder import Embedder as JaxEmbedder
 from trie_semantic_search_tpu.models.tokenizer import WordPieceTokenizer as JaxTokenizer
 from trie_semantic_search_tpu.models.tokenizer import train_wordpiece_vocab
+from trie_semantic_search_tpu.search.engine import SearchEngine as JaxEngine
 from trie_semantic_search_tpu.storage.store import StorageManager as JaxStorage
 from trie_semantic_search_tpu.text.processor import TextProcessor as JaxTextProcessor
 from trie_semantic_search_tpu_torch.core.config import Config
 from trie_semantic_search_tpu_torch.core.types import CaseMetadata
 from trie_semantic_search_tpu_torch.index import quality_gate as tgate
-from trie_semantic_search_tpu_torch.index.builder import build_indexes, save_artifacts
+from trie_semantic_search_tpu_torch.index.builder import build_indexes, load_artifacts, save_artifacts
 from trie_semantic_search_tpu_torch.models import minilm as tm
 from trie_semantic_search_tpu_torch.models import quality as tq
-from trie_semantic_search_tpu_torch.models.embedder import Embedder
+from trie_semantic_search_tpu_torch.models import train as ttrain
+from trie_semantic_search_tpu_torch.models.embedder import Embedder, EmbeddingResult
 from trie_semantic_search_tpu_torch.models.tokenizer import WordPieceTokenizer
+from trie_semantic_search_tpu_torch.search.engine import SearchEngine
 from trie_semantic_search_tpu_torch.storage.store import StorageManager
 from trie_semantic_search_tpu_torch.text.processor import TextProcessor
 
@@ -206,3 +214,95 @@ def test_default_control_and_saved_report(setup):
     with pytest.raises(tgate.QualityGateFailed):
         save_artifacts(built, pcfg, storage=pstore)
     assert not Path(vec).exists()  # refused before anything was written
+
+
+# -- pooling selection ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("a", [0.1, 1e-3])
+def test_token_counts_and_sif_weights_bitwise(setup, a):
+    """``count_token_ids`` over the corpus sentences (and truncated at 16
+    tokens) and ``sif_weights_from_counts`` from them, and from no counts
+    at all, are bitwise the JAX package's."""
+    sents = [s for _, sents in _docs(setup["cases"], TextProcessor()) for s in sents]
+    tok = setup["pemb"].tokenizer
+    for max_len in (512, 16):
+        got = tm.count_token_ids(tok, iter(sents), vocab_size=len(tok), max_len=max_len)
+        want = jm.count_token_ids(setup["jemb"].tokenizer, iter(sents), vocab_size=len(tok),
+                                  max_len=max_len)
+        assert got.dtype == want.dtype and got.sum() > 0
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(tm.sif_weights_from_counts(got, a=a),
+                                      jm.sif_weights_from_counts(want, a=a))
+    zero = np.zeros(7, np.int64)
+    np.testing.assert_array_equal(tm.sif_weights_from_counts(zero), jm.sif_weights_from_counts(zero))
+
+
+@pytest.mark.parametrize("force", [None, "sif", "mean"])
+def test_select_pooling_guarded_matches_jax(setup, force):
+    """The same pick and token weights, and MRRs within 1e-4, for the probe
+    comparison and both forced modes."""
+    docs = [sents for _, sents in _docs(setup["cases"], TextProcessor())]
+    want = jtrain.select_pooling_guarded(setup["jemb"], docs, sif_a=0.1, force=force)
+    got = ttrain.select_pooling_guarded(setup["pemb"], docs, sif_a=0.1, force=force)
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        if k.endswith("_mrr"):
+            assert abs(got[k] - v) <= 1e-4, k
+        else:
+            assert got[k] == v, k
+    if force is None:
+        assert got["probes"] >= 8
+    jw, tw = setup["jemb"].token_weights, setup["pemb"].token_weights
+    assert (jw is None) == (tw is None) == (got["pooling"] == "mean")
+    if tw is not None:
+        np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+
+
+def test_select_pooling_on_a_tiny_corpus_keeps_mean(setup):
+    docs = [sents for _, sents in _docs(setup["cases"][:2], TextProcessor())]
+    want = jtrain.select_pooling_guarded(setup["jemb"], docs)
+    assert ttrain.select_pooling_guarded(setup["pemb"], docs) == want
+    assert want["pooling"] == "mean" and setup["pemb"].token_weights is None
+
+
+# -- evaluate_engine / evaluate_stages ---------------------------------------------------
+
+
+@pytest.fixture()
+def eval_engines(setup):
+    """Engines of both packages over the artifacts the JAX package built
+    and saved, the port's encoder handing over the JAX encoder's vectors
+    (the same query embeddings), and the probes."""
+    jcfg, pcfg = setup["jcfg"], setup["pcfg"]
+    jcfg.vector.quality_gate = "off"
+    jcfg.mesh.enabled = False
+    built = jax_build_indexes(setup["jstore"], jcfg, embedder=setup["jemb"])
+    built.vector.ann.tune_nprobe(np.asarray(built.vector.vectors)[::7], k=10, target_recall=0.9)
+    jax_save_artifacts(built, jcfg)
+    pcfg.trie.index_path, pcfg.vector.hnsw.index_path = jcfg.trie.index_path, jcfg.vector.hnsw.index_path
+    pemb = setup["pemb"]
+    pemb.embed = lambda texts: EmbeddingResult(
+        np.asarray(setup["jemb"].embed(list(texts)).embedding, np.float32), 0.0)
+    jeng = JaxEngine(jcfg, setup["jstore"], *jax_load_artifacts(jcfg, embedder=setup["jemb"]))
+    peng = SearchEngine(pcfg, setup["pstore"], *load_artifacts(pcfg, embedder=pemb, device="cpu"),
+                        device="cpu")
+    docs = _docs(setup["cases"], TextProcessor())
+    probes = jq.build_probes(docs, max_probes=96)
+    return jeng, peng, probes, [tq.Probe(p.query, p.target_case_row, p.kind) for p in probes]
+
+
+@pytest.mark.parametrize("k", [10, 5])
+def test_evaluate_engine_and_stages_match_jax(eval_engines, k):
+    """``evaluate_engine`` (batches of 32 and 7) and ``evaluate_stages``
+    give the JAX package's dicts over the same artifacts and probes."""
+    jeng, peng, jprobes, tprobes = eval_engines
+    for batch in (32, 7):
+        want = jq.evaluate_engine(jeng, jeng.columns, jprobes, k=k, batch=batch)
+        got = tq.evaluate_engine(peng, peng.columns, tprobes, k=k, batch=batch)
+        assert got == want and want["all"]["n"] == len(jprobes)
+    want = jq.evaluate_stages(jeng, jeng.columns, jprobes, k=k)
+    got = tq.evaluate_stages(peng, peng.columns, tprobes, k=k)
+    assert got == want
+    assert want["tuned_nprobe"] > 0 and "ann_only" in want
+

@@ -10,17 +10,23 @@ with ``--device`` in place of ``--platform``).
   ``cap``, ``courtlistener``; every source without ``--source``), bulk or
   ``--incremental``
 * ``build-index``  — build and save every artifact (quality gate first;
-  ``--tune-recall`` tunes the ANN's nprobe by case-level recall)
+  ``--tune-recall`` tunes the ANN's nprobe by case-level recall);
+  ``--streaming`` runs the checkpointed corpus-scale build
+  (``--work-dir``, ``--shard-chunks``, ``--no-resume``), which needs an
+  encoder saved in the vector directory until pretraining is ported
 * ``check-health`` — component probes, exit code 0/1
 * ``search``       — one query from the command line
+* ``eval-retrieval`` — held-out probes through the engine, stage by stage
+  (exact oracle, ANN at the tuned nprobe), and with ``--control`` beside a
+  seeded random encoder
 * ``completions``  — trie prefix completions
 * ``config-dump``  — the effective config as TOML
 * ``loadtest``     — concurrent ``POST /search`` against a running server
 
-``build-index --streaming``, ``build-index --pretrain-steps`` and
-``eval-retrieval`` raise ``NotImplementedError`` naming the later slice of
-``ROADMAP.md`` §1 that brings them; ``bench`` does too (the benchmark is
-not ported).
+``build-index --pretrain-steps`` raises ``NotImplementedError`` naming
+the later slice of ``ROADMAP.md`` §1 that brings it (slice 4), as does
+``serve`` sharded over more than one card (slice 5); ``bench`` raises too
+(the benchmark is not ported).
 
 Shared flags: ``--config/-c``, ``--device`` (default ``cuda``; a missing
 card is an error, ``--device cpu`` runs on the CPU), ``--port/-p`` for
@@ -205,23 +211,38 @@ def cmd_ingest(args: argparse.Namespace) -> int:
 
 
 def cmd_build_index(args: argparse.Namespace) -> int:
-    if args.streaming:
-        raise NotImplementedError(
-            "build-index --streaming comes with ROADMAP.md §1 slice 3 (the streaming "
-            "build: index/streaming.py, build_streaming, spill.py)"
-        )
-    if args.pretrain_steps > 0:
+    """Build and save every artifact: in one pass, or with ``--streaming``
+    checkpointed and resumable (``--tune-recall`` and ``--pretrain-steps``
+    do not apply there, as in the JAX package). Prints the report as one
+    JSON line."""
+    if args.pretrain_steps > 0 and not args.streaming:
         raise NotImplementedError(
             "build-index --pretrain-steps comes with ROADMAP.md §1 slice 4 (training)"
         )
     cfg = _load_config(args)
     init_logging(cfg.logging)
-    from .index.builder import build_indexes, save_artifacts
     from .storage.store import StorageManager
 
     storage = StorageManager(cfg.storage)
-    built = build_indexes(storage, cfg, tune_recall=args.tune_recall, device=args.device)
-    save_artifacts(built, cfg, storage=storage)
+    if args.streaming:
+        from .index.streaming import StreamingIndexBuilder
+
+        built = StreamingIndexBuilder(
+            storage, cfg, work_dir=args.work_dir, shard_chunks=args.shard_chunks,
+            device=args.device,
+        ).build(resume=not args.no_resume)
+        extra = {
+            "shards": built.report.shards,
+            "resumed_from_row": built.report.resumed_from_row,
+            "chunks_per_second": built.report.chunks_per_second,
+            "peak_rss_bytes": built.report.peak_rss_bytes,
+        }
+    else:
+        from .index.builder import build_indexes, save_artifacts
+
+        built = build_indexes(storage, cfg, tune_recall=args.tune_recall, device=args.device)
+        save_artifacts(built, cfg, storage=storage)
+        extra = {}
     print(json.dumps({
         "cases": built.report.cases,
         "content_chunks": built.report.content_chunks,
@@ -229,6 +250,7 @@ def cmd_build_index(args: argparse.Namespace) -> int:
         "seconds": round(built.report.seconds, 3),
         "trie_path": cfg.trie.index_path,
         "vector_path": cfg.vector.hnsw.index_path,
+        **extra,
     }))
     return 0
 
@@ -272,10 +294,53 @@ def cmd_search(args: argparse.Namespace) -> int:
 
 
 def cmd_eval_retrieval(args: argparse.Namespace) -> int:
-    raise NotImplementedError(
-        "eval-retrieval comes with ROADMAP.md §1 slices 3 and 4 (the rest of the index "
-        "build and training: evaluate_engine, evaluate_stages in models/quality.py)"
-    )
+    """Held-out retrieval quality of the saved artifacts: half-sentence and
+    paraphrase probes from the first ``--max-cases`` stored cases, their
+    source case's MRR and recall@k through the engine (``trained``) and
+    stage by stage (``stages``); with ``--control`` the served encoder and
+    a seeded random one (``Embedder(..., seed=1234)``) over the same probes
+    and chunk sample. One JSON object."""
+    cfg = _load_config(args)
+    init_logging(cfg.logging)
+    storage, engine = _build_components(cfg, args.device)
+    from .models.quality import build_probes, evaluate_embedder_direct, evaluate_engine, evaluate_stages
+
+    docs: list[tuple[int, list[str]]] = []
+    tp = engine._text_processor
+    for row, _meta, text in storage.iter_cases_rowid():
+        if len(docs) >= args.max_cases:
+            break
+        if text:
+            docs.append((row, tp.extract_sentences(tp.normalize_text(text))))
+    probes = build_probes(docs, max_probes=args.probes)
+    out = {
+        "probes": len(probes),
+        "trained": evaluate_engine(engine, engine.columns, probes),
+        # exact oracle vs the ANN at the tuned nprobe over the whole index:
+        # where the engine's MRR falls from the exact ceiling
+        "stages": evaluate_stages(engine, engine.columns, probes),
+    }
+    if args.control:
+        # the control beside the served encoder in the same search space
+        # (a chunk sample), not beside 'trained', which searches the index
+        from .models.embedder import Embedder
+
+        served = engine.vector_index.embedder
+        rnd = Embedder(cfg.vector.model, tokenizer=served.tokenizer,
+                       model_config=served.model_config, seed=1234, device=served.device)
+        texts, cases = [], []
+        for row, sents in docs[: args.max_cases]:
+            for s in sents[:8]:
+                texts.append(s)
+                cases.append(row)
+        out["trained_direct"] = evaluate_embedder_direct(served, texts, cases, probes)
+        out["random_control"] = evaluate_embedder_direct(rnd, texts, cases, probes)
+        out["comparability_note"] = (
+            "compare trained_direct vs random_control (same search "
+            "space); 'trained' searches the full index"
+        )
+    print(json.dumps(out, indent=2))
+    return 0
 
 
 def cmd_completions(args: argparse.Namespace) -> int:

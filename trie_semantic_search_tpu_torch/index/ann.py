@@ -1,8 +1,9 @@
 """Partitioned ANN index: build, tune, save, load and serve.
 
-Port of ``trie_semantic_search_tpu/index/ann.py`` (``build``, the layout
-helpers, ``tune_nprobe``, ``save``, ``save_dir``, ``load``, ``load_dir``,
-``default_nprobe``, ``search``, ``search_brute``). The frozen layout is the
+Port of ``trie_semantic_search_tpu/index/ann.py`` (``build``,
+``build_streaming``, the layout helpers, ``tune_nprobe``, ``save``,
+``save_dir``, ``load``, ``load_dir``, ``default_nprobe``, ``search``,
+``search_brute``). The frozen layout is the
 JAX package's: ``[P, m, D]`` int8 partition blocks with per-slot scales, a
 ``[P, m]`` slot→row map (-1 pads), ``[P, D]`` centroids and a bf16 rescore
 copy of the corpus held as a tuple of row segments. Both artifact formats
@@ -14,8 +15,17 @@ other wrote.
 top-c centroid assignment on the index's device (:mod:`.kmeans`);
 normalisation, the capacity cap, the overflow rebalance, the pad-replica
 plan, the layout and the int8 quantisation in numpy on the host, so that
-from fixed centroids the layout is bitwise the JAX package's. The memmap
-emit of ``build_streaming`` comes with a later slice.
+from fixed centroids the layout is bitwise the JAX package's.
+
+``build_streaming`` freezes the same layout from a (memmapped) input slab
+by slab, with O(slab) host memory on top of its outputs. With
+``emit_dir`` the outputs are disk-backed ``.npy`` memmaps in the
+``save_dir`` layout, which ``save_dir`` then adopts by a rename; with
+``device_resident=False`` they stay memmaps until the first search copies
+them to the device (``_ensure_device``). Its assignment pass reads the
+input in whole blocks of :data:`.kmeans._LLOYD_BLOCK` rows, the blocks
+``build`` assigns, so that every centroid product of the two builders
+runs over the same rows and a GEMM cannot round a near tie differently.
 """
 
 from __future__ import annotations
@@ -38,6 +48,8 @@ from ..core.config import AnnConfig
 from ..core.errors import IndexCorrupted, VectorIndexConstructionFailed
 from ..device import DeviceLike, resolve_device
 from ..ops.scan_kernels import (
+    GATHER_ROW_ALIGN_LCM,
+    GATHER_SEG_BYTES,
     exact_float32,
     gather_rescore_rows,
     probe_candidates,
@@ -45,29 +57,91 @@ from ..ops.scan_kernels import (
 )
 from ..ops.scoring import gather_rescore, l2_normalize
 from ..ops.topk import exact_topk, merge_topk, topk_by_score_then_row
-from .kmeans import assign_clusters, assign_topc, train_kmeans
+from ..utils import madvise_dontneed
+from .kmeans import _LLOYD_BLOCK, assign_clusters, assign_topc, train_kmeans
 
 _log = logging.getLogger("tss_torch.ann")
 
-#: host rows copied per step when moving a (memmapped) array to the device
+#: rows scanned per step by the exact scan
 _COPY_ROWS = 1 << 18
+#: host bytes moved per step when copying a (memmapped) array to the device
+_COPY_BYTES = 1 << 28
 
 
 def to_device(arr: np.ndarray, device: torch.device, bf16_bits: bool = False) -> torch.Tensor:
-    """Host array (possibly a memmap) → device tensor, copied in row slabs
-    so the host never holds a second full copy. ``bf16_bits``: the array
-    holds bf16 values as uint16 bit patterns."""
+    """Host array (possibly a memmap) → device tensor, copied in slabs of
+    about :data:`_COPY_BYTES`: to a card through one pinned staging buffer,
+    on the CPU straight into the tensor's memory, so the host holds no
+    second copy beyond one slab. A memmap's pages are dropped from this
+    process after each slab (:func:`madvise_dontneed`). ``bf16_bits``: the
+    array holds bf16 values as uint16 bit patterns, kept bit for bit."""
     src = arr.view(np.int16) if bf16_bits else arr
     if src.ndim == 0:
         return torch.as_tensor(np.array(src), device=device)
     dtype = torch.bfloat16 if bf16_bits else torch.from_numpy(np.zeros(0, src.dtype)).dtype
     out = torch.empty(src.shape, dtype=dtype, device=device)
-    for lo in range(0, src.shape[0], _COPY_ROWS):
-        part = torch.from_numpy(np.array(src[lo : lo + _COPY_ROWS]))
-        if bf16_bits:
-            part = part.view(torch.bfloat16)
-        out[lo : lo + _COPY_ROWS].copy_(part)
+    dst = out.view(torch.int16) if bf16_bits else out
+    n = src.shape[0]
+    step = max(1, _COPY_BYTES // max(src[:1].nbytes, 1))
+    if device.type != "cuda":
+        host = dst.numpy()
+        for lo in range(0, n, step):
+            host[lo : lo + step] = src[lo : lo + step]
+            madvise_dontneed(arr)
+        return out
+    if n == 0:
+        return out
+    stage = torch.empty((min(step, n), *src.shape[1:]), dtype=dst.dtype, pin_memory=True)
+    stage_np = stage.numpy()
+    for lo in range(0, n, step):
+        k = min(step, n - lo)
+        stage_np[:k] = src[lo : lo + k]
+        dst[lo : lo + k].copy_(stage[:k])  # synchronous: the stage is free again after
+        madvise_dontneed(arr)
     return out
+
+
+def _host(a) -> np.ndarray:
+    """A frozen array on the host: a device tensor copied back, a host
+    (memmap) array as it is."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _bf16_host_bits(s) -> np.ndarray:
+    """A bf16 rescore segment's uint16 bit patterns on the host (a device
+    tensor, or the uint16 memmap of a host-deferred index)."""
+    if isinstance(s, torch.Tensor):
+        return s.view(torch.int16).cpu().numpy().view(np.uint16)
+    return np.asarray(s)
+
+
+def _bf16_bits(v: np.ndarray) -> np.ndarray:
+    """f32 rows → bf16 (round to nearest even, as torch and ml_dtypes
+    convert) as uint16 bit patterns."""
+    return torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(torch.bfloat16).view(
+        torch.int16).numpy().view(np.uint16)
+
+
+def _count(a) -> int:
+    return int(a.size) if isinstance(a, np.ndarray) else a.numel()
+
+
+def _nbytes(a) -> int:
+    return int(a.nbytes) if isinstance(a, np.ndarray) else a.numel() * a.element_size()
+
+
+def _normalised(v: np.ndarray) -> np.ndarray:
+    """Rows as f32, non-finite values zeroed, L2 normalised."""
+    v = np.asarray(v, np.float32)
+    if not np.isfinite(v).all():
+        v = np.nan_to_num(v, nan=0.0, posinf=0.0, neginf=0.0)
+    return v / np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-12)
+
+
+def _quantised(v: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per-row int8 quantisation: ``(q [n, D] int8, scale [n] f32)``."""
+    scale = np.maximum(np.max(np.abs(v), axis=1), 1e-12) / 127.0
+    return np.clip(np.round(v / scale[:, None]), -127, 127).astype(np.int8), scale.astype(np.float32)
 
 
 # -- layout helpers (numpy, as in the JAX package) -----------------------------
@@ -214,6 +288,21 @@ def _fill_slots(part_rows: np.ndarray, base: np.ndarray, rows: np.ndarray, parts
     part_rows[parts, base[parts] + (np.arange(len(parts)) - starts)] = rows
 
 
+def _append_slots(part_rows, part_int8, part_scale, cursor: np.ndarray, rows: np.ndarray,
+                  parts: np.ndarray, q8: np.ndarray, scale: np.ndarray) -> None:
+    """Write each entry (sorted by partition, stably) into the next free
+    slot of its partition, after ``cursor[p]`` filled ones, and advance
+    ``cursor``: the slots a row-by-row append in this order would take."""
+    c = np.bincount(parts, minlength=len(cursor)).astype(np.int64)
+    offs = np.zeros(len(cursor) + 1, np.int64)
+    np.cumsum(c, out=offs[1:])
+    pos = np.arange(len(parts)) - np.repeat(offs[:-1], c) + cursor[parts]
+    part_rows[parts, pos] = rows.astype(np.int32)
+    part_int8[parts, pos] = q8
+    part_scale[parts, pos] = scale
+    cursor += c
+
+
 #: rows normalised or quantised per host step (bounds the temporaries)
 _HOST_SLAB = 1 << 18
 
@@ -243,8 +332,17 @@ class PartitionedANN:
         self.num_vectors = 0
         #: some rows occupy two slots (pad replicas): serving fetches 2x
         self._replicated = False
-        #: seconds of each stage of the last :meth:`build`
+        #: seconds of each stage of the last :meth:`build` or :meth:`build_streaming`
         self.build_seconds: dict[str, float] = {}
+        #: memmap emit of :meth:`build_streaming`: the directory ``save_dir``
+        #: adopts, and its open arrays
+        self._emit_dir: Optional[Path] = None
+        self._emit_arrays: list = []
+        #: the frozen arrays are still host memmaps (``build_streaming`` with
+        #: ``device_resident=False``); the first search copies them over
+        self._host_deferred = False
+        #: seconds the last promotion to the device took (:meth:`_ensure_device`)
+        self.promote_seconds = 0.0
 
     # -- build ---------------------------------------------------------------
 
@@ -264,6 +362,8 @@ class PartitionedANN:
         cfg = self.config
         dev = self.device
         self._replicated = False
+        self._host_deferred = False
+        self._emit_dir, self._emit_arrays = None, []
         stages: dict[str, float] = {}
         t_last = [time.perf_counter()]
 
@@ -281,8 +381,7 @@ class PartitionedANN:
             v = np.nan_to_num(v, nan=0.0, posinf=0.0, neginf=0.0)
         vn = np.empty((n, d), np.float32)
         for lo in range(0, n, _HOST_SLAB):
-            s = v[lo : lo + _HOST_SLAB]
-            vn[lo : lo + _HOST_SLAB] = s / np.maximum(np.linalg.norm(s, axis=1, keepdims=True), 1e-12)
+            vn[lo : lo + _HOST_SLAB] = _normalised(v[lo : lo + _HOST_SLAB])
         v = vn
         lap("normalize")
 
@@ -332,10 +431,7 @@ class PartitionedANN:
             scale = np.empty(n, np.float32)
             q = np.empty((n, d), np.int8)
             for lo in range(0, n, _HOST_SLAB):
-                s = v[lo : lo + _HOST_SLAB]
-                sc = np.maximum(np.max(np.abs(s), axis=1), 1e-12) / 127.0
-                scale[lo : lo + _HOST_SLAB] = sc
-                q[lo : lo + _HOST_SLAB] = np.clip(np.round(s / sc[:, None]), -127, 127).astype(np.int8)
+                q[lo : lo + _HOST_SLAB], scale[lo : lo + _HOST_SLAB] = _quantised(v[lo : lo + _HOST_SLAB])
             part_int8 = q[safe_rows]
             part_scale = scale[safe_rows].astype(np.float32)
             del q
@@ -357,6 +453,208 @@ class PartitionedANN:
         self.num_vectors = n
         lap("quantize_upload")
         self.build_seconds = stages
+
+    def build_streaming(
+        self,
+        vectors: np.ndarray,  # [N, D] f32, possibly a memmap: never read whole
+        seed: int = 0,
+        slab_rows: int = 262_144,
+        reuse_centroids: Optional[np.ndarray] = None,
+        emit_dir: Optional[str | Path] = None,
+        device_resident: bool = True,
+    ) -> None:
+        """:meth:`build`'s frozen layout from the input read slab by slab,
+        with O(slab) host memory on top of the output arrays (a
+        corpus-scale input is a memmap of the vector store).
+
+        k-means trains on a bounded sample of rows (``reuse_centroids``
+        skips it). Pass 1 assigns the rows (top-c choices when pad replicas
+        are on) in whole :data:`.kmeans._LLOYD_BLOCK`-row blocks, the
+        blocks :meth:`build` assigns; the capacity cap and overflow
+        rebalance follow; pass 2 normalises, quantises and fills each slab
+        of ``slab_rows`` rows into its partitions in ascending row order
+        (:meth:`build`'s order) and writes the bf16 rescore copy; pass 3
+        fills the pad replicas, re-quantised from the f32 rows.
+
+        ``emit_dir``: the output arrays are disk-backed ``.npy`` memmaps in
+        that directory, laid out as :meth:`save_dir` lays them out (bf16
+        segments as uint16 at the ``split_rescore_corpus`` geometry of a
+        bf16 store), so that ``save_dir`` adopts the directory by a rename.
+        ``device_resident=False`` (with ``emit_dir``) leaves them memmaps
+        until the first search copies them to the device. Stage times
+        land in :attr:`build_seconds`. A bf16-block configuration
+        (``quantize_int8=False``) takes :meth:`build`."""
+        n, d = vectors.shape
+        cfg = self.config
+        dev = self.device
+        self._replicated = False
+        self._host_deferred = False
+        if n == 0:
+            raise VectorIndexConstructionFailed("empty corpus")
+        if not cfg.quantize_int8:
+            self.build(np.asarray(vectors), seed=seed, reuse_centroids=reuse_centroids)
+            return
+        stages: dict[str, float] = {}
+        t_last = [time.perf_counter()]
+
+        def lap(name: str) -> None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            stages[name] = now - t_last[0]
+            t_last[0] = now
+
+        def norm_rows(rows: np.ndarray) -> np.ndarray:
+            return _normalised(vectors[rows])
+
+        if reuse_centroids is not None:
+            centroids = np.asarray(reuse_centroids, np.float32)
+            P = centroids.shape[0]
+        else:
+            P = cfg.num_partitions or _auto_partitions(n)
+            P = min(P, max(8, n))
+            sample_n = min(n, max(cfg.kmeans_sample, 64 * P))
+            rng = np.random.default_rng(seed)
+            take = np.sort(rng.choice(n, sample_n, replace=False))
+            centroids = train_kmeans(
+                np.asarray(vectors[take], np.float32), P, iters=cfg.kmeans_iters,
+                sample=sample_n, seed=seed, dedup=cfg.kmeans_dedup, device=dev,
+            )
+        lap("kmeans")
+
+        # pass 1: assignment (column 0 of the top-c choices is the nearest)
+        n_choices = max(2, cfg.replica_choices) if cfg.pad_replicas and P > 1 else 1
+        assign = np.empty(n, np.int32)
+        choices = np.empty((n, min(n_choices, P)), np.int32) if n_choices > 1 else None
+        step = max(_LLOYD_BLOCK, slab_rows // _LLOYD_BLOCK * _LLOYD_BLOCK)
+        for lo in range(0, n, step):
+            hi = min(lo + step, n)
+            v = _normalised(vectors[lo:hi])
+            if choices is not None:
+                choices[lo:hi] = assign_topc(v, centroids, n_choices, device=dev)
+                assign[lo:hi] = choices[lo:hi, 0]
+            else:
+                assign[lo:hi] = assign_clusters(v, centroids, device=dev)
+            madvise_dontneed(vectors)
+        lap("assign")
+        cap = _capacity_cap(n, P, cfg.partition_overalloc)
+        assign = _rebalance_overflow(assign, cap, centroids, norm_rows)
+        counts = np.bincount(assign, minlength=P)
+        m = _aligned_capacity(int(counts.max()) if counts.size else 1, True)
+        lap("rebalance")
+
+        L = GATHER_ROW_ALIGN_LCM
+        seg_rows = max(L, (GATHER_SEG_BYTES // max(d * 2, 1)) // L * L)
+        if emit_dir is not None:
+            emit = Path(emit_dir)
+            if emit.exists():  # a stale emit (its segment count may differ)
+                shutil.rmtree(emit)
+            emit.mkdir(parents=True)
+
+            def out(name: str, dtype, shape: tuple) -> np.ndarray:
+                return npformat.open_memmap(emit / name, mode="w+", dtype=dtype, shape=shape)
+
+            part_rows = out("part_rows.npy", np.int32, (P, m))
+            part_rows[:] = -1
+            # w+ memmaps start zero-filled, as the in-RAM blocks and scales
+            part_int8 = out("part_int8.npy", np.int8, (P, m, d))
+            part_scale = out("part_scale.npy", np.float32, (P, m))
+            n_segs = 1 if n <= seg_rows else -(-n // seg_rows)
+            segs = [
+                out(f"rescore_{i}.npy", np.uint16, (-(-min(seg_rows, n - i * seg_rows) // L) * L, d))
+                for i in range(n_segs)
+            ]
+            self._emit_dir = emit
+            self._emit_arrays = [part_rows, part_int8, part_scale, *segs]
+        else:
+            part_rows = np.full((P, m), -1, np.int32)
+            part_int8 = np.zeros((P, m, d), np.int8)
+            part_scale = np.zeros((P, m), np.float32)
+            bf16 = np.zeros((n, d), np.uint16)
+            self._emit_dir, self._emit_arrays = None, []
+
+        def release() -> None:
+            # the scattered writes dirty pages all over the emit files:
+            # drop them from this process (writeback takes them to disk)
+            madvise_dontneed(vectors)
+            for a in self._emit_arrays:
+                madvise_dontneed(a)
+
+        # pass 2: quantise and fill, ascending row order per partition
+        cursor = np.zeros(P, np.int64)
+        for lo in range(0, n, slab_rows):
+            hi = min(lo + slab_rows, n)
+            v = _normalised(vectors[lo:hi])
+            v16 = _bf16_bits(v)
+            if emit_dir is not None:
+                w = lo
+                while w < hi:
+                    si, off = divmod(w, seg_rows)
+                    k = min(hi - w, seg_rows - off)
+                    segs[si][off : off + k] = v16[w - lo : w - lo + k]
+                    w += k
+            else:
+                bf16[lo:hi] = v16
+            order = np.argsort(assign[lo:hi], kind="stable")
+            q8, scale = _quantised(v)
+            _append_slots(part_rows, part_int8, part_scale, cursor, lo + order, assign[lo:hi][order],
+                          q8[order], scale[order])
+            release()
+        lap("fill")
+
+        # pass 3: pad replicas after the primary entries, in (part, row)
+        # order as build() appends them, re-quantised from the f32 rows
+        if choices is not None:
+            rep_rows, rep_parts = _plan_pad_replicas(assign, counts, m, choices)
+            cursor = counts.astype(np.int64)
+            for lo in range(0, len(rep_rows), slab_rows):
+                rr = rep_rows[lo : lo + slab_rows]
+                q8, scale = _quantised(norm_rows(rr))
+                _append_slots(part_rows, part_int8, part_scale, cursor, rr, rep_parts[lo : lo + slab_rows],
+                              q8, scale)
+                release()
+            if len(rep_rows):
+                _log.info("pad replicas (streaming): %d rows duplicated into free slots", len(rep_rows))
+            self._replicated = bool(len(rep_rows))
+        lap("replicas")
+
+        self.num_vectors = n
+        if emit_dir is not None and not device_resident:
+            self.centroids = centroids
+            self.part_rows, self.part_int8, self.part_scale = part_rows, part_int8, part_scale
+            self.corpus_bf16 = tuple(segs)
+            self._host_deferred = True
+        else:
+            self.centroids = torch.tensor(centroids, device=dev)
+            self.part_rows = to_device(part_rows, dev)
+            self.part_int8 = to_device(part_int8, dev)
+            self.part_scale = to_device(part_scale, dev)
+            if emit_dir is not None:
+                self.corpus_bf16 = tuple(to_device(s, dev, bf16_bits=True) for s in segs)
+            else:
+                self.corpus_bf16 = split_rescore_corpus(
+                    bf16, to_device=lambda seg: to_device(seg, dev, bf16_bits=True))
+            lap("upload")
+        self.build_seconds = stages
+
+    def _ensure_device(self) -> None:
+        """Copy a host-deferred index (``build_streaming`` with
+        ``device_resident=False``) to the device, one array at a time,
+        slab by slab (:func:`to_device`); a no-op otherwise. The seconds
+        land in :attr:`promote_seconds`."""
+        if not self._host_deferred:
+            return
+        t0 = time.perf_counter()
+        dev = self.device
+        self.centroids = torch.tensor(np.asarray(self.centroids, np.float32), device=dev)
+        self.part_rows = to_device(self.part_rows, dev)
+        self.part_int8 = to_device(self.part_int8, dev)
+        self.part_scale = to_device(self.part_scale, dev)
+        self.corpus_bf16 = tuple(to_device(s, dev, bf16_bits=True) for s in self.corpus_bf16)
+        self._host_deferred = False
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.promote_seconds = time.perf_counter() - t0
 
     # -- loading -------------------------------------------------------------
 
@@ -473,6 +771,7 @@ class PartitionedANN:
         → bf16 rescore stages (:meth:`search_route` says which); rows -1
         when fewer than k exist."""
         self._require_built()
+        self._ensure_device()
         nprobe = nprobe or self.default_nprobe
         queries = np.asarray(queries)
         route = self.search_route(len(queries), nprobe)
@@ -548,6 +847,7 @@ class PartitionedANN:
         """Exact full scan of the bf16 corpus (the recall oracle): segment by
         segment, in row slabs, with a running exact top-k."""
         self._require_built()
+        self._ensure_device()
         exact_float32()
         dev = self.device
         kk = min(k, self.num_vectors)
@@ -622,10 +922,14 @@ class PartitionedANN:
         self.tuned_nprobe = hi
         return hi
 
+    def _int8_blocks(self) -> bool:
+        dt = self.part_int8.dtype
+        return dt == torch.int8 if isinstance(self.part_int8, torch.Tensor) else dt == np.int8
+
     def _meta(self) -> dict:
         return {
             "num_vectors": self.num_vectors,
-            "int8_blocks": self.part_int8.dtype == torch.int8,
+            "int8_blocks": self._int8_blocks(),
             "rescore_segments": len(self.corpus_bf16),
             "num_probes": int(self.tuned_nprobe or self.config.num_probes),
             "replicated": bool(self._replicated),
@@ -634,46 +938,66 @@ class PartitionedANN:
     def save(self, path: str | Path) -> None:
         """Persist as an ``np.load``-compatible npz zip: bf16 blocks and
         rescore segments as f16, one rescore segment per member, written
-        one at a time."""
+        one at a time. After a memmap-emit build the npz is the artifact,
+        and the emit directory is removed."""
         self._require_built()
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
+        if self._emit_dir is not None:
+            shutil.rmtree(self._emit_dir, ignore_errors=True)
+            self._emit_dir, self._emit_arrays = None, []
         meta = self._meta()
         with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED, allowZip64=True) as zf:
             def put(name: str, arr: np.ndarray) -> None:
                 with zf.open(name + ".npy", "w", force_zip64=True) as f:
                     npformat.write_array(f, np.asanyarray(arr), allow_pickle=False)
 
-            put("centroids", self.centroids.cpu().numpy())
-            put("part_rows", self.part_rows.cpu().numpy())
+            put("centroids", _host(self.centroids))
+            put("part_rows", _host(self.part_rows))
             if meta["int8_blocks"]:
-                put("part_int8", self.part_int8.cpu().numpy())
+                put("part_int8", _host(self.part_int8))
             else:
                 put("part_int8", self.part_int8.float().cpu().numpy().astype(np.float16))
-            put("part_scale", self.part_scale.cpu().numpy())
+            put("part_scale", _host(self.part_scale))
             put("meta", np.array(json.dumps(meta)))
             for i, s in enumerate(self.corpus_bf16):
-                put(f"corpus_f16_{i}", s.float().cpu().numpy().astype(np.float16))
+                f32 = (_bf16_host_bits(s).astype(np.uint32) << 16).view(np.float32)
+                put(f"corpus_f16_{i}", f32.astype(np.float16))
 
     def save_dir(self, path: str | Path) -> None:
         """Persist as a directory of raw ``.npy`` files plus ``meta.json``
         (bf16 arrays as uint16 bit views), written to ``<path>.tmp`` and
-        renamed over ``path``."""
+        renamed over ``path``. After a memmap-emit build the emit directory
+        already holds the large arrays in this layout: they are flushed,
+        ``centroids.npy`` and ``meta.json`` added, and the directory renamed
+        to ``path``, with no array fetched or written again."""
         self._require_built()
         path = Path(path)
+        if self._emit_dir is not None:
+            emit = self._emit_dir
+            for a in self._emit_arrays:
+                a.flush()
+            np.save(emit / "centroids.npy", _host(self.centroids))
+            n_segs = sum(1 for f in emit.iterdir() if f.name.startswith("rescore_"))
+            (emit / "meta.json").write_text(json.dumps(dict(self._meta(), rescore_segments=n_segs)))
+            self._emit_dir, self._emit_arrays = None, []
+            if emit != path:
+                if path.exists():
+                    shutil.rmtree(path)
+                emit.rename(path)
+            return
         tmp = path.with_name(path.name + ".tmp")
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
         meta = self._meta()
-        bf16_bits = lambda t: t.view(torch.int16).cpu().numpy().view(np.uint16)  # noqa: E731
         np.save(tmp / "part_int8.npy",
-                self.part_int8.cpu().numpy() if meta["int8_blocks"] else bf16_bits(self.part_int8))
-        np.save(tmp / "centroids.npy", self.centroids.cpu().numpy())
-        np.save(tmp / "part_rows.npy", self.part_rows.cpu().numpy())
-        np.save(tmp / "part_scale.npy", self.part_scale.cpu().numpy())
+                _host(self.part_int8) if meta["int8_blocks"] else _bf16_host_bits(self.part_int8))
+        np.save(tmp / "centroids.npy", _host(self.centroids))
+        np.save(tmp / "part_rows.npy", _host(self.part_rows))
+        np.save(tmp / "part_scale.npy", _host(self.part_scale))
         for i, s in enumerate(self.corpus_bf16):
-            np.save(tmp / f"rescore_{i}.npy", bf16_bits(s))
+            np.save(tmp / f"rescore_{i}.npy", _bf16_host_bits(s))
         (tmp / "meta.json").write_text(json.dumps(meta))
         if path.exists():
             shutil.rmtree(path)
@@ -682,9 +1006,9 @@ class PartitionedANN:
     def get_stats(self) -> AnnStats:
         if self.centroids is None:
             return AnnStats()
-        int8_b = self.part_int8.numel() * self.part_int8.element_size() + 4 * self.part_scale.numel()
-        res_b = 2 * sum(s.numel() for s in self.corpus_bf16)
-        total = int8_b + res_b + 4 * self.part_rows.numel() + 4 * self.centroids.numel()
+        int8_b = _nbytes(self.part_int8) + 4 * _count(self.part_scale)
+        res_b = 2 * sum(_count(s) for s in self.corpus_bf16)
+        total = int8_b + res_b + 4 * _count(self.part_rows) + 4 * _count(self.centroids)
         return AnnStats(
             num_vectors=self.num_vectors,
             num_partitions=int(self.centroids.shape[0]),

@@ -23,9 +23,10 @@ case-level recall of query-shaped probes (:mod:`.tuning`), or by the
 row-level ``tune_nprobe`` on 64 sampled rows when the corpus yields no
 probe; ``save_artifacts`` persists the tuned nprobe with the ANN.
 
-Paths of later slices raise ``NotImplementedError`` rather than diverge:
-pooling selection (``vector.pooling`` other than ``"mean"`` with no
-embedder passed) and encoder pretraining come with the training slice.
+With no embedder passed and ``vector.pooling`` other than ``"mean"``, the
+pooling is picked on probe merit (:func:`..models.train.select_pooling_guarded`,
+over the first 2,000 stored cases). Encoder pretraining comes with the
+training slice: ``pretrain_steps > 0`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -62,9 +63,10 @@ EMBED_FLUSH = 8192
 @dataclass
 class BuildReport:
     """What the build did and where its time went: ``seconds`` in all, of
-    which the corpus vocab, the chunk embedding, the freeze (tries and
-    ANN) and the nprobe tuning (``tune_seconds``, of which embedding the
-    probes ``tune_probe_seconds``); the rest is text processing and trie
+    which the corpus vocab (with the pooling selection), the chunk
+    embedding, the freeze (tries and ANN) and the nprobe tuning
+    (``tune_seconds``, of which embedding the probes
+    ``tune_probe_seconds``); the rest is text processing and trie
     inserts."""
 
     cases: int = 0
@@ -98,18 +100,14 @@ def build_indexes(
 ) -> BuiltIndexes:
     """Build all frozen search artifacts from the document store, on
     ``device`` (default ``"cuda"``). With no ``embedder``, a WordPiece
-    vocab is trained on the corpus and the encoder comes from
-    ``config.vector.model`` (its checkpoint, else a seeded init). With
+    vocab is trained on the corpus, the encoder comes from
+    ``config.vector.model`` (its checkpoint, else a seeded init) and the
+    pooling is selected unless ``vector.pooling`` is ``"mean"``. With
     ``tune_recall``, the ANN's nprobe is tuned to that case-level
     recall@10 (:func:`_tune_nprobe`)."""
     if pretrain_steps > 0:
-        raise NotImplementedError("encoder pretraining comes with the training slice")
-    if embedder is None and config.vector.pooling != "mean":
         raise NotImplementedError(
-            f"vector.pooling={config.vector.pooling!r} selects the pooling by training "
-            "(select_pooling_guarded), which comes with the training slice; use 'mean' "
-            "or pass an embedder"
-        )
+            "encoder pretraining comes with ROADMAP.md §1 slice 4 (training)")
     dev = resolve_device(device)
     t0 = time.perf_counter()
     tp = text_processor or TextProcessor(config.text_processing)
@@ -121,6 +119,20 @@ def build_indexes(
             (text for _, text in storage.iter_cases() if text), vocab_size=8192
         )
         embedder = Embedder(config.vector.model, tokenizer=WordPieceTokenizer(vocab), device=dev)
+        if config.vector.pooling != "mean":
+            from ..models.train import select_pooling_guarded
+
+            docs = []
+            for i, (_meta, text) in enumerate(storage.iter_cases()):
+                if i >= 2000:
+                    break
+                if text:
+                    docs.append(tp.extract_sentences(tp.normalize_text(text)))
+            rec = select_pooling_guarded(
+                embedder, docs, sif_a=config.vector.sif_a,
+                force=None if config.vector.pooling == "auto" else "sif",
+            )
+            _log.info("pooling selection: %s", rec)
         report.vocab_seconds = time.perf_counter() - t0
     vector = VectorIndex(config.vector, embedder=embedder, device=dev)
 
@@ -248,7 +260,9 @@ def update_indexes(
         vector.ann = PartitionedANN(vector.config.hnsw, device=vector.device)
         vector.ann.tuned_nprobe = live.tuned_nprobe
         if live.centroids is not None:
-            vector.ann.build(vector.vectors, reuse_centroids=live.centroids.cpu().numpy())
+            cent = live.centroids  # a host array while a streamed index waits for its first search
+            vector.ann.build(vector.vectors, reuse_centroids=np.asarray(
+                cent.cpu() if hasattr(cent, "cpu") else cent))
         else:
             vector.ann.build(vector.vectors)
     ann_seconds = time.perf_counter() - t

@@ -14,6 +14,8 @@ the attention scores and context are f32 sums of bf16 products.
 
 :func:`load_hf_checkpoint` reads a local HuggingFace checkpoint into the
 same layout, as the JAX package's loader does (:331-403 there).
+:func:`count_token_ids` and :func:`sif_weights_from_counts` (numpy, :296-325
+there) give the SIF pooling weights.
 """
 
 from __future__ import annotations
@@ -288,3 +290,27 @@ class MiniLM(nn.Module):
         pooled = summed / counts
         norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
         return pooled / torch.clamp(norm, min=1e-12)
+
+
+def sif_weights_from_counts(counts: np.ndarray, a: float = 1e-3) -> np.ndarray:
+    """Smoothed-inverse-frequency pooling weights ``a / (a + p(t))`` from
+    corpus token-id counts, ``p(t)`` the token's corpus probability; all 1.0
+    when nothing was counted. ``[vocab]`` f32 (the scale does not matter:
+    the weighted mean divides by the weights' sum)."""
+    counts = np.asarray(counts, np.float64)
+    total = counts.sum()
+    if total <= 0:
+        return np.ones(counts.shape, np.float32)
+    p = counts / total
+    return (a / (a + p)).astype(np.float32)
+
+
+def count_token_ids(tokenizer, texts, vocab_size: int, max_len: int = 512) -> np.ndarray:
+    """Token-id counts over ``texts`` (any iterable), tokenized on the host
+    and truncated at ``max_len``: the input of :func:`sif_weights_from_counts`."""
+    counts = np.zeros(vocab_size, np.int64)
+    for t in texts:
+        ids, mask = tokenizer.encode(t, max_len)
+        n = int(np.sum(mask))
+        np.add.at(counts, np.asarray(ids[:n], np.int64), 1)
+    return counts

@@ -1,6 +1,6 @@
-"""Retrieval-quality probes for the semantic encoder (port of the part of
-``trie_semantic_search_tpu/models/quality.py`` the build-time quality gate
-calls).
+"""Retrieval-quality probes for the semantic encoder (port of
+``trie_semantic_search_tpu/models/quality.py``: what the build-time quality
+gate, the pooling selection and ``eval-retrieval`` call).
 
 Held-out probes are derived from corpus sentences, never verbatim corpus
 strings: the second half of a sentence (``"half"``), and a synonym-swap +
@@ -8,11 +8,13 @@ stopword-drop rewrite (``"paraphrase"``). :func:`build_probes` draws them
 with the same numpy generator as the JAX package, so both packages build
 the same probes from the same documents. :func:`evaluate_embedder_direct`
 ranks a chunk sample by exact cosine and reports MRR and recall@{1,5,k} of
-each probe's source case.
+each probe's source case. :func:`evaluate_engine` scores the probes
+through a whole ``SearchEngine``, and :func:`evaluate_stages` splits that
+into the exact case-level oracle over every chunk and the ANN alone at the
+index's tuned nprobe.
 
-``evaluate_engine``, ``evaluate_stages`` and ``pair_ranking_accuracy`` (the
-``eval-retrieval`` command's engine-level metrics) come with the training
-slice.
+``pair_ranking_accuracy`` (held-out pairs of the training slice) comes
+with that slice.
 """
 
 from __future__ import annotations
@@ -112,6 +114,88 @@ def build_probes(
     return probes[:max_probes]
 
 
+def _aggregate(ranks: dict[str, list[float]], k: int, recall_1_5: bool = True) -> dict:
+    """Per probe kind (and ``"all"``): n, MRR and recall@{1, 5,} k of the
+    reciprocal ranks (0 for a miss), rounded to 4 places."""
+
+    def agg(rr: list[float]) -> dict:
+        a = np.asarray(rr, np.float64)
+        out = {"n": int(len(a)), "mrr": round(float(a.mean()), 4)}
+        if recall_1_5:
+            out["recall_at_1"] = round(float((a >= 1.0).mean()), 4)
+            out["recall_at_5"] = round(float((a >= 1 / 5).mean()), 4)
+        out[f"recall_at_{k}"] = round(float((a > 0).mean()), 4)
+        return out
+
+    return {kind: agg(rr) for kind, rr in ranks.items()}
+
+
+def _rank_of(p: Probe, ranked_cases: Sequence[int], k: int) -> float:
+    """Reciprocal rank of ``p``'s source case in the first ``k`` entries."""
+    for pos, c in enumerate(ranked_cases[:k]):
+        if int(c) == p.target_case_row:
+            return 1.0 / (pos + 1)
+    return 0.0
+
+
+def evaluate_engine(
+    engine,  # search.engine.SearchEngine
+    columns,  # storage.columns.MetadataColumns (case row <-> case id)
+    probes: Sequence[Probe],
+    k: int = 10,
+    batch: int = 32,
+) -> dict:
+    """MRR and recall@{1,5,k} of each probe's source case through the whole
+    engine: semantic-only queries (no prefix walk, ``min_similarity`` 0,
+    no filters) in batches of ``batch``."""
+    from ..core.types import SearchConfig
+    from ..search.engine import SearchQuery
+
+    id_to_row = {cid: i for i, cid in enumerate(columns.case_ids)}
+    ranks: dict[str, list[float]] = {}
+    cfg = SearchConfig(max_results=k, min_similarity=0.0, enable_prefix=False)
+    for lo in range(0, len(probes), batch):
+        chunk = probes[lo : lo + batch]
+        results = engine.search_batch([SearchQuery(query=p.query, max_results=k, config=cfg) for p in chunk])
+        for p, rs in zip(chunk, results):
+            rank = _rank_of(p, [id_to_row.get(r.case_metadata.id, -1) for r in rs], k)
+            ranks.setdefault(p.kind, []).append(rank)
+            ranks.setdefault("all", []).append(rank)
+    return _aggregate(ranks, k)
+
+
+def evaluate_stages(engine, columns, probes: Sequence[Probe], k: int = 10) -> dict:
+    """MRR stage by stage over the whole index, case-level with ties to the
+    lower row: ``exact_full``, the exact cosine over every chunk (the
+    tuner's oracle, :func:`..index.tuning.case_level_oracle`), and
+    ``ann_only``, the ANN at the index's tuned nprobe with no lexical boost
+    or merge (:func:`..index.tuning._served_cases`); ``tuned_nprobe`` too.
+    The engine's own MRR is :func:`evaluate_engine`'s. An ANN that cannot
+    probe gives ``ann_only_error`` instead."""
+    from ..index.tuning import _served_cases, case_level_oracle
+
+    vector = engine.vector_index
+    embs = vector.embedder.embed([p.query for p in probes]).embedding
+    chunk_case = np.asarray(vector.refs)[:, 0]
+
+    def mrr_from_lists(lists: Sequence[Sequence[int]]) -> dict:
+        ranks: dict[str, list[float]] = {}
+        for p, served in zip(probes, lists):
+            rank = _rank_of(p, served, k)
+            ranks.setdefault(p.kind, []).append(rank)
+            ranks.setdefault("all", []).append(rank)
+        return _aggregate(ranks, k, recall_1_5=False)
+
+    exact = case_level_oracle(vector.vectors, chunk_case, embs, k)
+    nprobe = getattr(vector.ann, "tuned_nprobe", None) or getattr(vector.ann, "default_nprobe", 0)
+    out = {"exact_full": mrr_from_lists(exact), "tuned_nprobe": int(nprobe)}
+    try:
+        out["ann_only"] = mrr_from_lists(_served_cases(vector.ann, chunk_case, embs, k, int(nprobe)))
+    except Exception as e:  # an ANN without partitions to probe
+        out["ann_only_error"] = str(e)
+    return out
+
+
 def evaluate_embedder_direct(
     embedder,  # models.embedder.Embedder
     chunk_texts: Sequence[str],
@@ -151,15 +235,4 @@ def evaluate_embedder_direct(
                     break
             ranks.setdefault(p.kind, []).append(rank)
             ranks.setdefault("all", []).append(rank)
-
-    def agg(rr: list[float]) -> dict:
-        a = np.asarray(rr, np.float64)
-        return {
-            "n": int(len(a)),
-            "mrr": round(float(a.mean()), 4),
-            "recall_at_1": round(float((a >= 1.0).mean()), 4),
-            "recall_at_5": round(float((a >= 1 / 5).mean()), 4),
-            f"recall_at_{k}": round(float((a > 0).mean()), 4),
-        }
-
-    return {kind: agg(rr) for kind, rr in ranks.items()}
+    return _aggregate(ranks, k)

@@ -104,6 +104,7 @@ class FusedHybridSearch:
         self.ann_mode = ann_mode
         if ann_mode == "partitioned":
             ann._require_built()
+            ann._ensure_device()  # a streamed index's arrays may still be on the host
             self.ann = ann
             self.corpus_q = self.corpus_scale = None
             from ..ops.scan_kernels import partition_filter_columns
