@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's ingest, index build and serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's ingest, pretraining, index build and serving path on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -146,6 +146,34 @@ What it does, in order (any failure exits non-zero before the last line):
    top 10's overlap with the oracle's; ``save_artifacts`` →
    ``load_artifacts``, which must keep the tuned nprobe and serve B=8 and
    B=64 name queries their case first.
+6c. T, pretraining, over a store of its own: 8,192 cases of eight seeded
+   sentences each (words of the training synonym lexicon, of ``WORDS`` with
+   their digits spelled as letters, and view stopwords; a digit only in
+   the case number), the corpus vocab and the 2,000-case sample the
+   streaming builder pretrains on. The share of in-batch negatives the
+   Jaccard mask drops in the first 10 batches must stay at or under 0.5.
+   T0: MiniLM-L6 at full width, one batch of B=32, L=64 from
+   ``batches_from_pairs`` through the port's step on the card and on the
+   CPU from the same seeded parameters at f32 (TF32 off): the loss, the
+   accuracy, every gradient leaf, the global norm before and after the
+   clip, and the parameters after 3 AdamW steps (warmup 1), each within
+   the tolerance it prints. T1: ``pretrain_encoder_guarded`` at its
+   defaults (B=32, max_len 64, views, Jaccard 0.5, scrubbing, bf16) for
+   300 steps: pairs, steps/s, the loss and accuracy every 50 steps, the
+   guardrail's MRRs and pick (the weights with the higher MRR kept; a kept
+   init equal to its copy bitwise); timed alone beside it: the pair mining,
+   300 batches drawn on the host, a step on drawn batches and 20 steps
+   under ``torch.profiler`` (the card's busy share). T2: ``cli build-index
+   --streaming --shard-chunks 2048`` over that store with an empty vector
+   directory (it pretrains 300 steps, saves the encoder, streams),
+   SIGKILLed at 6 shards (its log: ``chiprun_out/t2_build.log``), resumed
+   in this process (counts reset just before, read just after: path
+   ``pretrain_build``): no pretraining, the saved encoder files' sha256
+   unchanged, only the chunks after the watermark embedded, the tuner
+   (every probe and rescore call held against the plain versions, the
+   pick checked against the steps) and the quality gate finished; the
+   tuner's probes through ``SearchEngine`` at B=64 against the exact
+   case-level oracle.
 7. Serve: encoded text batches through ``FusedHybridSearch.query_batch``
    with the engine's settings (k=32 and the search config's defaults:
    overfetch 4, recall target 0.97, flat escalation 0.01): B=8 and B=64
@@ -197,7 +225,8 @@ What it does, in order (any failure exits non-zero before the last line):
    (``chiprun_out/h2_serve.log``). Then, from an empty store with the
    default ``[vector] pooling = "auto"``: ``ingest --source mock`` (3
    cases processed), the same again (3 skipped), ``build-index
-   --tune-recall 0.95`` (the pooling pick from its log; the tuner skipped
+   --pretrain-steps 20`` (its log must carry the pretraining report),
+   ``build-index --tune-recall 0.95`` (the pooling pick from its log; the tuner skipped
    at 3 cases) and ``search "miranda v. arizona"`` (Miranda first). Each
    step's seconds.
 
@@ -209,10 +238,11 @@ variant, which the serving paths must not launch) and ``launches_by_path``
 on each path (``build``: phase 5's recall search; ``case_tuner``: phase
 5's case-level tuner; ``stream_ann``: S1's first search; ``stream_build``:
 S2's resumed build; ``eval``: S2's evaluation; ``tune``: phase 6b's tuned
-build; ``http``: phase 10). Each kernel's ``max_abs_err`` is the largest
-difference from its plain version over the kernel phase and every call
-held on the ``build``, ``case_tuner``, ``stream_ann``, ``stream_build``,
-``eval`` and ``tune`` paths. The last line is
+build; ``pretrain_build``: T2's resumed build; ``http``: phase 10). Each
+kernel's ``max_abs_err`` is the largest difference from its plain version
+over the kernel phase and every call held on the ``build``,
+``case_tuner``, ``stream_ann``, ``stream_build``, ``eval``, ``tune`` and
+``pretrain_build`` paths. The last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 
@@ -224,6 +254,7 @@ variants of the int8 top-k's wgmma kernel (``TSS_INT8_TOPK_ABLATE``) and
 prints the device time of each at B=256, k=32 over the corpus of phase 3.
 ``--only stream`` runs phases 1, 2, 5, 5b, 6 and 6a: the builds and their
 kernel checks, with no kernel timing, serving, store or engine.
+``--only train`` runs phases 1, 2 and 6c: pretraining with its own store.
 """
 
 from __future__ import annotations
@@ -1834,6 +1865,73 @@ def pipeline_phase(torch, np, seed: int, work: Path) -> dict:
 S2_KILL_SHARDS, S2_VECTOR_TOL = 6, 1e-5
 
 
+def streaming_cli_killed(toml: Path, wd: Path, shards: int, log_path: Path, keep: Path,
+                         extra: tuple[str, ...] = (), limit: float = 600.0) -> tuple[float, float, int]:
+    """``cli build-index --streaming --work-dir wd *extra`` as a
+    subprocess, SIGKILLed once its manifest records ``shards`` shards; its
+    log goes to ``log_path`` and is copied to ``keep``. Returns the start
+    and kill times and its exit code."""
+    import signal
+
+    from trie_semantic_search_tpu_torch.index.streaming import _Manifest
+
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "trie_semantic_search_tpu_torch.cli", "-c", str(toml), "build-index",
+             "--streaming", "--work-dir", str(wd), *extra], cwd=HERE, stdout=logf,
+            stderr=subprocess.STDOUT)
+    try:
+        while len(_Manifest.load(wd / "manifest.json").shards) < shards:
+            if proc.poll() is not None:
+                raise AssertionError(f"build-index --streaming exited {proc.returncode} before "
+                                     f"{shards} shards: {log_path.read_text()[-3000:]}")
+            if time.perf_counter() - t0 > limit:
+                raise AssertionError(f"no {shards} shards within {limit:.0f} s")
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait()
+        t_kill = time.perf_counter()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.copy(log_path, keep)
+    return t0, t_kill, proc.returncode
+
+
+def engine_vs_oracle(np, cfg, storage, steps: list[dict], nprobe: int, out: dict):
+    """Over the saved artifacts: ``load_artifacts`` and ``SearchEngine``,
+    then the tuner's probes through ``search_batch`` (``min_similarity``
+    -1), each top 10 cases against the exact case-level oracle's, beside
+    the ANN alone at the tuned ``nprobe`` from the sweep's ``steps``. The
+    figures go to ``out``; returns the engine and the loaded artifacts."""
+    from trie_semantic_search_tpu_torch.core.types import SearchConfig
+    from trie_semantic_search_tpu_torch.index import tuning
+    from trie_semantic_search_tpu_torch.index.builder import load_artifacts
+    from trie_semantic_search_tpu_torch.search.engine import SearchEngine, SearchQuery
+
+    t0 = time.perf_counter()
+    trie, vector, columns = load_artifacts(cfg, device="cuda")
+    engine = SearchEngine(cfg, storage, trie, vector, columns, device="cuda")
+    out["load_s"] = time.perf_counter() - t0
+    texts, embs = tuner_probes(storage, cfg, vector)
+    chunk_case = np.asarray(vector.refs)[:, 0]
+    oracle = tuning.case_level_oracle(vector.vectors, chunk_case, embs, 10)
+    res = engine.search_batch([SearchQuery(query=t, config=SearchConfig(min_similarity=-1.0)) for t in texts])
+    row_of = columns.row_of_case
+    eng = [len({row_of[x.case_metadata.id] for x in rs} & set(o)) / len(o) for rs, o in zip(res, oracle)]
+    at_pick = next(st for st in steps if st["nprobe"] == nprobe)
+    out.update(probes=len(texts), engine_overlap_mean=float(np.mean(eng)),
+               engine_overlap_min=float(np.min(eng)), ann_recall_mean=at_pick["mean"],
+               ann_recall_min=at_pick["min"])
+    log(f"  load_artifacts {out['load_s']:.1f} s; the tuner's {len(texts)} probes through "
+        f"SearchEngine.search_batch at B={len(texts)}: top 10 cases vs the exact case-level oracle, "
+        f"overlap mean {out['engine_overlap_mean']:.4f} min {out['engine_overlap_min']:.4f} (the ANN "
+        f"alone at nprobe {nprobe}: mean {at_pick['mean']:.4f} min {at_pick['min']:.4f})")
+    return engine, trie, vector, columns
+
+
 def stream_build_phase(torch, np, sk, work: Path, out_dir: Path) -> tuple[dict, dict, dict]:
     """Phase S2, the operator's streaming build over phase B's store, killed
     and resumed. Phase B's saved encoder is copied into a new vector
@@ -1854,16 +1952,11 @@ def stream_build_phase(torch, np, sk, work: Path, out_dir: Path) -> tuple[dict, 
     subprocesses over phase B's and the streamed artifacts. Returns the
     details and the launch counts of both paths."""
     import concurrent.futures
-    import signal
 
     from trie_semantic_search_tpu_torch.core.config import Config
-    from trie_semantic_search_tpu_torch.core.types import SearchConfig
-    from trie_semantic_search_tpu_torch.index import tuning
-    from trie_semantic_search_tpu_torch.index.builder import load_artifacts
     from trie_semantic_search_tpu_torch.index.streaming import StreamingIndexBuilder, _Manifest
     from trie_semantic_search_tpu_torch.index.trie import TrieIndex
     from trie_semantic_search_tpu_torch.models import quality
-    from trie_semantic_search_tpu_torch.search.engine import SearchEngine, SearchQuery
     from trie_semantic_search_tpu_torch.storage.store import StorageManager
 
     root = work / "s2"
@@ -1879,33 +1972,13 @@ def stream_build_phase(torch, np, sk, work: Path, out_dir: Path) -> tuple[dict, 
     wd = root / "work"
     out: dict = {}
 
-    t0 = time.perf_counter()
-    log_path = root / "build.log"
-    with open(log_path, "w") as logf:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "trie_semantic_search_tpu_torch.cli", "-c", str(toml), "build-index",
-             "--streaming", "--work-dir", str(wd)], cwd=HERE, stdout=logf, stderr=subprocess.STDOUT)
-    try:
-        while len(_Manifest.load(wd / "manifest.json").shards) < S2_KILL_SHARDS:
-            if proc.poll() is not None:
-                raise AssertionError(f"build-index --streaming exited {proc.returncode} before "
-                                     f"{S2_KILL_SHARDS} shards: {log_path.read_text()[-3000:]}")
-            if time.perf_counter() - t0 > 600:
-                raise AssertionError(f"no {S2_KILL_SHARDS} shards within 600 s")
-            time.sleep(0.05)
-        proc.send_signal(signal.SIGKILL)
-        proc.wait()
-        t_kill = time.perf_counter()
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        shutil.copy(log_path, out_dir / "s2_build.log")
+    t0, t_kill, rc = streaming_cli_killed(toml, wd, S2_KILL_SHARDS, root / "build.log",
+                                          out_dir / "s2_build.log")
     at_kill = _Manifest.load(wd / "manifest.json")
-    out.update(killed_after_s=t_kill - t0, returncode=proc.returncode, kill_shards=len(at_kill.shards),
+    out.update(killed_after_s=t_kill - t0, returncode=rc, kill_shards=len(at_kill.shards),
                kill_row=at_kill.next_row, kill_chunks=at_kill.chunks)
     log(f"  build-index --streaming SIGKILLed {out['killed_after_s']:.1f} s after its start (exit "
-        f"{proc.returncode}); the manifest records {len(at_kill.shards)} shards, watermark row "
+        f"{rc}); the manifest records {len(at_kill.shards)} shards, watermark row "
         f"{at_kill.next_row}, {at_kill.chunks} chunks; checkpoint {at_kill.trie_ckpt}")
 
     storage = StorageManager(cfg.storage)
@@ -1980,24 +2053,7 @@ def stream_build_phase(torch, np, sk, work: Path, out_dir: Path) -> tuple[dict, 
     log(f"  name, content (spill-built) and citation tries bitwise phase B's, refs equal, vectors "
         f"within {out['vector_max_diff']:.3g} of phase B's (tolerance {S2_VECTOR_TOL})")
 
-    t0 = time.perf_counter()
-    trie, vector, columns = load_artifacts(cfg, device="cuda")
-    engine = SearchEngine(cfg, storage, trie, vector, columns, device="cuda")
-    out["load_s"] = time.perf_counter() - t0
-    texts, embs = tuner_probes(storage, cfg, vector)
-    chunk_case = np.asarray(vector.refs)[:, 0]
-    oracle = tuning.case_level_oracle(vector.vectors, chunk_case, embs, 10)
-    res = engine.search_batch([SearchQuery(query=t, config=SearchConfig(min_similarity=-1.0)) for t in texts])
-    row_of = columns.row_of_case
-    eng = [len({row_of[x.case_metadata.id] for x in rs} & set(o)) / len(o) for rs, o in zip(res, oracle)]
-    at_pick = next(st for st in steps if st["nprobe"] == ann.tuned_nprobe)
-    out.update(probes=len(texts), engine_overlap_mean=float(np.mean(eng)),
-               engine_overlap_min=float(np.min(eng)), ann_recall_mean=at_pick["mean"],
-               ann_recall_min=at_pick["min"])
-    log(f"  load_artifacts {out['load_s']:.1f} s; the tuner's {len(texts)} probes through "
-        f"SearchEngine.search_batch at B={len(texts)}: top 10 cases vs the exact case-level oracle, "
-        f"overlap mean {out['engine_overlap_mean']:.4f} min {out['engine_overlap_min']:.4f} (the ANN "
-        f"alone at nprobe {ann.tuned_nprobe}: mean {at_pick['mean']:.4f} min {at_pick['min']:.4f})")
+    engine, trie, vector, columns = engine_vs_oracle(np, cfg, storage, steps, ann.tuned_nprobe, out)
 
     tp = engine._text_processor
     docs = []
@@ -2054,7 +2110,9 @@ def stream_build_phase(torch, np, sk, work: Path, out_dir: Path) -> tuple[dict, 
 #: and duplicates. The duplicate check scans the whole table twice per
 #: stored case, so the ingest time grows with the square of the count:
 #: 8,192 cases keep the script inside its time limit (with
-#: ``--ingest-cases 16384`` it ran 1,151 s on an H100 host, phase I 661 s)
+#: ``--ingest-cases 16384`` it ran 1,151 s on an H100 host, phase I 661 s).
+#: At 4,096 the tuned build's ANN has m = 320 slots, off the probe
+#: kernel's 128-slot rule, so its tuner would run no kernel
 ING_CASES, ING_PLANTED = 8192, 64
 #: phase I: duplicate-check scans timed on the table at the end of each
 #: eighth of the ingest
@@ -2304,6 +2362,399 @@ def ingest_phase(torch, np, sk, n_cases: int, seed: int, work: Path) -> tuple[di
     storage.close()
     del engine, from_disk, loaded, built
     torch.cuda.empty_cache()
+    return out, launches
+
+
+#: phase T: the store's cases and sentences per case; S2-style shards of
+#: the operator's build and the shards before its SIGKILL
+TRAIN_CASES, TRAIN_SENTS, TRAIN_SHARD_CHUNKS, TRAIN_KILL_SHARDS = 8192, 8, 2048, 6
+#: the streaming builder's pretraining defaults: steps, cases sampled by rowid
+TRAIN_STEPS, TRAIN_SAMPLE = 300, 2000
+#: T0: batch and length, AdamW steps (warmup 1); the loss's relative
+#: tolerance and each gradient leaf's, relative to the leaf's largest
+#: magnitude (f32 with TF32 off on both: cuBLAS and the CPU's BLAS sum in
+#: other orders; the embedding gather's backward adds with atomics)
+T0_B, T0_L, T0_STEPS, T0_LOSS_RTOL, T0_GRAD_RTOL = 32, 64, 3, 1e-5, 1e-4
+#: T: the largest share of in-batch negatives the Jaccard mask may drop
+#: before the corpus counts as not exercising the loss
+MASK_DROP_LIMIT = 0.5
+_DIGIT_LETTERS = str.maketrans("0123456789", "abcdefghij")
+
+
+def train_texts(np, seed: int) -> list[str]:
+    """Phase T's case texts: ``TRAIN_SENTS`` seeded sentences each of four
+    words of the training synonym lexicon, four of ``WORDS`` (their digits
+    spelled as letters), three view stopwords, shuffled; the only digits
+    are the case number, in the first sentence. Distinct sentences share
+    few tokens, so the Jaccard mask keeps most in-batch negatives (the
+    fixture's ``case_text`` is one template that scrubbing makes identical)."""
+    from trie_semantic_search_tpu_torch.models.train import _VIEW_STOPWORDS, TRAIN_SYNONYM_GROUPS
+
+    lex = np.asarray(sorted({w for g in TRAIN_SYNONYM_GROUPS for w in g}), dtype=object)
+    words = np.asarray([w.translate(_DIGIT_LETTERS) for w in WORDS], dtype=object)
+    stops = np.asarray(sorted(_VIEW_STOPWORDS), dtype=object)
+    rng = np.random.default_rng(seed + 11)
+    shape = (TRAIN_CASES, TRAIN_SENTS)
+    toks = np.concatenate([lex[rng.integers(0, len(lex), shape + (4,))],
+                           words[rng.integers(0, len(words), shape + (4,))],
+                           stops[rng.integers(0, len(stops), shape + (3,))]], axis=2)
+    toks = rng.permuted(toks, axis=2)
+    texts = []
+    for c in range(TRAIN_CASES):
+        sents = [" ".join(t) + "." for t in toks[c]]
+        sents[0] = f"In case {c} {sents[0]}"
+        texts.append(" ".join(s[0].upper() + s[1:] for s in sents))
+    return texts
+
+
+def train_store(np, CaseMetadata, db_path: str, seed: int) -> None:
+    """Phase T's sqlite store of ``TRAIN_CASES`` cases (``write_cases_fast``)."""
+    court_ids, dates = case_columns(np, TRAIN_CASES)
+    write_cases_fast(db_path, (
+        (CaseMetadata(id=uuid.UUID(int=c + 1), name=f"Trainee {c} v. State", citation="",
+                      court=COURTS[court_ids[c]], decision_date=EPOCH + dt.timedelta(days=int(dates[c])),
+                      word_count=len(text.split())), text)
+        for c, text in enumerate(train_texts(np, seed))))
+
+
+def t0_card_vs_cpu(torch, np, tok, model_config, pairs) -> dict:
+    """T0: one batch through the port's step on the card and on the CPU
+    from the same seeded parameters at f32 compute (TF32 off): the loss,
+    the accuracy, every gradient leaf, the global norm before and after the
+    clip, then the parameters after ``T0_STEPS`` AdamW steps (warmup 1, the
+    first at learning rate 0). The parameters' tolerance is the sum of the
+    steps' learning rates: Adam divides by sqrt(v), so where a gradient is
+    f32 noise an element's update can move by up to the learning rate."""
+    from trie_semantic_search_tpu_torch.models import minilm, train
+
+    it = train.batches_from_pairs(pairs, tok, T0_B, T0_L, false_negative_jaccard=0.5, device="cpu")
+    batches = [next(it) for _ in range(T0_STEPS)]
+    devs = {"cpu": "cpu", "card": "cuda"}
+    models = {d: minilm.MiniLM(model_config, device=dev, seed=0, compute_dtype=torch.float32)
+              for d, dev in devs.items()}
+    for (k, a), (_, b) in zip(models["cpu"].leaves(), models["card"].leaves()):
+        if not torch.equal(a, b.cpu()):
+            raise AssertionError(f"the seeded init differs between the CPU and the card at {k}")
+    tcfg = train.TrainConfig(warmup_steps=1, total_steps=T0_STEPS)
+    opts = {d: train.make_optimizer(tcfg, m) for d, m in models.items()}
+    param_tol = sum(tcfg.learning_rate * opts["cpu"].factor(s) for s in range(T0_STEPS))
+    out: dict = {"steps": [], "grad_rtol": T0_GRAD_RTOL, "loss_rtol": T0_LOSS_RTOL, "param_tol": param_tol}
+    with models["cpu"].trainable(), models["card"].trainable():
+        for step, batch in enumerate(batches):
+            res = {}
+            for d, model in models.items():
+                t = time.perf_counter()
+                loss, acc = train.loss_and_grads(model, {k: v.to(devs[d]) for k, v in batch.items()},
+                                                 tcfg.temperature)
+                grads = [p.grad.detach().cpu().clone() for _, p in model.leaves()] if step == 0 else None
+                g_norm = opts[d].step()
+                clipped = torch.sqrt(sum(torch.sum(torch.square(p.grad)) for _, p in model.leaves()))
+                if d == "card":
+                    torch.cuda.synchronize()
+                res[d] = dict(loss=float(loss), acc=float(acc), g_norm=float(g_norm), clipped=float(clipped),
+                              grads=grads, s=time.perf_counter() - t)
+            c, g = res["cpu"], res["card"]
+            row = {k: (c[k], g[k]) for k in ("loss", "acc", "g_norm", "clipped", "s")}
+            if not (abs(g["loss"] - c["loss"]) <= T0_LOSS_RTOL * abs(c["loss"])
+                    and abs(g["acc"] - c["acc"]) <= 1 / T0_B + 1e-9
+                    and abs(g["g_norm"] - c["g_norm"]) <= T0_GRAD_RTOL * c["g_norm"]
+                    and abs(g["clipped"] - c["clipped"]) <= T0_GRAD_RTOL * c["clipped"]):
+                raise AssertionError(f"T0 step {step}: card vs CPU {row}")
+            if step == 0:  # each leaf's largest difference as a share of its tolerance
+                shares = []
+                for (k, _), a, b in zip(models["cpu"].leaves(), c["grads"], g["grads"]):
+                    d, top = float((a - b).abs().max()), float(a.abs().max())
+                    shares.append((d / (T0_GRAD_RTOL * top + 1e-9), k, d, top))
+                    if not d <= T0_GRAD_RTOL * top + 1e-9:
+                        raise AssertionError(f"T0: the gradient of {k} differs by {d:.3g} (largest {top:.3g})")
+                out["grad_worst"] = sorted(shares, reverse=True)[:3]
+            out["steps"].append(row)
+    diffs = sorted(((float((a.detach() - b.detach().cpu()).abs().max()), k)
+                    for (k, a), (_, b) in zip(models["cpu"].leaves(), models["card"].leaves())), reverse=True)
+    n_off = sum(int(((a.detach() - b.detach().cpu()).abs() > 1e-6).sum())
+                for (_, a), (_, b) in zip(models["cpu"].leaves(), models["card"].leaves()))
+    out.update(param_max_diff=diffs[0][0], param_worst=diffs[:3], params_off_1e6=n_off,
+               params=sum(p.numel() for p in models["cpu"].parameters()))
+    if not diffs[0][0] <= param_tol:
+        raise AssertionError(f"T0: after {T0_STEPS} AdamW steps the parameters differ by {diffs[:3]}")
+    return out
+
+
+def t1_pretrain(torch, np, storage, cfg, tok, docs) -> dict:
+    """T1: ``pretrain_encoder_guarded`` at its defaults (B=32, max_len 64,
+    views, Jaccard 0.5, scrubbing, bf16 compute) for ``TRAIN_STEPS`` steps
+    on the full-width encoder over ``docs``, its loop timed by wrapping
+    ``pretrain_encoder``; the loss and accuracy it logs; the guardrail's
+    pick, checked against its MRRs and, when it keeps ``"init"``, against
+    a copy of the init bitwise. Beside it, timed alone: the pair mining,
+    ``TRAIN_STEPS`` batches drawn on the host (tokenize, mask, copy to the
+    card), and 20 steps of the loop under ``torch.profiler`` (the card's
+    busy share) and on pre-drawn batches (a step without its batch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from trie_semantic_search_tpu_torch.models import minilm, train
+    from trie_semantic_search_tpu_torch.models.embedder import Embedder
+
+    out: dict = {}
+    t = time.perf_counter()
+    pairs = train.mine_view_pairs(docs, scrub_digits=True)
+    out.update(pairs=len(pairs), mine_s=time.perf_counter() - t)
+    it = train.batches_from_pairs(pairs, tok, 32, 64, false_negative_jaccard=0.5, device="cuda")
+    t = time.perf_counter()
+    drawn = [next(it) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    out["host_batches_s"] = time.perf_counter() - t
+    drops = [float((~b["neg_mask"]).sum()) / (32 * 31) for b in drawn[:10]]
+    out["mask_drop_share"] = float(np.mean(drops))
+    log(f"  {len(pairs)} view pairs from {len(docs)} cases in {out['mine_s']:.2f} s; the Jaccard mask "
+        f"drops {out['mask_drop_share']:.4f} of the off-diagonal pairs in the first 10 batches "
+        f"(limit {MASK_DROP_LIMIT}); {TRAIN_STEPS} batches drawn alone in {out['host_batches_s']:.2f} s")
+    if out["mask_drop_share"] > MASK_DROP_LIMIT:
+        raise AssertionError(f"the mask drops {out['mask_drop_share']:.3f} of the negatives: the corpus "
+                             "does not exercise the loss")
+
+    emb = Embedder(cfg.vector.model, tokenizer=tok, device="cuda")
+    init = {k: v.detach().clone() for k, v in emb.model.state_dict().items()}
+    loops: list[float] = []
+    orig = train.pretrain_encoder
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rep = orig(*a, **k)
+        torch.cuda.synchronize()
+        loops.append(time.perf_counter() - t)
+        return rep
+
+    train.pretrain_encoder = timed
+    try:
+        with logged_records("tss_torch.train") as records:
+            t = time.perf_counter()
+            rep = train.pretrain_encoder_guarded(emb, docs, steps=TRAIN_STEPS, max_len=64)
+            out["guarded_s"] = time.perf_counter() - t
+    finally:
+        train.pretrain_encoder = orig
+    loop_s = loops[0] - out["mine_s"]
+    out.update(report=rep, pretrain_s=loops[0], loop_s=loop_s, steps_per_s=TRAIN_STEPS / loop_s,
+               host_share=out["host_batches_s"] / loop_s, guardrail_s=out["guarded_s"] - loops[0],
+               curve=[r.args[:4] for r in records if r.msg.startswith("pretrain step")])
+    g = rep["guardrail"]
+    now = emb.model.state_dict()
+    same = all(torch.equal(now[k], v) for k, v in init.items())
+    if g["kept"] == "init":
+        if not (g["trained_mrr"] < g["init_mrr"] and same):
+            raise AssertionError(f"the guardrail kept 'init' ({g}); weights equal to the init: {same}")
+    elif not (g["trained_mrr"] >= g["init_mrr"] and not same):
+        raise AssertionError(f"the guardrail kept the trained weights ({g}); weights equal to the init: {same}")
+    log(f"  pretrain_encoder_guarded: {TRAIN_STEPS} steps in {loop_s:.2f} s ({out['steps_per_s']:.1f} steps/s; "
+        f"host batches {out['host_share']:.3f} of it, pair mining {out['mine_s']:.2f} s before it), "
+        f"guardrail {out['guardrail_s']:.2f} s; loss/acc " + ", ".join(
+            f"{s}: {loss:.4f}/{acc:.3f}" for s, _, loss, acc in out["curve"]))
+    log(f"  guardrail: trained MRR {g['trained_mrr']} vs init {g['init_mrr']} over {g['probes']} probes: "
+        f"kept {g['kept']} (the weights {'equal' if same else 'differ from'} the init copy)")
+
+    model = minilm.MiniLM(emb.model_config, device="cuda", seed=1)
+    opt = train.make_optimizer(train.TrainConfig(total_steps=40, warmup_steps=2), model)
+    with model.trainable():
+        for b in drawn[:3]:  # warm
+            train.train_step(model, opt, b, 0.05)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in drawn[3:23]:
+            train.train_step(model, opt, b, 0.05)
+        torch.cuda.synchronize()
+        out["step_ms"] = (time.perf_counter() - t) / 20 * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(20):
+                train.train_step(model, opt, next(it), 0.05)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    on_dev = [e for e in prof.key_averages() if on_device(e)]
+    device_ms = sum(dev_us(e) for e in on_dev) / 1e3
+    out.update(profile_wall_ms=wall_ms / 20, profile_device_ms=device_ms / 20, busy_share=device_ms / wall_ms,
+               kernels_per_step=sum(e.count for e in on_dev) / 20)
+    log(f"  a step on drawn batches {out['step_ms']:.2f} ms; 20 steps of the loop under torch.profiler: "
+        f"{out['profile_wall_ms']:.2f} ms a step, device {out['profile_device_ms']:.2f} ms (busy "
+        f"{out['busy_share']:.3f}), {out['kernels_per_step']:.0f} device events a step")
+    del model, opt, drawn, emb
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(torch, np, sk, seed: int, work: Path, out_dir: Path) -> tuple[dict, dict]:
+    """Phase T, pretraining. Its own store of ``TRAIN_CASES`` cases
+    (:func:`train_texts`), the corpus vocab and the 2,000-case sample the
+    streaming builder takes; T0 (:func:`t0_card_vs_cpu`), T1
+    (:func:`t1_pretrain`); then T2, the operator's path: ``cli
+    build-index --streaming --shard-chunks 2048`` over that store with an
+    empty vector directory (it pretrains ``TRAIN_STEPS`` steps, saves the
+    encoder, streams), SIGKILLed at ``TRAIN_KILL_SHARDS`` shards, then
+    resumed in this process (counts reset just before, read just after:
+    path ``pretrain_build``). The resume must pretrain nothing, leave the
+    saved encoder's files' sha256 as they were, embed only the chunks
+    after the watermark, and finish the tuner (its probe and rescore calls
+    held against the plain versions; the pick checked against its steps)
+    and the quality gate; the tuner's probes are then served through
+    ``SearchEngine`` at B=64. Returns the details and the path's counts."""
+    import hashlib
+
+    from trie_semantic_search_tpu_torch.core.config import Config
+    from trie_semantic_search_tpu_torch.core.types import CaseMetadata
+    from trie_semantic_search_tpu_torch.index.streaming import StreamingIndexBuilder, _Manifest, _sample_docs
+    from trie_semantic_search_tpu_torch.models import minilm, train
+    from trie_semantic_search_tpu_torch.models.tokenizer import WordPieceTokenizer, train_wordpiece_vocab
+    from trie_semantic_search_tpu_torch.storage.store import StorageManager
+    from trie_semantic_search_tpu_torch.text.processor import TextProcessor
+
+    root = work / "train"
+    root.mkdir()
+    cfg = Config()
+    cfg.storage.db_path = str(root / "train.sqlite")
+    cfg.trie.index_path = str(root / "trie")
+    cfg.vector.hnsw.index_path = str(root / "vec")
+    toml = root / "config.toml"
+    cfg.save_to_file(toml)
+    out: dict = {}
+    t = time.perf_counter()
+    train_store(np, CaseMetadata, cfg.storage.db_path, seed)
+    out["store_s"] = time.perf_counter() - t
+    storage = StorageManager(cfg.storage)
+    tp = TextProcessor(cfg.text_processing)
+    t = time.perf_counter()
+    vocab = train_wordpiece_vocab((text for i, (_r, _m, text) in zip(range(10_000), storage.iter_cases_rowid())
+                                   if text), vocab_size=8192)
+    tok = WordPieceTokenizer(vocab)
+    docs = _sample_docs(storage, tp, TRAIN_SAMPLE)
+    out.update(vocab_s=time.perf_counter() - t, vocab=len(tok), sample_cases=len(docs))
+    model_config = minilm.config_for_model_type(cfg.vector.model.model_type, vocab_size=max(len(tok), 128),
+                                                max_position=cfg.vector.model.max_sequence_length)
+    log(f"  store of {TRAIN_CASES} cases ({TRAIN_SENTS} sentences each) {out['store_s']:.1f} s; corpus vocab "
+        f"{len(tok)} and the {len(docs)}-case sample {out['vocab_s']:.1f} s; MiniLM hidden "
+        f"{model_config.hidden_size}, {model_config.num_layers} layers, {model_config.num_heads} heads, "
+        f"intermediate {model_config.intermediate_size}")
+
+    log(f"  T0: one batch (B={T0_B}, L={T0_L}) on the card vs the CPU at f32 (TF32 off), then {T0_STEPS} "
+        "AdamW steps (warmup 1)")
+    t = time.perf_counter()
+    out["t0"] = t0 = t0_card_vs_cpu(torch, np, tok, model_config, train.mine_view_pairs(docs, scrub_digits=True))
+    out["t0"]["seconds"] = time.perf_counter() - t
+    for i, r in enumerate(t0["steps"]):
+        log(f"    step {i + 1}: loss {r['loss'][0]:.6f} / {r['loss'][1]:.6f}, acc {r['acc'][0]:.4f} / "
+            f"{r['acc'][1]:.4f}, global norm {r['g_norm'][0]:.6f} / {r['g_norm'][1]:.6f}, clipped "
+            f"{r['clipped'][0]:.6f} / {r['clipped'][1]:.6f} (CPU / card); seconds {r['s'][0]:.2f} / {r['s'][1]:.3f}")
+    log(f"    tolerances: loss {T0_LOSS_RTOL} relative; each gradient leaf {T0_GRAD_RTOL} of its largest "
+        f"magnitude + 1e-9 (the norms {T0_GRAD_RTOL} relative); the leaves nearest theirs (share of the "
+        f"tolerance, leaf, max diff, largest): " + "; ".join(
+            f"{sh:.3g} {k} {d:.3g} {top:.3g}" for sh, k, d, top in t0["grad_worst"]) + "; parameters after "
+        f"{T0_STEPS} steps {t0['param_tol']:.3g} (the steps' summed learning rates): max "
+        f"{t0['param_max_diff']:.3g} ({t0['param_worst']}), {t0['params_off_1e6']} of {t0['params']} "
+        f"elements off by more than 1e-6; T0 {t0['seconds']:.1f} s")
+
+    log(f"  T1: {TRAIN_STEPS} steps of pretrain_encoder_guarded at its defaults (bf16) on the sample")
+    out["t1"] = t1_pretrain(torch, np, storage, cfg, tok, docs)
+    storage.close()
+
+    def encoder_sha() -> dict[str, str]:
+        vec = root / "vec"
+        return {str(f.relative_to(vec)): hashlib.sha256(f.read_bytes()).hexdigest()
+                for f in sorted(vec.rglob("*")) if f.is_file()}
+
+    wd = root / "work"
+    t0s, t_kill, rc = streaming_cli_killed(toml, wd, TRAIN_KILL_SHARDS, root / "build.log",
+                                           out_dir / "t2_build.log",
+                                           extra=("--shard-chunks", str(TRAIN_SHARD_CHUNKS)))
+    text = (root / "build.log").read_text()
+    at_kill = _Manifest.load(wd / "manifest.json")
+    saved = encoder_sha()
+    stamps = [(ln[:19], ln) for ln in text.splitlines() if "pretrain step" in ln or "pooling selection" in ln
+              or "streaming-build pretraining" in ln]
+    rep_line = next((ln for _, ln in stamps if "streaming-build pretraining" in ln), None)
+    if rep_line is None or not any(k.startswith("encoder/") for k in saved):
+        raise AssertionError(f"the killed build logged no pretraining or saved no encoder: {text[-3000:]}")
+    # the logged steps (every 50th) and their 1 s stamps: the loop's rate in the CLI
+    logged = [(int(ln.split("pretrain step ", 1)[1].split("/", 1)[0]), dt.datetime.fromisoformat(s))
+              for s, ln in stamps if "pretrain step" in ln]
+    span_s = (logged[-1][1] - logged[0][1]).total_seconds() if len(logged) > 1 else None
+    out["t2"] = t2 = dict(killed_after_s=t_kill - t0s, returncode=rc, kill_shards=len(at_kill.shards),
+                          kill_row=at_kill.next_row, kill_chunks=at_kill.chunks,
+                          logged_steps=[n for n, _ in logged], logged_span_s=span_s,
+                          steps_per_s=(logged[-1][0] - logged[0][0]) / span_s if span_s else None,
+                          pretrain_report=rep_line.split("streaming-build pretraining: ", 1)[1],
+                          encoder_files=sorted(saved))
+    log(f"  T2: build-index --streaming --shard-chunks {TRAIN_SHARD_CHUNKS} over the empty vector directory "
+        f"SIGKILLed {t2['killed_after_s']:.1f} s after its start (exit {rc}) at {len(at_kill.shards)} shards, "
+        f"watermark row {at_kill.next_row} ({at_kill.chunks} chunks); its log stamps pretraining steps "
+        f"{logged[0][0] if logged else None}..{logged[-1][0] if logged else None} {span_s} s apart (1 s stamps: "
+        f"{t2['steps_per_s']} steps/s); report {t2['pretrain_report']}")
+
+    storage = StorageManager(cfg.storage)
+    guarded: list = []
+    orig = train.pretrain_encoder_guarded
+
+    def counting(*a, **k):
+        guarded.append(1)
+        return orig(*a, **k)
+
+    train.pretrain_encoder_guarded = counting
+    try:
+        sb = StreamingIndexBuilder(storage, cfg, work_dir=wd, shard_chunks=TRAIN_SHARD_CHUNKS, device="cuda")
+    finally:
+        train.pretrain_encoder_guarded = orig
+    embedded: list[int] = []
+    write = sb._write_shard
+
+    def counted(manifest, texts, refs):
+        embedded.append(len(texts))
+        write(manifest, texts, refs)
+
+    sb._write_shard = counted
+    with (logged_records("tss_torch.index.tuning") as records,
+          logged_records("tss_torch.train") as trained,
+          kept_calls(sk, ("probe_candidates_cuda", "gather_rescore_cuda")) as calls):
+        sk.reset_launch_counts()
+        t_resume = time.perf_counter()
+        built = sb.build(resume=True)
+        torch.cuda.synchronize()
+        launches = dict(sk.LAUNCHES)
+    t2.update(kill_to_resume_s=t_resume - t_kill, resume_s=time.perf_counter() - t_resume, launches=launches)
+    r, ann = built.report, built.vector.ann
+    after = encoder_sha()
+    quality_path = root / "vec" / "quality.json"
+    if guarded or trained or {k: after.get(k) for k in saved} != saved:
+        raise AssertionError(f"the resume pretrained ({len(guarded)} calls, {len(trained)} records) or changed "
+                             f"the saved encoder: {[k for k in saved if after.get(k) != saved[k]]}")
+    if not (0 < r.resumed_from_row == at_kill.next_row and r.cases == TRAIN_CASES
+            and sum(embedded) == r.embedded_chunks == r.content_chunks - at_kill.chunks > 0):
+        raise AssertionError(f"T2 resume: from row {r.resumed_from_row} (watermark {at_kill.next_row}), "
+                             f"{r.cases} cases, {r.content_chunks} chunks, embedded {sum(embedded)}")
+    if not quality_path.exists():
+        raise AssertionError("the resumed build ran no quality gate (no quality.json)")
+    quality = json.loads(quality_path.read_text())
+    oracle_s, steps, settled = tuner_steps(records)
+    t2.update(cases=r.cases, chunks=r.content_chunks, shards=r.shards, resumed_from_row=r.resumed_from_row,
+              embedded_chunks=r.embedded_chunks, chunks_per_s=r.chunks_per_second, nprobe=ann.tuned_nprobe,
+              finalize_s=r.finalize_seconds, sweep=steps, settled=settled, tune_oracle_s=oracle_s,
+              rule=check_pick(steps, ann.tuned_nprobe, 0.95, cfg.vector.hnsw.tune_min_recall or None),
+              quality_gate=dict(mode=quality["mode"], degraded=quality["degraded"],
+                                trained_mrr=quality["trained"]["all"]["mrr"],
+                                control_mrr=quality["control"]["all"]["mrr"]))
+    if launches["probe_candidates"] <= 0 or launches["gather_rescore"] <= 0:
+        raise AssertionError(f"the resumed build's tuner did not run the probe and rescore kernels: {launches}")
+    t2["plain_err"] = hold_against_plain(torch, sk, calls)
+    log(f"  resumed {t2['kill_to_resume_s']:.1f} s after the kill from row {r.resumed_from_row}: no pretraining, "
+        f"the {len(saved)} encoder files' sha256 unchanged; embedded only the {r.embedded_chunks} chunks after "
+        f"the watermark of {r.content_chunks} ({r.chunks_per_second:.0f} chunks/s); build {t2['resume_s']:.1f} s; "
+        f"tuned nprobe {ann.tuned_nprobe} in {len(steps)} steps ({t2['rule']}); quality gate {t2['quality_gate']}")
+    log(f"  launches on the pretrain_build path {launches}; the tuner's {held_summary(calls)} against the plain "
+        f"versions: probe bitwise, rescore within {t2['plain_err']['gather_rescore']:.3g}")
+    del calls
+    engine, *_ = engine_vs_oracle(np, cfg, storage, steps, ann.tuned_nprobe, t2)
+    del engine, built, sb
+    storage.close()
+    torch.cuda.empty_cache()
+    shutil.rmtree(wd)
     return out, launches
 
 
@@ -2977,7 +3428,8 @@ def cli_fresh_lifecycle(root: Path) -> dict:
     """H2 from an empty store, as an operator starts: a TOML with the
     default ``[vector] pooling = "auto"``, then ``ingest --source mock``
     (the 3 landmark cases stored), ``ingest --source mock`` again (all 3
-    skipped), ``build-index --tune-recall 0.95`` (the pooling picked on
+    skipped), ``build-index --pretrain-steps 20`` (its log must carry the
+    pretraining report), ``build-index --tune-recall 0.95`` (the pooling picked on
     probe merit, its record read from the build's log; with 3 cases the
     tuner is skipped, as in the JAX package) and ``search "miranda v.
     arizona"`` (Miranda first, a case-name or exact hit), one after
@@ -3000,6 +3452,8 @@ def cli_fresh_lifecycle(root: Path) -> dict:
          lambda o: json.loads(o.splitlines()[-1])["processed"] == 3),
         ("ingest again", ["ingest", "--source", "mock"],
          lambda o: (lambda d: d["skipped"] == 3 and d["processed"] == 0)(json.loads(o.splitlines()[-1]))),
+        ("build-index --pretrain-steps 20", ["build-index", "--pretrain-steps", "20"],
+         lambda o: json.loads(o.splitlines()[-1])["cases"] == 3),
         ("build-index --tune-recall 0.95", ["build-index", "--tune-recall", "0.95"],
          lambda o: json.loads(o.splitlines()[-1])["cases"] == 3),
         ("search", ["search", "miranda v. arizona"],
@@ -3015,7 +3469,15 @@ def cli_fresh_lifecycle(root: Path) -> dict:
         steps[key] = dict(s=sec, out=out.splitlines()[-1] if first is None else
                           f"{first['case_metadata']['name']} ({first['match_type']})")
         log(f"  fresh store: {key} exit 0 in {sec:.1f} s: {steps[key]['out']}")
-        if key.startswith("build-index"):
+        if key.startswith("build-index --pretrain"):
+            rep = [ln.split("encoder pretraining: ", 1)[1] for ln in logs[0].splitlines()
+                   if "encoder pretraining: " in ln]
+            if not rep or "'steps': 20" not in rep[-1]:
+                raise AssertionError(f"build-index --pretrain-steps 20 logged no pretraining report: "
+                                     f"{logs[0][-2000:]}")
+            steps["pretraining"] = rep[-1]
+            log(f"  fresh store: pretraining report {rep[-1]}")
+        elif key.startswith("build-index"):
             pick = [ln.split("pooling selection: ", 1)[1] for ln in logs[0].splitlines()
                     if "pooling selection: " in ln]
             if not pick:
@@ -3029,13 +3491,14 @@ def cli_fresh_lifecycle(root: Path) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["kernels", "int8-ablations", "stream"],
+    ap.add_argument("--only", choices=["kernels", "int8-ablations", "stream", "train"],
                     help="kernels: the device, kernel build, small-reference and kernel phases "
                          "only (no index builds, serving, profile, store or engine); "
                          "int8-ablations: the device time of each ablation build of the int8 "
                          "top-k's wgmma variant at its timed case; stream: the build phases only "
                          "(A with S1, B with S2 and the evaluation), with no kernel timing, "
-                         "serving, store or engine")
+                         "serving, store or engine; train: phase T alone (pretraining, its own "
+                         "store) after the kernel build and the small reference")
     ap.add_argument("--ingest-cases", type=int, default=ING_CASES,
                     help="fixture cases phase I ingests (at least 1,024; its time grows with the "
                          "square of the count)")
@@ -3121,9 +3584,22 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None,
         note_errs(kernels, detail["stream_build"]["plain_err"], detail["stream_build"]["eval"]["plain_err"])
         log(f"  {card}: phase S2 {detail['stream_build']['seconds']:.1f} s")
 
+    def train_phases(kernels, paths) -> None:
+        log(f"phase: T, pretraining ({TRAIN_CASES} cases of its own; T2 SIGKILLed at {TRAIN_KILL_SHARDS} "
+            "shards and resumed in this process, counts reset just before the resume, read just after)")
+        t0 = time.perf_counter()
+        detail["train"], paths["pretrain_build"] = train_phase(torch, np, sk, seed, work, out_dir)
+        detail["train"]["seconds"] = time.perf_counter() - t0
+        note_errs(kernels, detail["train"]["t2"]["plain_err"])
+        log(f"  {card}: phase T {detail['train']['seconds']:.1f} s")
+
     if only == "stream":
         paths: dict = {}
         build_phases({}, paths)
+        return finish(torch, detail, {}, paths, out_dir, card, t_start)
+    if only == "train":
+        paths = {}
+        train_phases({}, paths)
         return finish(torch, detail, {}, paths, out_dir, card, t_start)
     log(f"phase: build state on the card (P={P_PARTS} m={M_SLOTS} D={DIM})")
     t0 = time.perf_counter()
@@ -3174,6 +3650,7 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None,
     detail["ingest"]["seconds"] = time.perf_counter() - t0
     note_errs(kernels, detail["ingest"]["plain_err"])
     log(f"  {card}: phase I {detail['ingest']['seconds']:.1f} s")
+    train_phases(kernels, paths)
 
     log("phase: serve through query_batch (counts reset just before, read just after)")
     records, launches = serve(torch, np, fused, vi, names, words, courts, seed)

@@ -522,13 +522,56 @@ def test_build_indexes_matches_jax(tmp_path, f32_jax_encoder):
     pstore.close()
 
 
-def test_build_indexes_refuses_later_slices(tmp_path):
-    """Pretraining comes with the training slice."""
-    _, pcfg = _configs(tmp_path, "r")
-    store = _write_store(StorageManager, CaseMetadata, pcfg.storage.db_path, _cases(4))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        build_indexes(store, pcfg, device="cpu", pretrain_steps=10)
-    store.close()
+def test_build_indexes_with_pretraining_matches_jax(tmp_path, f32_jax_encoder, monkeypatch):
+    """``build_indexes(pretrain_steps=8)`` in both packages from the same
+    parameters (f32 compute): the docs and arguments handed to
+    ``pretrain_encoder_guarded`` equal the JAX package's, the guardrail
+    makes the same choice, the tries and refs equal; when both keep
+    ``"init"`` the vectors are the JAX package's within 1e-5, and when both
+    keep the trained weights within the AdamW drift of 8 steps."""
+    import trie_semantic_search_tpu.models.train as jtrain
+    import trie_semantic_search_tpu_torch.models.train as ttrain
+
+    cases = _cases(48)
+    jcfg, pcfg = _configs(tmp_path, "t")
+    pcfg.storage.db_path = str(tmp_path / "t_port.sqlite")
+    jstore = _write_store(JaxStorage, JaxCaseMetadata, jcfg.storage.db_path, cases)
+    pstore = _write_store(StorageManager, CaseMetadata, pcfg.storage.db_path, cases)
+    vocab, params, mcfg, model = _encoders(cases)
+    model.compute_dtype = torch.float32
+    calls = {}
+
+    def recorder(tag, fn):
+        def wrapped(embedder, docs, **kw):
+            rep = fn(embedder, docs, **kw)
+            calls[tag] = (docs, kw, rep)
+            return rep
+        return wrapped
+
+    monkeypatch.setattr(jtrain, "pretrain_encoder_guarded", recorder("jax", jtrain.pretrain_encoder_guarded))
+    monkeypatch.setattr(ttrain, "pretrain_encoder_guarded", recorder("port", ttrain.pretrain_encoder_guarded))
+    jb = jax_build_indexes(jstore, jcfg, pretrain_steps=8, embedder=JaxEmbedder(
+        jcfg.vector.model, tokenizer=JaxTokenizer(vocab), params=params, model_config=mcfg))
+    pb = build_indexes(pstore, pcfg, pretrain_steps=8, device="cpu", embedder=Embedder(
+        pcfg.vector.model, tokenizer=WordPieceTokenizer(vocab), model=model, device="cpu"))
+    (jdocs, jkw, jrep), (pdocs, pkw, prep) = calls["jax"], calls["port"]
+    assert pdocs == jdocs and len(pdocs) == 48 and pkw == jkw == {"steps": 8, "max_len": 64}
+    assert sorted(prep) == sorted(jrep) and prep["steps"] == 8 and prep["pairs"] == jrep["pairs"]
+    assert prep["guardrail"]["kept"] == jrep["guardrail"]["kept"], (prep, jrep)
+    assert pb.report.pretrain_seconds > 0
+    for name in ("name_trie", "content_trie", "citation_trie"):
+        jt, tt = getattr(jb.trie, name), getattr(pb.trie, name)
+        for f in tt._ARRAY_FIELDS:
+            np.testing.assert_array_equal(getattr(tt, f), getattr(jt, f), err_msg=f"{name}.{f}")
+    np.testing.assert_array_equal(np.asarray(pb.vector.refs, np.int32), np.asarray(jb.vector.refs, np.int32))
+    tol = 1e-5 if prep["guardrail"]["kept"] == "init" else 1e-3
+    np.testing.assert_allclose(pb.vector.vectors, jb.vector.vectors, atol=tol, rtol=0)
+    if prep["guardrail"]["kept"] == "init":
+        for key, p in model.leaves():
+            g, n = key.split(".", 1)
+            np.testing.assert_array_equal(p.detach().numpy(), np.asarray(params[g][n]))
+    jstore.close()
+    pstore.close()
 
 
 @pytest.mark.parametrize("pooling", ["auto", "sif"])

@@ -162,14 +162,10 @@ def test_one_shot_commands_match_jax(art, one_device_toml, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,slice_name", [
-    (["build-index", "--streaming"], "slice 4"),
-    (["build-index", "--pretrain-steps", "5"], "slice 4"),
     (["bench"], "not ported"),
 ])
 def test_later_slices_raise(tmp_path, argv, slice_name):
-    """Pretraining (``--pretrain-steps``, and ``--streaming`` over an empty
-    store with no saved encoder, where the JAX package pretrains) and
-    ``bench`` refuse, naming what brings them; nothing is written."""
+    """``bench`` refuses, naming what brings it; nothing is written."""
     cfg = Config()
     cfg.storage.db_path = str(tmp_path / "db.sqlite")
     cfg.trie.index_path = str(tmp_path / "trie")
@@ -252,6 +248,39 @@ def test_build_index_tune_recall_command_matches_jax(tmp_path, capsys):
     rc, got = _port(["-c", str(paths["port"]), "--device", "cpu", "search", "miranda v. arizona"], capsys)
     hit = json.loads(got)[0]
     assert rc == 0 and hit["case_metadata"]["name"] == "Miranda v. Arizona"
+
+
+def test_build_index_pretrain_steps_command_matches_jax(tmp_path, capsys, monkeypatch):
+    """``ingest --source mock`` then ``build-index --pretrain-steps 4`` into
+    empty stores (the full-width encoder, sequences cut to 32 tokens): exit
+    0 in both, the same report keys and counts, and each build's
+    pretraining report (read from ``pretrain_encoder_guarded``) has the same
+    keys, four steps and a guardrail record."""
+    import trie_semantic_search_tpu.models.train as jtrain
+    import trie_semantic_search_tpu_torch.models.train as ttrain
+
+    reps = {}
+    for tag, mod in (("jax", jtrain), ("port", ttrain)):
+        def wrapped(*a, _fn=mod.pretrain_encoder_guarded, _tag=tag, **k):
+            reps[_tag] = _fn(*a, **k)
+            return reps[_tag]
+        monkeypatch.setattr(mod, "pretrain_encoder_guarded", wrapped)
+    paths = _fresh_tomls(tmp_path)
+    for tag in ("jax", "port"):
+        cfg = JaxConfig.from_file(paths[tag])
+        cfg.vector.model.max_sequence_length = 32
+        cfg.save_to_file(paths[tag])
+    _jax(["-c", str(paths["jax"]), "ingest", "--source", "mock"], capsys)
+    _port(["-c", str(paths["port"]), "--device", "cpu", "ingest", "--source", "mock"], capsys)
+    argv = ["build-index", "--pretrain-steps", "4"]
+    rc, want = _jax(["-c", str(paths["jax"])] + argv, capsys)
+    prc, got = _port(["-c", str(paths["port"]), "--device", "cpu"] + argv, capsys)
+    want, got = json.loads(want.splitlines()[-1]), json.loads(got.splitlines()[-1])
+    assert prc == rc == 0 and sorted(got) == sorted(want) and got["cases"] == want["cases"] == 3
+    assert (got["content_chunks"], got["citations"]) == (want["content_chunks"], want["citations"])
+    jrep, prep = reps["jax"], reps["port"]
+    assert sorted(prep) == sorted(jrep) and prep["steps"] == jrep["steps"] == 4
+    assert prep["pairs"] == jrep["pairs"] and sorted(prep["guardrail"]) == sorted(jrep["guardrail"])
 
 
 def test_build_index_command_matches_jax(art, tmp_path, capsys):

@@ -12,7 +12,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "trie_semantic_search_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "trie_semantic_search_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "optax", "trie_semantic_search_tpu")
 
 
 def _port_files():
@@ -168,3 +168,37 @@ def test_streaming_build_stands_alone():
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["SpillContentBuilder", "StreamingIndexBuilder",
                                   "select_pooling_guarded", "evaluate_stages"]
+
+
+def test_training_stands_alone():
+    """Encoder training and the checkpoints with optimizer state are among
+    the files checked above, and import and take a step where ``jax`` and
+    ``optax`` cannot be imported."""
+    files = {str(f.relative_to(REPO)) for f in _port_files()}
+    for name in ("models/train.py", "models/checkpoint.py", "models/minilm.py"):
+        assert f"trie_semantic_search_tpu_torch/{name}" in files, name
+    block = (
+        "import sys, tempfile\n"
+        "for name in ('jax', 'jaxlib', 'ml_dtypes', 'optax', 'trie_semantic_search_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from trie_semantic_search_tpu_torch.models import minilm, train\n"
+        "from trie_semantic_search_tpu_torch.models.checkpoint import restore_checkpoint, save_checkpoint\n"
+        "cfg = minilm.MiniLMConfig(vocab_size=64, hidden_size=8, num_layers=1, num_heads=2,\n"
+        "                          intermediate_size=8, max_position=8)\n"
+        "model = minilm.MiniLM(cfg, device='cpu', compute_dtype=torch.float32)\n"
+        "opt = train.make_optimizer(train.TrainConfig(warmup_steps=0, total_steps=2), model)\n"
+        "ids = torch.randint(1, 64, (4, 8), generator=torch.Generator().manual_seed(0))\n"
+        "batch = dict(ids_a=ids, mask_a=torch.ones_like(ids), ids_b=ids.flip(1), mask_b=torch.ones_like(ids))\n"
+        "with model.trainable():\n"
+        "    loss, acc = train.train_step(model, opt, batch, 0.05)\n"
+        "d = tempfile.mkdtemp()\n"
+        "save_checkpoint(d, 1, model.state_dict(), optimizer=opt)\n"
+        "opt2 = train.make_optimizer(train.TrainConfig(warmup_steps=0, total_steps=2), model)\n"
+        "restore_checkpoint(d, cfg, optimizer=opt2)\n"
+        "print(opt.count, opt2.count, bool(torch.isfinite(loss)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", block], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["1", "1", "True"]

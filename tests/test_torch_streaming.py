@@ -30,6 +30,7 @@ from test_torch_build import (  # noqa: F401  (f32_jax_encoder is a fixture)
     _normed,
     _write_store,
     f32_jax_encoder,
+    TINY,
 )
 
 import trie_semantic_search_tpu.index.kmeans as jk
@@ -420,16 +421,146 @@ def test_tune_on_build_persists_jax_nprobe(tmp_path, f32_jax_encoder, tune):
     pstore.close()
 
 
-def test_missing_encoder_with_pretraining_raises(tmp_path):
-    """No saved encoder and ``pretrain_steps > 0`` (the default): the port
-    refuses, naming slice 4, before it writes anything."""
-    _, pcfg = _configs(tmp_path, "p")
-    store = _write_store(StorageManager, CaseMetadata, pcfg.storage.db_path, _cases(4))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        StreamingIndexBuilder(store, pcfg, work_dir=tmp_path / "work", device="cpu")
-    assert not (Path(pcfg.vector.hnsw.index_path) / "tokenizer.json").exists()
-    assert not (tmp_path / "work").exists()
+def _tiny_encoders(monkeypatch, with_jax: bool = False):
+    """The streaming builders' ``Embedder`` at TINY width over the corpus
+    vocab (they make theirs from ``vector.model``, full width): the port's,
+    and the JAX package's too with ``with_jax``."""
+    import trie_semantic_search_tpu.index.streaming as jstreaming
+    import trie_semantic_search_tpu.models.minilm as jm
+    import trie_semantic_search_tpu_torch.index.streaming as tstreaming
+    import trie_semantic_search_tpu_torch.models.minilm as tm
+
+    def geometry(cls, tokenizer):
+        return cls(**dict(TINY, vocab_size=max(len(tokenizer), 128)))
+
+    monkeypatch.setattr(tstreaming, "Embedder", lambda cfg, tokenizer, device: Embedder(
+        cfg, tokenizer=tokenizer, device=device, model_config=geometry(tm.MiniLMConfig, tokenizer)))
+    if with_jax:
+        monkeypatch.setattr(jstreaming, "Embedder", lambda cfg, tokenizer: JaxEmbedder(
+            cfg, tokenizer=tokenizer, model_config=geometry(jm.MiniLMConfig, tokenizer)))
+
+
+def _recording(monkeypatch, mod, calls: list):
+    """Wrap ``mod.pretrain_encoder_guarded``: each call's docs, arguments
+    and report go to ``calls``."""
+    fn = mod.pretrain_encoder_guarded
+
+    def wrapped(embedder, docs, **kw):
+        rep = fn(embedder, docs, **kw)
+        calls.append((docs, kw, rep))
+        return rep
+
+    monkeypatch.setattr(mod, "pretrain_encoder_guarded", wrapped)
+
+
+def _sha256s(d: Path) -> dict[str, str]:
+    import hashlib
+
+    return {str(f.relative_to(d)): hashlib.sha256(f.read_bytes()).hexdigest()
+            for f in sorted(d.rglob("*")) if f.is_file()}
+
+
+def test_fresh_store_pretraining_matches_jax(tmp_path, monkeypatch):
+    """No saved encoder, both builders at TINY width with 3 pretraining
+    steps: the docs handed to ``pretrain_encoder_guarded`` (the first cases
+    by rowid, their sentences) and its arguments equal the JAX package's,
+    and the reports carry the same keys and pairs."""
+    import trie_semantic_search_tpu.models.train as jtrain
+    import trie_semantic_search_tpu_torch.models.train as ttrain
+
+    cases = _cases(30)
+    jcfg, pcfg = _configs(tmp_path, "f")
+    pcfg.vector.hnsw.index_path = str(tmp_path / "f_port" / "vec")
+    jstore = _write_store(JaxStorage, JaxCaseMetadata, jcfg.storage.db_path, cases)
+    pcfg.storage.db_path = str(tmp_path / "f_port.sqlite")
+    pstore = _write_store(StorageManager, CaseMetadata, pcfg.storage.db_path, cases)
+    _tiny_encoders(monkeypatch, with_jax=True)
+    jcalls, pcalls = [], []
+    _recording(monkeypatch, jtrain, jcalls)
+    _recording(monkeypatch, ttrain, pcalls)
+    JaxStreamingBuilder(jstore, jcfg, work_dir=tmp_path / "jw", pretrain_steps=3, pretrain_sample_cases=20)
+    StreamingIndexBuilder(pstore, pcfg, work_dir=tmp_path / "pw", pretrain_steps=3, pretrain_sample_cases=20,
+                          device="cpu")
+    (jdocs, jkw, jrep), = jcalls
+    (pdocs, pkw, prep), = pcalls
+    assert pdocs == jdocs and len(pdocs) == 20 and pkw == jkw == {"steps": 3, "max_len": 64}
+    assert sorted(prep) == sorted(jrep) and prep["pairs"] == jrep["pairs"] and prep["steps"] == 3
+    assert sorted(prep["guardrail"]) == sorted(jrep["guardrail"])
+    for c in (jcfg, pcfg):
+        assert (Path(c.vector.hnsw.index_path) / "encoder" / "step_0" / "params.npz").exists()
+    jstore.close()
+    pstore.close()
+
+
+def test_fresh_store_streaming_build_pretrains_once_and_resumes(tmp_path, monkeypatch):
+    """The operator's first build over a fresh store at TINY width: the
+    builder pretrains (the default 300 steps cut to 4), saves the encoder
+    before the first shard, and is interrupted after 2 shards; the resumed
+    build loads that encoder (no second pretraining, the encoder files'
+    bytes unchanged), embeds only the chunks after the watermark, and its
+    artifacts serve a case name."""
+    import trie_semantic_search_tpu_torch.models.train as ttrain
+    from trie_semantic_search_tpu_torch.core.types import SearchConfig
+    from trie_semantic_search_tpu_torch.search.engine import SearchEngine, SearchQuery
+
+    cases = _cases(40)
+    _, pcfg = _configs(tmp_path, "o")
+    pcfg.vector.hnsw.tune_on_build = False
+    store = _write_store(StorageManager, CaseMetadata, pcfg.storage.db_path, cases)
+    vec_dir = Path(pcfg.vector.hnsw.index_path)
+    _tiny_encoders(monkeypatch)
+    calls = []
+    _recording(monkeypatch, ttrain, calls)
+
+    first = StreamingIndexBuilder(store, pcfg, work_dir=tmp_path / "work", shard_chunks=24,
+                                  pretrain_steps=4, device="cpu")
+    assert len(calls) == 1 and calls[0][2]["steps"] == 4 and "guardrail" in calls[0][2]
+    saved = _sha256s(vec_dir)
+    assert "encoder/step_0/params.npz" in saved and "tokenizer.json" in saved
+    assert not (tmp_path / "work").exists()  # the encoder is saved before any shard
+    checkpoint, count = first._checkpoint, [0]
+
+    def crashing(manifest, trie, next_row):
+        checkpoint(manifest, trie, next_row)
+        count[0] += 1
+        if count[0] == 2:
+            raise KeyboardInterrupt("simulated kill")
+
+    first._checkpoint = crashing
+    with pytest.raises(KeyboardInterrupt):
+        first.build()
+    done = _Manifest.load(tmp_path / "work" / "manifest.json")
+    assert len(done.shards) == 2 and done.next_row > 0
+
+    second = StreamingIndexBuilder(store, pcfg, work_dir=tmp_path / "work", shard_chunks=24,
+                                   pretrain_steps=4, device="cpu")
+    assert len(calls) == 1  # loaded, not trained again
+    for (k, a), (_, b) in zip(first.embedder.model.leaves(), second.embedder.model.leaves()):
+        torch.testing.assert_close(b, a, rtol=0, atol=0, msg=k)
+    embedded = []
+    write = second._write_shard
+
+    def counted(manifest, texts, refs):
+        embedded.append(len(texts))
+        write(manifest, texts, refs)
+
+    second._write_shard = counted
+    built = second.build(resume=True)
+    r = built.report
+    assert r.resumed_from_row == done.next_row and r.cases == len(cases)
+    assert sum(embedded) == r.embedded_chunks == r.content_chunks - done.chunks > 0
+    after = _sha256s(vec_dir)
+    assert {k: after[k] for k in saved} == saved
     store.close()
+
+    engine = SearchEngine(pcfg, StorageManager(pcfg.storage), *load_artifacts(pcfg, device="cpu"), device="cpu")
+    name = cases[7][0]
+    res = engine.search_batch([SearchQuery(query=name.lower(), config=SearchConfig(min_similarity=-1.0)),
+                               SearchQuery(query="contract breach damages",
+                                           config=SearchConfig(min_similarity=-1.0))])
+    assert res[0][0].case_metadata.name == name and res[0][0].match_type.value in ("case_name", "exact")
+    assert res[1]
+    engine.storage.close()
 
 
 def test_new_encoder_without_pretraining_is_saved_and_reused(tmp_path):

@@ -10,10 +10,11 @@ with ``--device`` in place of ``--platform``).
   ``cap``, ``courtlistener``; every source without ``--source``), bulk or
   ``--incremental``
 * ``build-index``  — build and save every artifact (quality gate first;
-  ``--tune-recall`` tunes the ANN's nprobe by case-level recall);
-  ``--streaming`` runs the checkpointed corpus-scale build
-  (``--work-dir``, ``--shard-chunks``, ``--no-resume``), which needs an
-  encoder saved in the vector directory until pretraining is ported
+  ``--tune-recall`` tunes the ANN's nprobe by case-level recall;
+  ``--pretrain-steps`` pretrains the encoder first); ``--streaming`` runs
+  the checkpointed corpus-scale build (``--work-dir``, ``--shard-chunks``,
+  ``--no-resume``), which pretrains and saves an encoder first when the
+  vector directory holds none
 * ``check-health`` — component probes, exit code 0/1
 * ``search``       — one query from the command line
 * ``eval-retrieval`` — held-out probes through the engine, stage by stage
@@ -23,10 +24,9 @@ with ``--device`` in place of ``--platform``).
 * ``config-dump``  — the effective config as TOML
 * ``loadtest``     — concurrent ``POST /search`` against a running server
 
-``build-index --pretrain-steps`` raises ``NotImplementedError`` naming
-the later slice of ``ROADMAP.md`` §1 that brings it (slice 4), as does
-``serve`` sharded over more than one card (slice 5); ``bench`` raises too
-(the benchmark is not ported).
+``serve`` sharded over more than one card raises ``NotImplementedError``
+naming the later slice of ``ROADMAP.md`` §1 that brings it (slice 5);
+``bench`` raises too (the benchmark is not ported).
 
 Shared flags: ``--config/-c``, ``--device`` (default ``cuda``; a missing
 card is an error, ``--device cpu`` runs on the CPU), ``--port/-p`` for
@@ -213,12 +213,9 @@ def cmd_ingest(args: argparse.Namespace) -> int:
 def cmd_build_index(args: argparse.Namespace) -> int:
     """Build and save every artifact: in one pass, or with ``--streaming``
     checkpointed and resumable (``--tune-recall`` and ``--pretrain-steps``
-    do not apply there, as in the JAX package). Prints the report as one
-    JSON line."""
-    if args.pretrain_steps > 0 and not args.streaming:
-        raise NotImplementedError(
-            "build-index --pretrain-steps comes with ROADMAP.md §1 slice 4 (training)"
-        )
+    do not apply there, as in the JAX package: a streaming build over a
+    store with no saved encoder pretrains the builder's default 300
+    steps). Prints the report as one JSON line."""
     cfg = _load_config(args)
     init_logging(cfg.logging)
     from .storage.store import StorageManager
@@ -240,7 +237,8 @@ def cmd_build_index(args: argparse.Namespace) -> int:
     else:
         from .index.builder import build_indexes, save_artifacts
 
-        built = build_indexes(storage, cfg, tune_recall=args.tune_recall, device=args.device)
+        built = build_indexes(storage, cfg, tune_recall=args.tune_recall,
+                              pretrain_steps=args.pretrain_steps, device=args.device)
         save_artifacts(built, cfg, storage=storage)
         extra = {}
     print(json.dumps({

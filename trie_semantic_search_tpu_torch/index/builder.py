@@ -25,8 +25,10 @@ probe; ``save_artifacts`` persists the tuned nprobe with the ANN.
 
 With no embedder passed and ``vector.pooling`` other than ``"mean"``, the
 pooling is picked on probe merit (:func:`..models.train.select_pooling_guarded`,
-over the first 2,000 stored cases). Encoder pretraining comes with the
-training slice: ``pretrain_steps > 0`` raises ``NotImplementedError``.
+over the first 2,000 stored cases). ``pretrain_steps > 0`` then pretrains
+the encoder on every stored case's sentences
+(:func:`..models.train.pretrain_encoder_guarded`, which keeps the init
+weights when training lowers probe retrieval) before anything is embedded.
 """
 
 from __future__ import annotations
@@ -63,9 +65,9 @@ EMBED_FLUSH = 8192
 @dataclass
 class BuildReport:
     """What the build did and where its time went: ``seconds`` in all, of
-    which the corpus vocab (with the pooling selection), the chunk
-    embedding, the freeze (tries and ANN) and the nprobe tuning
-    (``tune_seconds``, of which embedding the probes
+    which the corpus vocab (with the pooling selection), the encoder
+    pretraining, the chunk embedding, the freeze (tries and ANN) and the
+    nprobe tuning (``tune_seconds``, of which embedding the probes
     ``tune_probe_seconds``); the rest is text processing and trie
     inserts."""
 
@@ -74,6 +76,7 @@ class BuildReport:
     citations: int = 0
     seconds: float = 0.0
     vocab_seconds: float = 0.0
+    pretrain_seconds: float = 0.0
     embed_seconds: float = 0.0
     freeze_seconds: float = 0.0
     tune_seconds: float = 0.0
@@ -103,11 +106,10 @@ def build_indexes(
     vocab is trained on the corpus, the encoder comes from
     ``config.vector.model`` (its checkpoint, else a seeded init) and the
     pooling is selected unless ``vector.pooling`` is ``"mean"``. With
-    ``tune_recall``, the ANN's nprobe is tuned to that case-level
-    recall@10 (:func:`_tune_nprobe`)."""
-    if pretrain_steps > 0:
-        raise NotImplementedError(
-            "encoder pretraining comes with ROADMAP.md §1 slice 4 (training)")
+    ``pretrain_steps``, the encoder (passed or made) is pretrained that many
+    steps on the stored cases' sentences first. With ``tune_recall``, the
+    ANN's nprobe is tuned to that case-level recall@10
+    (:func:`_tune_nprobe`)."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     tp = text_processor or TextProcessor(config.text_processing)
@@ -134,6 +136,21 @@ def build_indexes(
             )
             _log.info("pooling selection: %s", rec)
         report.vocab_seconds = time.perf_counter() - t0
+    if pretrain_steps > 0:
+        from ..models.train import pretrain_encoder_guarded
+
+        t = time.perf_counter()
+        docs = [
+            tp.extract_sentences(tp.normalize_text(text))
+            for _, text in storage.iter_cases()
+            if text
+        ]
+        rep = pretrain_encoder_guarded(
+            embedder, docs, steps=pretrain_steps,
+            max_len=min(64, config.vector.model.max_sequence_length),
+        )
+        report.pretrain_seconds = time.perf_counter() - t
+        _log.info("encoder pretraining: %s", rep)
     vector = VectorIndex(config.vector, embedder=embedder, device=dev)
 
     def embed(flush_threshold: int) -> int:

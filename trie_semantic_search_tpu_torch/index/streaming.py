@@ -25,11 +25,10 @@ it is interrupted; this builder is the corpus-scale path:
   :func:`.builder.save_artifacts` after the quality gate.
 
 Without a saved encoder in the vector directory the builder trains a corpus
-WordPiece vocab and selects the pooling (:mod:`..models.train`); encoder
-pretraining, which the JAX package runs there by default, comes with the
-training slice (``ROADMAP.md`` §1 slice 4), so ``pretrain_steps > 0``
-with no saved encoder raises ``NotImplementedError`` before anything is
-written.
+WordPiece vocab, selects the pooling and pretrains the encoder
+(``pretrain_steps``, 300 by default, on the first ``pretrain_sample_cases``
+cases by rowid; :func:`..models.train.pretrain_encoder_guarded`), then saves
+it before the first shard, so a resumed run loads it and trains nothing.
 """
 
 from __future__ import annotations
@@ -100,7 +99,7 @@ class _Manifest:
         tmp.replace(path)  # atomic
 
 
-def _pooling_docs(storage: StorageManager, tp: TextProcessor, limit: int) -> list[list[str]]:
+def _sample_docs(storage: StorageManager, tp: TextProcessor, limit: int) -> list[list[str]]:
     """Sentences of the first ``limit`` stored cases with text."""
     docs = []
     for i, (_row, _meta, text) in enumerate(storage.iter_cases_rowid()):
@@ -148,22 +147,19 @@ class StreamingIndexBuilder:
             except Exception:
                 embedder = None
             if embedder is None:
-                if pretrain_steps > 0:
-                    raise NotImplementedError(
-                        f"no saved encoder in {vec_dir} and pretrain_steps={pretrain_steps}: "
-                        "encoder pretraining comes with ROADMAP.md §1 slice 4 (training). Save "
-                        "an encoder there first (a build-index run) or pass pretrain_steps=0"
-                    )
-                embedder = self._new_encoder(storage, config)
+                embedder = self._new_encoder(storage, config, pretrain_steps, pretrain_sample_cases)
                 from .builder import save_encoder
 
                 save_encoder(embedder, vec_dir)
         self.embedder = embedder
 
-    def _new_encoder(self, storage: StorageManager, config: Config) -> Embedder:
+    def _new_encoder(
+        self, storage: StorageManager, config: Config, pretrain_steps: int, sample_cases: int,
+    ) -> Embedder:
         """A corpus WordPiece vocab from at most 10,000 cases, the encoder
-        from ``vector.model``, and the pooling picked on probe merit unless
-        ``vector.pooling`` is ``"mean"``."""
+        from ``vector.model``, the pooling picked on probe merit unless
+        ``vector.pooling`` is ``"mean"``, then ``pretrain_steps`` of guarded
+        pretraining on the first ``sample_cases`` cases."""
         from ..models.tokenizer import WordPieceTokenizer, train_wordpiece_vocab
 
         def sample():
@@ -179,11 +175,19 @@ class StreamingIndexBuilder:
             from ..models.train import select_pooling_guarded
 
             rec = select_pooling_guarded(
-                embedder, _pooling_docs(storage, TextProcessor(config.text_processing), 2000),
+                embedder, _sample_docs(storage, self.tp, 2000),
                 sif_a=config.vector.sif_a,
                 force=None if config.vector.pooling == "auto" else "sif",
             )
             _log.info("pooling selection: %s", rec)
+        if pretrain_steps > 0:
+            from ..models.train import pretrain_encoder_guarded
+
+            rep = pretrain_encoder_guarded(
+                embedder, _sample_docs(storage, self.tp, sample_cases), steps=pretrain_steps,
+                max_len=min(64, config.vector.model.max_sequence_length),
+            )
+            _log.info("streaming-build pretraining: %s", rep)
         return embedder
 
     # -- stages ------------------------------------------------------------------

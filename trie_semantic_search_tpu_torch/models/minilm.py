@@ -12,6 +12,10 @@ Numerics, site by site as the JAX code has them: every projection is a
 bf16 product accumulated in f32 and rounded to bf16 once, plus a bf16 bias;
 the attention scores and context are f32 sums of bf16 products.
 
+Serving calls :meth:`MiniLM.encode` (``no_grad``); training calls the same
+body, :meth:`MiniLM.sentence_embeddings`, inside :meth:`MiniLM.trainable`,
+where the parameters require gradients (``models/train.py``).
+
 :func:`load_hf_checkpoint` reads a local HuggingFace checkpoint into the
 same layout, as the JAX package's loader does (:331-403 there).
 :func:`count_token_ids` and :func:`sif_weights_from_counts` (numpy, :296-325
@@ -20,6 +24,7 @@ there) give the SIF pooling weights.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -255,9 +260,10 @@ class MiniLM(nn.Module):
             lp["mlp_ln_bias"], c.layer_norm_eps,
         ).to(hidden.dtype)
 
-    @torch.no_grad()
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-        """Token-level hidden states ``[B, L, H]`` (f32)."""
+    def hidden_states(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        """Token-level hidden states ``[B, L, H]`` (f32), recorded for
+        autograd where a parameter requires gradients (training);
+        :meth:`forward` is the same under ``no_grad``."""
         from ..ops.scan_kernels import exact_float32
 
         exact_float32()
@@ -273,14 +279,15 @@ class MiniLM(nn.Module):
             hidden = self._encoder_layer(hidden, mask_bias, i)
         return hidden.to(torch.float32)
 
-    @torch.no_grad()
-    def encode(
+    def sentence_embeddings(
         self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
         token_weights: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Sentence embeddings ``[B, H]``: masked mean pool (SIF-weighted
-        when ``token_weights [vocab]`` is given), then L2 normalise."""
-        hidden = self.forward(input_ids, attention_mask)
+        when ``token_weights [vocab]`` is given), then L2 normalise; with
+        gradients as :meth:`hidden_states` has them. :meth:`encode` is the
+        same under ``no_grad``."""
+        hidden = self.hidden_states(input_ids, attention_mask)
         mask = attention_mask.to(torch.float32)
         if token_weights is not None:
             mask = mask * token_weights.to(torch.float32)[input_ids.long()]
@@ -290,6 +297,44 @@ class MiniLM(nn.Module):
         pooled = summed / counts
         norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
         return pooled / torch.clamp(norm, min=1e-12)
+
+    @torch.no_grad()
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        """Token-level hidden states ``[B, L, H]`` (f32), without gradients."""
+        return self.hidden_states(input_ids, attention_mask)
+
+    @torch.no_grad()
+    def encode(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+        token_weights: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Sentence embeddings ``[B, H]`` for serving, without gradients."""
+        return self.sentence_embeddings(input_ids, attention_mask, token_weights)
+
+    def leaves(self) -> list[tuple[str, nn.Parameter]]:
+        """``(key, parameter)`` in the JAX package's tree-flatten order of
+        the parameter tree (groups, then names, each sorted): the order of
+        ``params.npz`` and of the optimizer state's leaves."""
+        params = dict(self.named_parameters())
+        return [(k, params[k]) for k in leaf_keys(self.config)]
+
+    @contextlib.contextmanager
+    def trainable(self):
+        """Parameters require gradients inside the block and not after it."""
+        for p in self.parameters():
+            p.requires_grad_(True)
+        try:
+            yield self
+        finally:
+            for p in self.parameters():
+                p.requires_grad_(False)
+                p.grad = None
+
+
+def leaf_keys(c: MiniLMConfig) -> list[str]:
+    """State-dict keys in the JAX parameter tree's flatten order."""
+    shapes = param_shapes(c)
+    return [f"{g}.{n}" for g in sorted(shapes) for n in sorted(shapes[g])]
 
 
 def sif_weights_from_counts(counts: np.ndarray, a: float = 1e-3) -> np.ndarray:

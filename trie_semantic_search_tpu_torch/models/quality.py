@@ -11,10 +11,8 @@ ranks a chunk sample by exact cosine and reports MRR and recall@{1,5,k} of
 each probe's source case. :func:`evaluate_engine` scores the probes
 through a whole ``SearchEngine``, and :func:`evaluate_stages` splits that
 into the exact case-level oracle over every chunk and the ANN alone at the
-index's tuned nprobe.
-
-``pair_ranking_accuracy`` (held-out pairs of the training slice) comes
-with that slice.
+index's tuned nprobe. :func:`pair_ranking_accuracy` is the full-matrix
+InfoNCE accuracy of held-out sentence pairs.
 """
 
 from __future__ import annotations
@@ -236,3 +234,15 @@ def evaluate_embedder_direct(
             ranks.setdefault(p.kind, []).append(rank)
             ranks.setdefault("all", []).append(rank)
     return _aggregate(ranks, k)
+
+
+def pair_ranking_accuracy(
+    embedder,
+    pairs: Sequence[tuple[str, str]],  # held-out (anchor, positive) pairs
+) -> float:
+    """Share of held-out pairs whose positive outranks every other pair's
+    positive by cosine (argmax on the host, the first index on ties)."""
+    a = l2_normalize(torch.as_tensor(embedder.embed([p[0] for p in pairs]).embedding, dtype=torch.float32))
+    b = l2_normalize(torch.as_tensor(embedder.embed([p[1] for p in pairs]).embedding, dtype=torch.float32))
+    scores = a.numpy() @ b.numpy().T
+    return float((scores.argmax(axis=1) == np.arange(len(pairs))).mean())
