@@ -91,6 +91,30 @@ What it does, in order (any failure exits non-zero before the last line):
    ``load_dir`` of it serves the same. Prints each pass's seconds, the RSS
    peak, the promotion and ``save_dir`` seconds. Both indexes are freed
    after.
+5c. M1-M3, sharded serving over phase 5's rows (the served corpus,
+   four chunks per case) in a seeded random order (in generation order a
+   shard would hold whole clusters) on a mesh of four shards on ``cuda:0``
+   (one shard per card when more than one is visible). M1: ``FusedHybridSearch(...,
+   ann_mode="partitioned", mesh=)`` over phase 5's centroids (P=5120,
+   nprobe 64): ``build_sharded_partitions``'s seconds by stage, the
+   per-shard slot capacity and the host RSS; ``query_batch`` at B=8 and 64
+   (probe), 256 (stream) and a filtered 64 at the serving recall target
+   (counts set to 0 just before, read just after: path ``sharded``), every
+   probe, rescore and fused-scan call held against its plain version
+   (probe and fused scan bitwise, rescore within 1e-5), recall@10 of the
+   served cases against phase 3's single-device exact stream at least
+   0.97, and one B=64 probe and one B=256 stream batch under
+   ``torch.profiler``: each shard's device ms (the ranges ``sharded shard
+   <s>``) and the merge's. M2: ``ann_mode="brute"`` (mode ``sharded``):
+   B=64 and the filtered 64 at the serving recall target through each
+   shard's fused scan (path ``sharded``, every call held bitwise), then at
+   ``recall_target=1.0`` against the single-device brute mode's exact
+   scan on the same rows: case rows and score bits equal position by
+   position but for members of a tie at the k-th score, which the log
+   names. M3: ``ShardedCorpusIndex`` over 1,048,576 of the rows, int8 and
+   bf16, against one exact top-k over the whole matrix; one of 32,768 rows
+   saved and loaded on a mesh of 2, bitwise what the same file serves on
+   four shards.
 6. Build, pipeline end to end: a sqlite store of 32,768 cases with the
    fixture's texts (131,072 chunks), ``build_indexes(storage, cfg,
    device="cuda")`` with mean pooling and no embedder (a corpus vocab and
@@ -100,6 +124,12 @@ What it does, in order (any failure exits non-zero before the last line):
    in-memory indexes returns, name queries led by a case-name or exact
    hit. Prints each stage's time (vocab, text processing and trie inserts,
    embedding in chunks/s, trie freeze, ANN build, save, load).
+6M. M4, ``load_artifacts(cfg, mesh=)`` of phase 6's artifacts on the
+   mesh of 5c (the vector index a ``ShardedCorpusIndex`` rebuilt from the
+   saved vectors) and ``SearchEngine(..., mesh=)``: ``search_batch`` at
+   B=8 (probe) and 64 (stream) (path ``sharded``, every call held); every
+   name query led by its case, recall@10 of the served cases at least 0.97
+   against the engine without a mesh at ``recall_target=1.0``.
 6a. S2, the operator's streaming build over that store, killed and
    resumed: phase 6's saved encoder copied into a new vector directory (no
    pretraining runs), ``cli build-index --streaming`` as a subprocess
@@ -127,8 +157,10 @@ What it does, in order (any failure exits non-zero before the last line):
    (``--ingest-cases N`` sets the fixture's count). The counts must follow
    from the fixture: every case of row % 16 == 0 has no court and fails
    validation, so processed 7,680, failed validation 512 + 64, skipped
-   duplicates 64, stored rows = processed; a second ``ingest_bulk`` stores
-   nothing and skips every stored case. Prints cases/s overall and per
+   duplicates 64, stored rows = processed; a second ``ingest_bulk`` of the
+   first 1,024 payloads stores nothing and skips as duplicates every one
+   of them that passed validation (all 8,320 took 45–70 s, cut for the
+   time limit). Prints cases/s overall and per
    eighth of the run, the time of one duplicate check (a full scan of the
    table) at the end of each eighth (left out of the rates), the cache
    and the job's status. Then ``build_indexes(storage, cfg,
@@ -238,11 +270,12 @@ variant, which the serving paths must not launch) and ``launches_by_path``
 on each path (``build``: phase 5's recall search; ``case_tuner``: phase
 5's case-level tuner; ``stream_ann``: S1's first search; ``stream_build``:
 S2's resumed build; ``eval``: S2's evaluation; ``tune``: phase 6b's tuned
-build; ``pretrain_build``: T2's resumed build; ``http``: phase 10). Each
-kernel's ``max_abs_err`` is the largest difference from its plain version
-over the kernel phase and every call held on the ``build``,
-``case_tuner``, ``stream_ann``, ``stream_build``, ``eval``, ``tune`` and
-``pretrain_build`` paths. The last line is
+build; ``pretrain_build``: T2's resumed build; ``http``: phase 10;
+``sharded``: M1, M2 and M4 summed). Each kernel's ``max_abs_err`` is the
+largest difference from its plain version over the kernel phase and every
+call held on the ``build``, ``case_tuner``, ``stream_ann``,
+``stream_build``, ``eval``, ``tune``, ``pretrain_build`` and ``sharded``
+paths. The last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 
@@ -255,6 +288,8 @@ prints the device time of each at B=256, k=32 over the corpus of phase 3.
 ``--only stream`` runs phases 1, 2, 5, 5b, 6 and 6a: the builds and their
 kernel checks, with no kernel timing, serving, store or engine.
 ``--only train`` runs phases 1, 2 and 6c: pretraining with its own store.
+``--only mesh`` runs phases 1, 2, 3, 5 (without the case-level tuner and
+S1), 5c, 6 and 6M: the sharded phases and the builds they serve.
 """
 
 from __future__ import annotations
@@ -1250,15 +1285,19 @@ def logged_records(name: str):
 def kept_calls(sk, names):
     """While open, each call of the launchers ``names`` of ``sk`` (which
     still launch and count) keeps ``(name, inputs, a copy of the outputs)``
-    in the list it yields."""
+    in the list it yields, the inputs as positional arguments."""
+    import inspect
+
     calls: list = []
     orig = {n: getattr(sk, n) for n in names}
 
     def keeper(n):
-        def call(*args):
-            out = orig[n](*args)
+        sig = inspect.signature(orig[n])
+
+        def call(*args, **kwargs):
+            out = orig[n](*args, **kwargs)
             kept = tuple(t.clone() for t in out) if isinstance(out, tuple) else out.clone()
-            calls.append((n, args, kept))
+            calls.append((n, sig.bind(*args, **kwargs).args, kept))
             return out
         return call
 
@@ -1272,21 +1311,23 @@ def kept_calls(sk, names):
 
 
 def hold_against_plain(torch, sk, calls) -> dict:
-    """Each kept probe call bitwise against ``probe_candidates_plain`` and
-    each kept rescore call within 1e-5 of ``gather_rescore_plain``, on the
-    same inputs. Returns the largest difference of each kernel (the probe's
-    over its live entries)."""
-    err = {"probe_candidates": 0.0, "gather_rescore": 0.0}
+    """Each kept probe and fused-scan call bitwise against
+    ``probe_candidates_plain`` / ``fused_scan_plain`` and each kept rescore
+    call within 1e-5 of ``gather_rescore_plain``, on the same inputs.
+    Returns the largest difference of each kernel (over live entries)."""
+    err = {"probe_candidates": 0.0, "gather_rescore": 0.0, "fused_scan": 0.0}
     for name, args, out in calls:
-        if name == "probe_candidates_cuda":
-            (kv, ks), (pv, ps) = out, sk.probe_candidates_plain(*args)
+        if name in ("probe_candidates_cuda", "fused_scan_cuda"):
+            plain = sk.probe_candidates_plain if name == "probe_candidates_cuda" else sk.fused_scan_plain
+            key = name.removesuffix("_cuda")
+            (kv, ks), (pv, ps) = out, plain(*args)
             bad = (kv.view(torch.int32) != pv.view(torch.int32)) | (ks != ps)
             if bad.any():
-                raise AssertionError(f"probe kernel differs from plain on the built index: "
+                raise AssertionError(f"{key} kernel differs from plain on the built index: "
                                      f"{int(bad.sum())} entries")
             fin = torch.isfinite(pv)
             e = float((kv[fin] - pv[fin]).abs().max()) if fin.any() else 0.0
-            err["probe_candidates"] = max(err["probe_candidates"], e)
+            err[key] = max(err[key], e)
         else:
             e = float((out - sk.gather_rescore_plain(*args)).abs().max())
             if not e <= 1e-5:
@@ -1343,7 +1384,8 @@ def check_pick(steps: list[dict], pick: int, target: float, floor: float | None)
     return rule
 
 
-def ann_build_phase(torch, np, seed: int, work: Path) -> tuple[dict, dict, dict, dict]:
+def ann_build_phase(torch, np, seed: int, work: Path, keep: dict | None = None,
+                    full: bool = True) -> tuple[dict, dict, dict | None, dict | None]:
     """Phase A, the ANN build at the served size: the 5,242,880 corpus rows
     of :func:`corpus_slabs` (drawn on the card from ``seed``, in generation
     order, copied to the host) through ``PartitionedANN(AnnConfig(),
@@ -1355,7 +1397,9 @@ def ann_build_phase(torch, np, seed: int, work: Path) -> tuple[dict, dict, dict,
     recall@10 >= 0.95 against ``search_brute`` on fresh queries, and that
     ``save_dir`` / ``load_dir`` serve bitwise the same; then the
     case-level tuner on the same index (:func:`case_tuner_check`), and
-    phase S1 over the same rows (:func:`stream_ann_phase`). Returns the
+    phase S1 over the same rows (:func:`stream_ann_phase`); with ``full``
+    false these two are skipped (their counts None). ``keep`` receives the
+    host rows and the centroids (phase M serves them). Returns the
     details, the launch counts of that recall search, those of the
     case-level tuner and those of S1's first search."""
     from trie_semantic_search_tpu_torch.core.config import AnnConfig
@@ -1509,11 +1553,15 @@ def ann_build_phase(torch, np, seed: int, work: Path) -> tuple[dict, dict, dict,
 
     # the case-level tuner on the same index (counts reset just before,
     # read just after: the path ``case_tuner``)
-    out["case_tuner"], tuner_launches = case_tuner_check(torch, np, sk, ann, host, seed, q, thresh)
-    log(f"phase: S1, build_streaming of the same {N} rows from the same centroids into a memmap "
-        "emit directory (counts reset just before the first search, read just after)")
-    out["stream_ann"], stream_launches = stream_ann_phase(
-        torch, np, sk, ann, host, nprobe, q, gv, gi, work, out["save_dir_s"])
+    tuner_launches = stream_launches = None
+    if full:
+        out["case_tuner"], tuner_launches = case_tuner_check(torch, np, sk, ann, host, seed, q, thresh)
+        log(f"phase: S1, build_streaming of the same {N} rows from the same centroids into a memmap "
+            "emit directory (counts reset just before the first search, read just after)")
+        out["stream_ann"], stream_launches = stream_ann_phase(
+            torch, np, sk, ann, host, nprobe, q, gv, gi, work, out["save_dir_s"])
+    if keep is not None:
+        keep.update(host=host, centroids=cents)
     del ann, host
     torch.cuda.empty_cache()
     return out, launches, tuner_launches, stream_launches
@@ -1785,6 +1833,19 @@ def stream_ann_phase(torch, np, sk, ann, host, nprobe: int, q, gv, gi, work: Pat
 PIPE_CASES, PIPE_NAMES = 32_768, 4096
 
 
+def pipeline_config(work: Path):
+    """Phase B's config: its store and artifact paths under ``work``, mean
+    pooling."""
+    from trie_semantic_search_tpu_torch.core.config import Config
+
+    cfg = Config()
+    cfg.storage.db_path = str(work / "pipeline.sqlite")
+    cfg.trie.index_path = str(work / "trie")
+    cfg.vector.hnsw.index_path = str(work / "vec")
+    cfg.vector.pooling = "mean"
+    return cfg
+
+
 def pipeline_phase(torch, np, seed: int, work: Path) -> dict:
     """Phase B, the build pipeline through the entry points a user calls:
     a sqlite store of ``PIPE_CASES`` fixture cases (four sentences each),
@@ -1794,17 +1855,12 @@ def pipeline_phase(torch, np, seed: int, work: Path) -> dict:
     ``SearchEngine.search_batch`` at B=8 and 64 over the loaded artifacts,
     which must return what an engine over the in-memory indexes returns,
     with name queries led by a case-name or exact hit."""
-    from trie_semantic_search_tpu_torch.core.config import Config
     from trie_semantic_search_tpu_torch.core.types import CaseMetadata, SearchConfig
     from trie_semantic_search_tpu_torch.index.builder import build_indexes, load_artifacts, save_artifacts
     from trie_semantic_search_tpu_torch.search.engine import MatchType, SearchEngine, SearchQuery
     from trie_semantic_search_tpu_torch.storage.store import StorageManager
 
-    cfg = Config()
-    cfg.storage.db_path = str(work / "pipeline.sqlite")
-    cfg.trie.index_path = str(work / "trie")
-    cfg.vector.hnsw.index_path = str(work / "vec")
-    cfg.vector.pooling = "mean"
+    cfg = pipeline_config(work)
     out: dict = {}
     t0 = time.perf_counter()
     write_cases_fast(cfg.storage.db_path,
@@ -2114,6 +2170,9 @@ def stream_build_phase(torch, np, sk, work: Path, out_dir: Path) -> tuple[dict, 
 #: At 4,096 the tuned build's ANN has m = 320 slots, off the probe
 #: kernel's 128-slot rule, so its tuner would run no kernel
 ING_CASES, ING_PLANTED = 8192, 64
+#: payloads the second ``ingest_bulk`` feeds again (each is checked
+#: against the whole table twice, so all of them took 45-70 s)
+ING_REINGEST = 1024
 #: phase I: duplicate-check scans timed on the table at the end of each
 #: eighth of the ingest
 ING_SCANS = 20
@@ -2183,7 +2242,8 @@ def ingest_phase(torch, np, sk, n_cases: int, seed: int, work: Path) -> tuple[di
     fresh store and cache directory, with the ``[ingestion]`` defaults but
     no pause between batches; the counts checked against the fixture; one
     duplicate check timed at each eighth (left out of the rates); a second
-    ``ingest_bulk`` that must store nothing; then
+    ``ingest_bulk`` of the first ``ING_REINGEST`` payloads, which must store
+    nothing and skip as duplicates those that passed validation; then
     ``build_indexes(tune_recall=0.95, device="cuda")`` over the ingested
     store (launch counts reset just before, read just after: path
     ``tune``), the sweep's steps and routes, the pick checked against them
@@ -2247,6 +2307,7 @@ def ingest_phase(torch, np, sk, n_cases: int, seed: int, work: Path) -> tuple[di
         job = await mgr.ingest_bulk("mock")
         t1 = time.perf_counter()
         first = mgr.pipeline.stats
+        mgr.register_source(MockDataSource(cases=payloads[:ING_REINGEST]))
         again = await mgr.ingest_bulk("mock")
         return job, first, again, t0, t1, time.perf_counter()
 
@@ -2277,9 +2338,13 @@ def ingest_phase(torch, np, sk, n_cases: int, seed: int, work: Path) -> tuple[di
                              f"{stored} stored")
     second = {k: getattr(mgr.pipeline.stats, k) for k in want}
     out["reingest_counts"] = second
-    log(f"  ingest_bulk again in {out['reingest_s']:.1f} s: job {again.status.value}, {second}")
+    again_fed = payloads[:ING_REINGEST]
+    passed = sum(1 for meta, _ in again_fed if meta.court and meta.id.int >> 96 != 11)
+    log(f"  ingest_bulk of the first {len(again_fed)} payloads again in {out['reingest_s']:.1f} s: job "
+        f"{again.status.value}, {second} ({passed} of them passed validation)")
     if (again.status != JobStatus.COMPLETED or second["processed"]
-            or second["skipped_duplicates"] != stored + ING_PLANTED
+            or second["skipped_duplicates"] != passed
+            or second["failed_validation"] != len(again_fed) - passed
             or storage.get_stats().total_cases != stored):
         raise AssertionError(f"the second ingest stored something or skipped other cases: {second}")
 
@@ -2758,6 +2823,457 @@ def train_phase(torch, np, sk, seed: int, work: Path, out_dir: Path) -> tuple[di
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase M: sharded serving
+# ---------------------------------------------------------------------------
+
+
+#: phase M: shards on the one card (one shard per card when more are
+#: visible), the probe's nprobe, the recall floor against the exact stream
+MESH_SHARDS, MESH_NPROBE, MESH_RECALL = 4, 64, 0.97
+#: M3: rows of the ShardedCorpusIndex searched, of the one saved and
+#: loaded (``savez_compressed`` of f16 rows is the time), queries, k
+M3_ROWS, M3_SAVE_ROWS, M3_QUERIES, M3_K = 1 << 20, 1 << 15, 64, 10
+#: the kernel launchers whose calls on the ``sharded`` path are held
+MESH_HELD = ("probe_candidates_cuda", "gather_rescore_cuda", "fused_scan_cuda")
+
+
+def mesh_devices(torch, dev) -> list:
+    """The mesh of phase M: ``MESH_SHARDS`` shards on ``dev``, or one shard
+    per card when ``dev`` is a card and more than one is visible."""
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [torch.device("cuda", dev.index or 0) if dev.type == "cuda" else dev] * MESH_SHARDS
+
+
+def serving_batches(np, rng, names, words, courts, sizes=((8, False), (64, False), (256, False), (64, True))):
+    """The main path's batches: ``(B, filtered, texts, court filters,
+    date ranges)``; a filtered batch puts two courts on every other query
+    and a date range on two of every three."""
+    out = []
+    for B, filtered in sizes:
+        texts = texts_for(rng, names, words, B)
+        cf = [[courts[1 + i % 15], courts[2 + (i + 3) % 14]] if filtered and i % 2 == 0 else None
+              for i in range(B)]
+        dr = [(dt.date(1960, 1, 1), dt.date(1990, 12, 31)) if filtered and i % 3 != 1 else None
+              for i in range(B)]
+        out.append((B, filtered, texts, cf, dr))
+    return out
+
+
+def held_counts(calls) -> dict:
+    """Kept calls by launcher, for the log."""
+    out: dict = {}
+    for name, _, _ in calls:
+        out[name.removesuffix("_cuda")] = out.get(name.removesuffix("_cuda"), 0) + 1
+    return out
+
+
+def serve_kept(torch, sk, fused, batches, recall_target: float):
+    """Each batch once through ``query_batch`` with the kernel launchers'
+    calls kept, the counts set to 0 just before and read just after.
+    Returns the records (with wall ms), the counts and the kept calls."""
+    records = []
+    with kept_calls(sk, MESH_HELD) as calls:
+        sk.reset_launch_counts()
+        for B, filtered, texts, cf, dr, q in batches:
+            mode = "stream" if fused._layout_brute_batch(B) else (
+                "probe" if fused.ann_mode == "sharded-partitioned" else "scan")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fused.query_batch(q, texts, cf, dr, [0.0] * B, [2.0] * B, k=K,
+                                    overfetch=serving_settings()[0], recall_target=recall_target)
+            torch.cuda.synchronize()
+            records.append(dict(B=B, filtered=filtered, mode=mode, texts=texts, cf=cf, dr=dr, q=q,
+                                res=res, query_ms=(time.perf_counter() - t0) * 1e3))
+        launches = dict(sk.LAUNCHES)
+    return records, launches, calls
+
+
+def held_in_background(torch, sk, calls):
+    """:func:`hold_against_plain` over ``calls`` in a thread of its own,
+    whose Python launches the plain versions while the caller's host-bound
+    work (numpy, which releases the interpreter lock) runs; returns a
+    future of ``(largest differences, held counts, seconds)``. Its failure
+    raises from ``result()``."""
+    import concurrent.futures
+
+    def job():
+        t0 = time.perf_counter()
+        return hold_against_plain(torch, sk, calls), held_counts(calls), time.perf_counter() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        return pool.submit(job)
+    finally:
+        pool.shutdown(wait=False)
+
+
+def profile_sharded(torch, fused, rec) -> dict:
+    """One more run of a batch under ``torch.profiler``: the device ms of
+    each shard's stage (the ranges ``sharded shard <s>``), of the merge on
+    the first device (``sharded merge``) and of the whole batch, and the
+    wall ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B = rec["B"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused.query_batch(rec["q"], rec["texts"], rec["cf"], rec["dr"], [0.0] * B, [2.0] * B, k=K,
+                          overfetch=serving_settings()[0], recall_target=serving_settings()[1])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def total(e) -> float:
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+    shards, merge = {}, 0.0
+    for e in prof.events():
+        if e.name.startswith("sharded shard "):
+            s = int(e.name.rsplit(" ", 1)[1])
+            shards[s] = shards.get(s, 0.0) + total(e) / 1e3
+        elif e.name == "sharded merge":
+            merge += total(e) / 1e3
+    device_ms = sum(dev_us(e) for e in prof.key_averages() if on_device(e)) / 1e3
+    return dict(B=B, mode=rec["mode"], wall_ms=wall_ms, device_ms=device_ms,
+                shard_device_ms=[shards.get(s, 0.0) for s in range(len(shards))],
+                merge_device_ms=merge)
+
+
+def tie_aware_equal(np, want, got, k: int) -> tuple[int, list]:
+    """Position by position, ``got``'s case rows and scores (bits) against
+    ``want``'s, but for members of a tie at the k-th score, whose cases may
+    differ. Returns the queries compared and the tie members that differ
+    (query, case rows) for the log; raises on any other difference."""
+    wv, _, wc, ws = want
+    gv, _, gc, gs = got
+    differ = []
+    for b in range(wv.shape[0]):
+        kth = wv[b, k - 1]
+        above = wv[b] > kth
+        if not (np.array_equal(gc[b, above], wc[b, above]) and np.array_equal(gs[b, above], ws[b, above])
+                and np.array_equal(gv[b].view(np.int32), wv[b].view(np.int32))):
+            raise AssertionError(f"query {b}: sharded and single-device results differ above the "
+                                 f"k-th score {kth}: {gc[b].tolist()} vs {wc[b].tolist()}")
+        tie = ~above
+        if not np.array_equal(gc[b, tie], wc[b, tie]):
+            if not np.isfinite(kth):
+                raise AssertionError(f"query {b}: the dead slots differ")
+            differ.append((b, sorted(set(gc[b, tie].tolist()) ^ set(wc[b, tie].tolist()))))
+    return wv.shape[0], differ
+
+
+def mesh_phase(torch, np, sk, fused, vi, host, cents, names, words, courts, seed: int):
+    """Phase M1-M3 over phase A's rows (the served corpus: 5,242,880 chunks,
+    four per case) on a mesh of :func:`mesh_devices`, the rows in a seeded
+    random order: in generation order each shard would hold whole clusters
+    (a cluster's 1,024 rows are adjacent), which a corpus stored in ingest
+    order does not, and the per-shard capacity cap of
+    ``build_sharded_partitions`` (2.5 times a shard's mean fill) would spill
+    a third of the rows. Returns the details, the launch counts of M1's and
+    M2's serving runs (summed: the path ``sharded``) and each kernel's
+    largest difference from its plain version over the held calls."""
+    from trie_semantic_search_tpu_torch.core.config import AnnConfig, MeshConfig, VectorConfig
+    from trie_semantic_search_tpu_torch.index.ann import PartitionedANN
+    from trie_semantic_search_tpu_torch.index.vector import VectorIndex
+    from trie_semantic_search_tpu_torch.parallel.mesh import make_mesh
+    from trie_semantic_search_tpu_torch.search.fused import FusedHybridSearch
+
+    dev = vi.device
+    mesh = make_mesh(MeshConfig(), devices=mesh_devices(torch, dev))
+    S = mesh.shape["data"]
+    N = host.shape[0]
+    t0 = time.perf_counter()
+    rows = np.random.default_rng(seed + 6).permutation(N).astype(np.int32)
+    host = host[rows]  # served row i is generated row rows[i]
+    refs = np.stack([rows // CHUNKS_PER_CASE, rows % CHUNKS_PER_CASE], axis=1)
+    out_perm_s = time.perf_counter() - t0
+    cfg = VectorConfig()
+    cfg.hnsw = AnnConfig(num_probes=MESH_NPROBE)
+    ann = PartitionedANN(cfg.hnsw, device=dev)  # phase A's centroids, for the shards to share
+    ann.centroids, ann.num_vectors = torch.tensor(cents, device=dev), N
+    vm = VectorIndex(cfg, embedder=vi.embedder, device=dev)
+    vm.set_frozen(refs, host, ann)
+    eps = serving_settings()[2]
+    out: dict = {"shards": S, "devices": [str(d) for d in mesh.data_devices], "permute_s": out_perm_s}
+    rng = np.random.default_rng(seed + 7)
+    batches = [(B, f, texts, cf, dr, vi.embedder.embed(texts).embedding)
+               for B, f, texts, cf, dr in serving_batches(np, rng, names, words, courts)]
+    err = {"probe_candidates": 0.0, "gather_rescore": 0.0, "fused_scan": 0.0}
+    launches = {}
+
+    def add(counts: dict) -> None:
+        for n, c in counts.items():
+            launches[n] = launches.get(n, 0) + c
+
+    def fold(e: dict) -> None:
+        for n, x in e.items():
+            err[n] = max(err[n], x)
+
+    # M1: sharded-partitioned, phase A's centroids
+    t0 = time.perf_counter()
+    with anon_rss_peak() as rss:
+        f1 = FusedHybridSearch(fused.trie_index, vm, fused.columns, ann_mode="partitioned", mesh=mesh,
+                               flat_escalate_eps=eps)
+        torch.cuda.synchronize()
+    m1 = dict(init_s=time.perf_counter() - t0, stages_s=f1.sp_build_seconds, m_local=f1.sp_m,
+              nprobe=f1.sp_nprobe, rss=rss, partitions=int(f1.sp_centroids.shape[0]))
+    if not (f1.ann_mode == "sharded-partitioned" and f1.sp_m % 128 == 0 and f1.sp_nprobe == MESH_NPROBE):
+        raise AssertionError(f"M1 built {f1.ann_mode} with m={f1.sp_m}, nprobe={f1.sp_nprobe}")
+    part_gb = sum(t.numel() for t in f1.sp_int8) / 1e9
+    log(f"  M1 FusedHybridSearch(mesh={S} shards on {sorted(set(out['devices']))}) "
+        f"{m1['init_s']:.1f} s; build_sharded_partitions " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in m1["stages_s"].items())
+        + f"; P={m1['partitions']} m_local={f1.sp_m}, part_int8 {part_gb:.2f} GB on the card; " + rss_line(rss))
+    t0 = time.perf_counter()
+    recs, c1, calls = serve_kept(torch, sk, f1, batches, serving_settings()[1])
+    m1["serve_s"] = time.perf_counter() - t0
+    add(c1)
+    if min(c1["probe_candidates"], c1["gather_rescore"], c1["fused_scan"]) <= 0 or c1["fused_scan_dp4a"]:
+        raise AssertionError(f"M1 did not launch the probe, rescore and fused scan kernels: {c1}")
+    t0 = time.perf_counter()
+    hits = []
+    m1["batches"] = []
+    for rec in recs:
+        r10 = check_and_recall(np, fused, rec)
+        hits.append((r10, rec["B"]))
+        m1["batches"].append(dict(B=rec["B"], filtered=rec["filtered"], mode=rec["mode"],
+                                  query_ms=rec["query_ms"], recall_at_10=r10))
+        log(f"  M1 B={rec['B']} {rec['mode']} filtered={rec['filtered']}: query ms "
+            f"{rec['query_ms']:.1f}, recall@10 vs the single-device exact stream {r10:.4f}")
+    m1["recall_at_10"] = sum(r * b for r, b in hits) / sum(b for _, b in hits)
+    m1["recall_s"] = time.perf_counter() - t0
+    if m1["recall_at_10"] < MESH_RECALL:
+        raise AssertionError(f"M1 recall@10 {m1['recall_at_10']:.4f} < {MESH_RECALL}")
+    m1["profile"] = [profile_sharded(torch, f1, r) for r in recs if not r["filtered"] and r["B"] in (64, 256)]
+    for p in m1["profile"]:
+        log(f"  M1 profile B={p['B']} {p['mode']}: wall {p['wall_ms']:.2f} ms, device {p['device_ms']:.2f} ms; "
+            f"per shard device ms {[round(x, 3) for x in p['shard_device_ms']]}, merge "
+            f"{p['merge_device_ms']:.3f} ms")
+    log(f"  M1 recall@10 over {sum(b for _, b in hits)} queries {m1['recall_at_10']:.4f} (floor "
+        f"{MESH_RECALL}); {m1['serve_s']:.1f} s serving, {m1['recall_s']:.1f} s references")
+    out["m1"] = m1
+    held1 = held_in_background(torch, sk, calls)  # beside M2's host-bound build
+    del f1, recs, calls
+
+    # M2: sharded brute, the fused scan per shard at 0.97, exact at 1.0
+    t0 = time.perf_counter()
+    f2 = FusedHybridSearch(fused.trie_index, vm, fused.columns, ann_mode="brute", mesh=mesh,
+                           flat_escalate_eps=eps)
+    torch.cuda.synchronize()
+    m2 = dict(init_s=time.perf_counter() - t0)
+    if f2.ann_mode != "sharded":
+        raise AssertionError(f"M2 built {f2.ann_mode}")
+    e1, m1["held"], m1["hold_s"] = held1.result()
+    fold(e1)
+    log(f"  M1 launches {c1}; held {m1['held']} against the plain versions in {m1['hold_s']:.1f} s "
+        f"(probe and fused scan bitwise, rescore within {e1['gather_rescore']:.3g})")
+    torch.cuda.empty_cache()
+    # B=64 unfiltered and filtered: holding a call costs the plain scan of
+    # a whole shard, whatever the batch
+    m2_batches = [b for b in batches if b[0] == 64]
+    t0 = time.perf_counter()
+    recs, c2, calls = serve_kept(torch, sk, f2, m2_batches, serving_settings()[1])
+    m2["serve_s"] = time.perf_counter() - t0
+    add(c2)
+    if c2["fused_scan"] <= 0 or c2["fused_scan_dp4a"] or c2["probe_candidates"] or c2["gather_rescore"]:
+        raise AssertionError(f"M2 launched other than the fused scan: {c2}")
+    held2 = held_in_background(torch, sk, calls)  # beside the single-device build below
+    del calls
+    m2["batches"] = [dict(B=r["B"], filtered=r["filtered"], query_ms=r["query_ms"]) for r in recs]
+    log(f"  M2 FusedHybridSearch(mesh, brute) {m2['init_s']:.1f} s; launches {c2}; query ms " + ", ".join(
+        f"B={r['B']}{' filtered' if r['filtered'] else ''} {r['query_ms']:.1f}" for r in recs))
+    t0 = time.perf_counter()
+    one = FusedHybridSearch(fused.trie_index, vm, fused.columns, ann_mode="brute")
+    compared, differ = 0, []
+    for B, filtered, texts, cf, dr, q in m2_batches:
+        args = (q, texts, cf, dr, [0.0] * B, [2.0] * B)
+        kw = dict(k=K, overfetch=serving_settings()[0], recall_target=1.0)
+        n, d = tie_aware_equal(np, one.query_batch(*args, **kw), f2.query_batch(*args, **kw), K)
+        compared += n
+        differ += [(B, filtered, b, cases) for b, cases in d]
+    m2.update(exact_s=time.perf_counter() - t0, exact_compared=compared, exact_tie_differences=differ)
+    log(f"  M2 at recall_target=1.0: {compared} queries position by position equal to the single-device "
+        f"exact scan (FusedHybridSearch brute, {time.perf_counter() - t0:.1f} s with its build); tie "
+        f"members at the k-th score that differ: {differ or 'none'}")
+    e2, m2["held"], m2["hold_s"] = held2.result()
+    fold(e2)
+    log(f"  M2 held {m2['held']} bitwise against the plain version in {m2['hold_s']:.1f} s")
+    out["m2"] = m2
+    del f2, one, recs
+    torch.cuda.empty_cache()
+
+    out["m3"] = sharded_index_check(torch, np, host, seed, dev)
+    return out, launches, err
+
+
+def sharded_index_check(torch, np, host, seed: int, dev) -> dict:
+    """M3: ``ShardedCorpusIndex`` over the first ``M3_ROWS`` rows of phase A
+    on ``MESH_SHARDS`` shards, int8 and bf16, against one exact top-k over
+    the whole matrix on the card (int8: bitwise; bf16: values within 1e-6
+    and every row inside the reference's k-th score less 1e-6); then one of
+    ``M3_SAVE_ROWS`` rows saved and loaded on a mesh of 2, which must serve
+    bitwise what the same file serves on the phase's mesh (the overlap
+    with the top 10 served before the save is printed: the file holds f16
+    rows, so the int8 codes loaded from it may round otherwise)."""
+    from trie_semantic_search_tpu_torch.core.config import MeshConfig
+    from trie_semantic_search_tpu_torch.index.sharded import ShardedCorpusIndex
+    from trie_semantic_search_tpu_torch.ops.scoring import cosine_scores, cosine_scores_int8, quantize_int8
+    from trie_semantic_search_tpu_torch.ops.topk import exact_topk
+    from trie_semantic_search_tpu_torch.parallel.mesh import make_mesh
+
+    out: dict = {"rows": M3_ROWS, "save_rows": M3_SAVE_ROWS}
+    mesh = make_mesh(MeshConfig(), devices=mesh_devices(torch, dev))
+    rng = np.random.default_rng(seed + 8)
+    q = host[rng.choice(M3_ROWS, M3_QUERIES, replace=False)] + 0.01 * rng.standard_normal(
+        (M3_QUERIES, host.shape[1])).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    rows = host[:M3_ROWS]
+    # normalised as the index normalises its input (numpy, on the host)
+    vn = torch.as_tensor(rows / np.maximum(np.linalg.norm(rows, axis=1, keepdims=True), 1e-12), device=dev)
+    qt = torch.as_tensor(q, device=dev)
+    for use_int8 in (True, False):
+        t0 = time.perf_counter()
+        idx = ShardedCorpusIndex(mesh, use_int8=use_int8)
+        idx.build(host[:M3_ROWS])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gv, gi = idx.search_brute(q, M3_K)
+        search_ms = (time.perf_counter() - t0) * 1e3
+        if use_int8:
+            cq, cs = quantize_int8(vn)
+            rv, ri = exact_topk(cosine_scores_int8(qt, cq, cs), M3_K)
+            if not (np.array_equal(gi, ri.cpu().numpy())
+                    and np.array_equal(gv.view(np.int32), rv.cpu().numpy().view(np.int32))):
+                raise AssertionError("M3: the sharded int8 scan differs from the one-card exact top-k")
+            e = 0.0
+        else:
+            scores = cosine_scores(qt, vn.to(torch.bfloat16))
+            rv, _ = exact_topk(scores, M3_K)
+            rv = rv.cpu().numpy()
+            e = float(np.abs(gv - rv).max())
+            mine = torch.gather(scores, 1, torch.as_tensor(gi, device=dev).long()).cpu().numpy()
+            if not (e <= 1e-6 and (mine >= rv[:, -1:] - 1e-6).all()):
+                raise AssertionError(f"M3: the sharded bf16 scan differs from the one-card top-k by {e}")
+        out["int8" if use_int8 else "bf16"] = dict(build_s=build_s, search_ms=search_ms, max_abs_err=e)
+        log(f"  M3 ShardedCorpusIndex(int8={use_int8}) of {M3_ROWS} rows on {mesh.shape['data']} shards: "
+            f"build {build_s:.1f} s, search_brute B={M3_QUERIES} k={M3_K} {search_ms:.1f} ms, equal to "
+            f"the one-card exact top-k ({'bitwise' if use_int8 else f'values within {e:.3g}'})")
+        del idx
+    del vn
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="m3_") as tmp:
+        path = Path(tmp) / "ann.npz"
+        idx = ShardedCorpusIndex(mesh)
+        idx.build(host[:M3_SAVE_ROWS])
+        before = idx.search_brute(q, M3_K)
+        t0 = time.perf_counter()
+        idx.save(path)
+        out["save_s"], out["npz_mb"] = time.perf_counter() - t0, path.stat().st_size / 2**20
+        del idx
+        t0 = time.perf_counter()
+        two = ShardedCorpusIndex.load(path, make_mesh(MeshConfig(), devices=[dev] * 2))
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        got = two.search_brute(q, M3_K)
+        want = ShardedCorpusIndex.load(path, mesh).search_brute(q, M3_K)
+    if not (np.array_equal(got[1], want[1]) and np.array_equal(got[0].view(np.int32), want[0].view(np.int32))):
+        raise AssertionError("M3: the saved index serves other results on a mesh of 2 than of "
+                             f"{mesh.shape['data']}")
+    # the file holds f16 rows, so the loaded int8 codes may differ from the
+    # ones quantised from the f32 rows by a rounding
+    out["saved_vs_built_recall_at_10"] = float(np.mean(
+        [len(set(a) & set(b)) / M3_K for a, b in zip(got[1], before[1])]))
+    log(f"  M3 save of {M3_SAVE_ROWS} rows {out['save_s']:.1f} s ({out['npz_mb']:.0f} MiB), load on a mesh of "
+        f"2 {out['load_s']:.1f} s: bitwise the results of the same file on {mesh.shape['data']} shards; "
+        f"recall@10 against the index before the save (f32 rows, the file's are f16) "
+        f"{out['saved_vs_built_recall_at_10']:.4f}")
+    return out
+
+
+def mesh_engine_phase(torch, np, sk, seed: int, work: Path, dev):
+    """M4: ``SearchEngine(mesh=)`` over phase B's saved artifacts loaded
+    with the mesh (``load_artifacts(mesh=)``: the vector index a
+    ``ShardedCorpusIndex`` rebuilt from the saved vectors; the fused state
+    sharded-partitioned, k-means on the card), ``search_batch`` at B=8 and
+    64 (the counts set to 0 just before, read just after; every kernel
+    call held): every name query has its case first, and recall@10 of the
+    served cases against the engine without a mesh at recall_target 1.0
+    is at least ``MESH_RECALL``."""
+    from trie_semantic_search_tpu_torch.core.config import MeshConfig
+    from trie_semantic_search_tpu_torch.core.types import SearchConfig
+    from trie_semantic_search_tpu_torch.index.builder import load_artifacts
+    from trie_semantic_search_tpu_torch.index.sharded import ShardedCorpusIndex
+    from trie_semantic_search_tpu_torch.parallel.mesh import make_mesh
+    from trie_semantic_search_tpu_torch.search.engine import MatchType, SearchEngine, SearchQuery
+    from trie_semantic_search_tpu_torch.storage.store import StorageManager
+
+    cfg = pipeline_config(work)
+    cfg.search.enable_query_cache = False
+    mesh = make_mesh(MeshConfig(), devices=mesh_devices(torch, dev))
+    out: dict = {}
+    t0 = time.perf_counter()
+    storage = StorageManager(cfg.storage)
+    loaded = load_artifacts(cfg, device=dev, mesh=mesh)
+    if not isinstance(loaded[1].ann, ShardedCorpusIndex):
+        raise AssertionError(f"load_artifacts(mesh=) gave a {type(loaded[1].ann).__name__}")
+    engine = SearchEngine(cfg, storage, *loaded, device=dev, mesh=mesh)
+    fused = engine._get_fused()
+    torch.cuda.synchronize()
+    out.update(init_s=time.perf_counter() - t0, mode=fused.ann_mode, m_local=fused.sp_m,
+               partitions=int(fused.sp_centroids.shape[0]), nprobe=fused.sp_nprobe)
+    exact_cfg = pipeline_config(work)
+    exact_cfg.search.enable_query_cache = False
+    exact_cfg.search.fused_recall_target = 1.0
+    exact = SearchEngine(exact_cfg, storage, *load_artifacts(exact_cfg, device=dev), device=dev)
+    names = case_names(np, PIPE_CASES, PIPE_NAMES, seed)
+    rng = np.random.default_rng(seed + 9)
+    hits, first, out["batches"] = [], 0, []
+    with kept_calls(sk, MESH_HELD) as calls:
+        sk.reset_launch_counts()
+        runs = []
+        for B in (8, 64):
+            texts = texts_for(rng, names, WORDS, B)
+            qs = [SearchQuery(query=t, config=SearchConfig(min_similarity=-1.0)) for t in texts]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = engine.search_batch(qs)
+            runs.append((B, qs, got, (time.perf_counter() - t1) * 1e3))
+        launches = dict(sk.LAUNCHES)
+    if min(launches["probe_candidates"], launches["gather_rescore"]) <= 0 or launches["fused_scan_dp4a"]:
+        raise AssertionError(f"M4 did not launch the probe and rescore kernels: {launches}")
+    e = hold_against_plain(torch, sk, calls)
+    out["held"] = held_counts(calls)
+    del calls
+    for B, qs, got, ms in runs:
+        check_results(MatchType, set(names.values()), qs, got)
+        want = exact.search_batch(qs)
+        for q, g, w in zip(qs, got, want):
+            if q.query in set(names.values()):
+                if not g or g[0].case_metadata.name != q.query:
+                    raise AssertionError(f"M4: name query {q.query!r} not led by its case")
+                first += 1
+            ws = {r.case_metadata.id for r in w[:10]}
+            if ws:
+                hits.append(len(ws & {r.case_metadata.id for r in g[:10]}) / len(ws))
+        out["batches"].append(dict(B=B, wall_ms=ms))
+    out["recall_at_10"] = float(np.mean(hits))
+    out["name_queries_first"] = first
+    log(f"  M4 load_artifacts(mesh) + SearchEngine(mesh) {out['init_s']:.1f} s ({out['mode']}, P="
+        f"{out['partitions']} m_local={out['m_local']} nprobe={out['nprobe']}); search_batch "
+        + ", ".join(f"B={b['B']} {b['wall_ms']:.1f} ms" for b in out["batches"])
+        + f"; {first} name queries led by their case; recall@10 vs the engine without a mesh at "
+        f"recall_target 1.0 {out['recall_at_10']:.4f}; launches {launches}; held {out['held']}")
+    if out["recall_at_10"] < MESH_RECALL:
+        raise AssertionError(f"M4 recall@10 {out['recall_at_10']:.4f} < {MESH_RECALL}")
+    storage.close()
+    del engine, exact, loaded, fused
+    torch.cuda.empty_cache()
+    return out, launches, e
+
+
 def small_reference(torch, np, seed, devices=("cpu", "cuda")):
     """The same small partitioned index (data drawn on the CPU) served on
     the CPU (plain versions) and on the card (kernels): the encoders agree
@@ -2802,15 +3318,7 @@ def serve(torch, np, fused, vi, names, words, courts, seed):
     per-batch records and the launch counts of exactly this run."""
     from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
 
-    rng = np.random.default_rng(seed + 1)
-    batches = []
-    for B, filtered in ((8, False), (64, False), (256, False), (64, True)):
-        texts = texts_for(rng, names, words, B)
-        cf = [[courts[1 + i % 15], courts[2 + (i + 3) % 14]] if filtered and i % 2 == 0 else None
-              for i in range(B)]
-        dr = [(dt.date(1960, 1, 1), dt.date(1990, 12, 31)) if filtered and i % 3 != 1 else None
-              for i in range(B)]
-        batches.append((B, filtered, texts, cf, dr))
+    batches = serving_batches(np, np.random.default_rng(seed + 1), names, words, courts)
     sk.reset_launch_counts()
     records = []
     for B, filtered, texts, cf, dr in batches:
@@ -3491,14 +3999,16 @@ def cli_fresh_lifecycle(root: Path) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["kernels", "int8-ablations", "stream", "train"],
+    ap.add_argument("--only", choices=["kernels", "int8-ablations", "stream", "train", "mesh"],
                     help="kernels: the device, kernel build, small-reference and kernel phases "
                          "only (no index builds, serving, profile, store or engine); "
                          "int8-ablations: the device time of each ablation build of the int8 "
                          "top-k's wgmma variant at its timed case; stream: the build phases only "
                          "(A with S1, B with S2 and the evaluation), with no kernel timing, "
                          "serving, store or engine; train: phase T alone (pretraining, its own "
-                         "store) after the kernel build and the small reference")
+                         "store) after the kernel build and the small reference; mesh: the sharded "
+                         "phases M1-M4 after the card state, phase A (without S1 and the case tuner) "
+                         "and phase B")
     ap.add_argument("--ingest-cases", type=int, default=ING_CASES,
                     help="fixture cases phase I ingests (at least 1,024; its time grows with the "
                          "square of the count)")
@@ -3564,16 +4074,49 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None,
                 if k in kernels:
                     kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], e)
 
-    def build_phases(kernels, paths) -> None:
+    def build_phases(kernels, paths, state: dict | None = None, full: bool = True) -> None:
+        """A (with S1 and the case tuner when ``full``), then with the
+        serving ``state`` of phase 3 the sharded phases M1-M3, B, M4 after
+        B (it serves B's artifacts), and S2 when ``full``."""
         log(f"phase: build: ANN at full size ({P_PARTS * M_SLOTS} rows, D={DIM}; counts reset just "
             "before the recall search, read just after)")
-        (detail["build_ann"], paths["build"], paths["case_tuner"],
-         paths["stream_ann"]) = ann_build_phase(torch, np, seed, work)
-        note_errs(kernels, detail["build_ann"]["plain_err"], detail["build_ann"]["case_tuner"]["plain_err"],
-                  detail["build_ann"]["stream_ann"]["plain_err"])
+        keep = {} if state is not None else None
+        detail["build_ann"], paths["build"], tuner, streamed = ann_build_phase(
+            torch, np, seed, work, keep, full)
+        note_errs(kernels, detail["build_ann"]["plain_err"])
+        if full:
+            paths["case_tuner"], paths["stream_ann"] = tuner, streamed
+            note_errs(kernels, detail["build_ann"]["case_tuner"]["plain_err"],
+                      detail["build_ann"]["stream_ann"]["plain_err"])
+        if state is not None:
+            devs = mesh_devices(torch, state["vi"].device)
+            log(f"phase: M1-M3, sharded serving over phase A's rows in a seeded order ({len(devs)} shards "
+                f"on {sorted({str(d) for d in devs})}; counts reset just before each serving run, "
+                "read just after)")
+            t0 = time.perf_counter()
+            detail["mesh"], paths["sharded"], err = mesh_phase(
+                torch, np, sk, state["fused"], state["vi"], keep.pop("host"), keep.pop("centroids"),
+                state["names"], WORDS, COURTS, seed)
+            note_errs(kernels, err)
+            detail["mesh"]["seconds"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            log(f"  {card}: phase M1-M3 {detail['mesh']['seconds']:.1f} s")
         log("phase: build: pipeline end to end (build_indexes -> save_artifacts -> load_artifacts "
             "-> SearchEngine)")
         detail["build_pipeline"] = pipeline_phase(torch, np, seed, work)
+        if state is not None:
+            log("phase: M4, SearchEngine(mesh) over phase B's artifacts loaded with the mesh (counts "
+                "reset just before the batches, read just after)")
+            t0 = time.perf_counter()
+            detail["mesh"]["m4"], launches, err = mesh_engine_phase(torch, np, sk, seed, work,
+                                                                    state["vi"].device)
+            paths["sharded"] = {n: c + launches[n] for n, c in paths["sharded"].items()}
+            note_errs(kernels, err)
+            detail["mesh"]["m4"]["seconds"] = time.perf_counter() - t0
+            log(f"  {card}: phase M4 {detail['mesh']['m4']['seconds']:.1f} s; launches on the sharded "
+                f"path (M1 + M2 + M4) {paths['sharded']}")
+        if not full:
+            return
         log(f"phase: S2, build-index --streaming over phase B's store ({PIPE_CASES} cases), SIGKILLed "
             f"at {S2_KILL_SHARDS} shards and resumed in this process (counts reset just before the "
             "resume and before the evaluation, read just after each)")
@@ -3613,6 +4156,11 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None,
     detail["build_state_s"] = time.perf_counter() - t0
     log(f"  {vi.ann.num_vectors} chunks, mode {fused.ann_mode}, nprobe {vi.ann.default_nprobe}, "
         f"{len(vi.ann.corpus_bf16)} rescore segments, {detail['build_state_s']:.1f} s")
+    state = dict(fused=fused, vi=vi, names=names)
+    if only == "mesh":
+        paths = {}
+        build_phases({}, paths, state, full=False)
+        return finish(torch, detail, {}, paths, out_dir, card, t_start)
     if only == "int8-ablations":
         log(f"phase: int8 top-k ablation builds at B=256 k={K} (device ms, two turns)")
         detail["int8_ablations"] = int8_ablation_phase(torch, vi)
@@ -3641,7 +4189,7 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None,
             kernels[k]["launches"] = None
         return finish(torch, detail, kernels, paths, out_dir, card, t_start)
 
-    build_phases(kernels, paths)
+    build_phases(kernels, paths, state)
     log(f"phase: I, ingest -> tuned build -> serve ({ingest_cases} fixture cases and {2 * ING_PLANTED} "
         "planted through ingest_bulk; counts reset just before build_indexes(tune_recall), read "
         "just after)")

@@ -419,19 +419,42 @@ def test_eval_retrieval_command_matches_jax(art, one_device_toml, capsys, monkey
     assert got == want and want["probes"] > 0 and "ann_only" in want["stages"]
 
 
-def test_serving_mesh_refuses_more_than_one_card(monkeypatch):
-    cfg = Config()
+@pytest.mark.parametrize("enabled,dp,mp", [
+    (True, 0, 1), (True, 4, 2), (True, 2, 1), (True, 1, 1), (True, 0, 8), (True, 0, 4),
+    (False, 0, 1),
+])
+def test_serving_mesh_matches_jax(monkeypatch, enabled, dp, mp):
+    """``_serving_mesh`` decides as the JAX package's does over the same
+    number of devices (its 8-device CPU mesh, 8 visible cards here): None
+    when the mesh is disabled or its data axis is 1, else the same shape;
+    None on the CPU, and with one card unless ``data_parallel`` asks for
+    more."""
+    jcfg, cfg = JaxConfig(), Config()
+    for c in (jcfg, cfg):
+        c.mesh.enabled, c.mesh.data_parallel, c.mesh.model_parallel = enabled, dp, mp
     cuda = torch.device("cuda")
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    assert pcli._serving_mesh(cfg, cuda) is None
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="slice 5.*mesh.enabled = false"):
-        pcli._serving_mesh(cfg, cuda)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    want, got = jcli._serving_mesh(jcfg), pcli._serving_mesh(cfg, cuda)
+    assert (got is None) == (want is None)
+    if want is not None:
+        assert got.shape == dict(want.shape)
+        assert got.data_devices == [torch.device("cuda", r * max(1, mp)) for r in range(got.shape["data"])]
     assert pcli._serving_mesh(cfg, torch.device("cpu")) is None
-    cfg.mesh.model_parallel = 4
-    assert pcli._serving_mesh(cfg, cuda) is None
-    cfg.mesh.model_parallel, cfg.mesh.enabled = 1, False
-    assert pcli._serving_mesh(cfg, cuda) is None
+    if not dp:  # all of one card: a data axis of 1
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        assert pcli._serving_mesh(cfg, cuda) is None
+
+
+def test_serving_mesh_errors_match_jax(monkeypatch):
+    """A model axis that does not divide the devices raises in both."""
+    jcfg, cfg = JaxConfig(), Config()
+    jcfg.mesh.model_parallel = cfg.mesh.model_parallel = 3
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    with pytest.raises(ValueError) as want:
+        jcli._serving_mesh(jcfg)
+    with pytest.raises(ValueError) as got:
+        pcli._serving_mesh(cfg, torch.device("cuda"))
+    assert str(got.value) == str(want.value)
 
 
 def test_loadtest_against_a_test_server(art, capsys):

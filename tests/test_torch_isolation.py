@@ -202,3 +202,30 @@ def test_training_stands_alone():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["1", "1", "True"]
+
+
+def test_sharded_serving_stands_alone():
+    """The mesh, the sharded steps and the sharded index are among the
+    files checked above, and serve a sharded search over four CPU shards
+    where ``jax`` cannot be imported."""
+    files = {str(f.relative_to(REPO)) for f in _port_files()}
+    for name in ("parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
+                 "index/sharded.py"):
+        assert f"trie_semantic_search_tpu_torch/{name}" in files, name
+    block = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'ml_dtypes', 'trie_semantic_search_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np\n"
+        "from trie_semantic_search_tpu_torch.core.config import MeshConfig\n"
+        "from trie_semantic_search_tpu_torch.parallel import make_mesh\n"
+        "from trie_semantic_search_tpu_torch.index.sharded import ShardedCorpusIndex\n"
+        "v = np.random.default_rng(0).standard_normal((50, 16)).astype(np.float32)\n"
+        "idx = ShardedCorpusIndex(make_mesh(MeshConfig(), devices=['cpu'] * 4))\n"
+        "idx.build(v)\n"
+        "print(idx.num_shards, int(idx.search_brute(v[:3], 2)[1][2, 0]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", block], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["4", "2"]

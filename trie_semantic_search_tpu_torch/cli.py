@@ -24,9 +24,9 @@ with ``--device`` in place of ``--platform``).
 * ``config-dump``  — the effective config as TOML
 * ``loadtest``     — concurrent ``POST /search`` against a running server
 
-``serve`` sharded over more than one card raises ``NotImplementedError``
-naming the later slice of ``ROADMAP.md`` §1 that brings it (slice 5);
-``bench`` raises too (the benchmark is not ported).
+With ``[mesh] enabled`` (the default) and more than one visible card, the
+engine shards the corpus over the cards (``_serving_mesh``); ``bench``
+raises ``NotImplementedError`` (the benchmark is not ported).
 
 Shared flags: ``--config/-c``, ``--device`` (default ``cuda``; a missing
 card is an error, ``--device cpu`` runs on the CPU), ``--port/-p`` for
@@ -60,12 +60,11 @@ def _load_config(args: argparse.Namespace) -> Config:
     return cfg
 
 
-def _serving_mesh(cfg: Config, device) -> None:
-    """The JAX package shards the corpus over every visible device when
-    ``mesh.enabled``; the port serves on one card. With one visible card
-    (or on the CPU) that is the same thing, and this returns None; with
-    more it raises rather than serve on one card what the reference
-    would shard."""
+def _serving_mesh(cfg: Config, device):
+    """The serving mesh: None when ``[mesh]`` is disabled, on the CPU, or
+    when its data axis would be 1; otherwise a mesh over the visible cards,
+    over whose data axis the engine's fused step shards the corpus (the
+    JAX package's rule)."""
     if not cfg.mesh.enabled or device.type != "cuda":
         return None
     import torch
@@ -74,11 +73,11 @@ def _serving_mesh(cfg: Config, device) -> None:
     dp = cfg.mesh.data_parallel or (n // max(1, cfg.mesh.model_parallel))
     if dp <= 1:
         return None
-    raise NotImplementedError(
-        f"{n} CUDA devices are visible and mesh.enabled is true: sharded serving comes "
-        "with ROADMAP.md §1 slice 5 (multi-GPU sharding). Serve on one card with "
-        "mesh.enabled = false or CUDA_VISIBLE_DEVICES=0"
-    )
+    from .parallel.mesh import make_mesh
+
+    mesh = make_mesh(cfg.mesh)
+    _log.info("serving mesh: %s", mesh.shape)
+    return mesh
 
 
 def _build_components(cfg: Config, device, rebuild: bool = False):
@@ -91,7 +90,6 @@ def _build_components(cfg: Config, device, rebuild: bool = False):
     from .storage.store import StorageManager
 
     dev = resolve_device(device)
-    _serving_mesh(cfg, dev)
     storage = StorageManager(cfg.storage)
     artifacts = None if rebuild else load_artifacts(cfg, device=dev)
     if artifacts is None:
@@ -102,7 +100,8 @@ def _build_components(cfg: Config, device, rebuild: bool = False):
     else:
         _log.info("loaded index artifacts from %s", cfg.trie.index_path)
         trie, vector, columns = artifacts
-    engine = SearchEngine(cfg, storage, trie, vector, columns, device=dev)
+    engine = SearchEngine(cfg, storage, trie, vector, columns, device=dev,
+                          mesh=_serving_mesh(cfg, dev))
     storage.health_check()
     engine.health_check()
     return storage, engine

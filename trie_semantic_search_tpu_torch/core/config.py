@@ -7,8 +7,8 @@ with the same field names, order and defaults, and the same precedence
 for the JAX package means the same thing here and ``to_toml`` writes the
 same bytes for the same values. The ingestion sections (``cap``,
 ``courtlistener``, ``validation``, ``cache``) configure ``ingest/``;
-``mesh`` is read by the CLI, which refuses to serve sharded until the
-sharding slice.
+``mesh`` is read by the CLI, which serves sharded over the visible cards
+when it is enabled and more than one card is visible.
 """
 
 from __future__ import annotations
@@ -290,9 +290,9 @@ class PerformanceConfig:
 
 @dataclass
 class MeshConfig:
-    """Multi-device section (same defaults as the JAX package). The port
-    serves on one card; ``cli serve`` refuses more than one visible card
-    while this is enabled, until the sharding slice."""
+    """Multi-device section (same defaults as the JAX package): with
+    ``enabled`` and more than one visible card the CLI's engine serves
+    sharded over ``data_parallel`` of them (0: all)."""
 
     enabled: bool = True
     data_parallel: int = 0

@@ -100,6 +100,7 @@ def build_indexes(
     tune_recall: Optional[float] = None,
     pretrain_steps: int = 0,
     device: DeviceLike = None,
+    mesh=None,
 ) -> BuiltIndexes:
     """Build all frozen search artifacts from the document store, on
     ``device`` (default ``"cuda"``). With no ``embedder``, a WordPiece
@@ -109,7 +110,8 @@ def build_indexes(
     ``pretrain_steps``, the encoder (passed or made) is pretrained that many
     steps on the stored cases' sentences first. With ``tune_recall``, the
     ANN's nprobe is tuned to that case-level recall@10
-    (:func:`_tune_nprobe`)."""
+    (:func:`_tune_nprobe`). ``mesh`` (data axis > 1) makes the vector index
+    a sharded exact scan over the mesh (:mod:`.sharded`)."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     tp = text_processor or TextProcessor(config.text_processing)
@@ -151,7 +153,7 @@ def build_indexes(
         )
         report.pretrain_seconds = time.perf_counter() - t
         _log.info("encoder pretraining: %s", rep)
-    vector = VectorIndex(config.vector, embedder=embedder, device=dev)
+    vector = VectorIndex(config.vector, embedder=embedder, device=dev, mesh=mesh)
 
     def embed(flush_threshold: int) -> int:
         t = time.perf_counter()
@@ -342,9 +344,12 @@ def save_encoder(emb: Embedder, enc_dir: Path) -> None:
 
 def load_artifacts(
     config: Config, embedder: Optional[Embedder] = None, device: DeviceLike = None,
+    mesh=None,
 ) -> Optional[tuple[TrieIndex, VectorIndex, MetadataColumns]]:
     """``(trie, vector index, columns)`` from saved artifacts, or None when
-    they are absent. Restores the saved encoder unless one is passed."""
+    they are absent. Restores the saved encoder unless one is passed. With
+    a ``mesh`` (data axis > 1) the vector index is sharded over it, loaded
+    from a sharded artifact or rebuilt from the saved vectors."""
     dev = resolve_device(device)
     trie_dir = Path(config.trie.index_path)
     vec_dir = Path(config.vector.hnsw.index_path)
@@ -355,7 +360,7 @@ def load_artifacts(
     trie = TrieIndex.load_from_disk(trie_dir, config.trie, device=dev)
     if embedder is None:
         embedder = _load_encoder(config, vec_dir, dev)
-    vector = VectorIndex(config.vector, embedder=embedder, device=dev)
+    vector = VectorIndex(config.vector, embedder=embedder, device=dev, mesh=mesh)
     if (vec_dir / "refs.npz").exists():
         vector.load(vec_dir)
     return trie, vector, MetadataColumns.load(cols_path)

@@ -12,6 +12,12 @@ artifact the ANN is rebuilt from the vectors), and the ``vectors``/``refs``
 views the fused search reads. A loaded ``vectors`` stays a memmap: the
 partitioned serving mode reads only its length, and an f32 host copy at 5M
 chunks would be 8 GB.
+
+With a ``mesh`` whose data axis is > 1 the index is a
+:class:`.sharded.ShardedCorpusIndex` (an exact scan over row blocks)
+instead of a :class:`.ann.PartitionedANN`; ``load`` reads the saved ANN as
+the class the mesh implies and rebuilds from the saved vectors when the
+file is the other class's.
 """
 
 from __future__ import annotations
@@ -31,12 +37,28 @@ from ..device import DeviceLike, resolve_device
 from ..models.embedder import Embedder
 from ..search.cache import VectorCache
 from .ann import AnnStats, PartitionedANN
+from .sharded import ShardedCorpusIndex
 
 _log = logging.getLogger("tss_torch.vector")
 
 #: ANN artifacts above this many bytes save as a raw-.npy directory
 #: (``ann.mmap/``) instead of a DEFLATE npz
 _ANN_MMAP_SAVE_BYTES = 64 * 2**20
+
+
+def _mesh_data_size(mesh) -> int:
+    from ..parallel.mesh import DATA_AXIS
+
+    try:
+        return int(mesh.shape[DATA_AXIS])
+    except (KeyError, TypeError, AttributeError):
+        return 1
+
+
+def _holds_sharded_corpus(path: Path) -> bool:
+    """Whether an ``ann.npz`` is a :class:`ShardedCorpusIndex` file."""
+    with np.load(path, allow_pickle=False) as z:
+        return "sharded_corpus_f16" in z.files
 
 
 @dataclass
@@ -58,19 +80,25 @@ class VectorIndexStats:
 
 
 class VectorIndex:
-    """Semantic index over (case_row, paragraph) chunks, on ``device``."""
+    """Semantic index over (case_row, paragraph) chunks, on ``device``
+    (the encoder's device; a sharded index lies on its mesh)."""
 
     def __init__(
         self,
         config: Optional[VectorConfig] = None,
         embedder: Optional[Embedder] = None,
         device: DeviceLike = None,
+        mesh=None,  # parallel.mesh.Mesh; data axis > 1 → ShardedCorpusIndex
     ):
         self.config = config or VectorConfig()
         self.device = resolve_device(device)
         self.embedder = embedder or Embedder(self.config.model, device=self.device)
         self.cache = VectorCache(max_size=1000)
-        self.ann = PartitionedANN(self.config.hnsw, device=self.device)
+        self.mesh = mesh
+        if mesh is not None and _mesh_data_size(mesh) > 1:
+            self.ann = ShardedCorpusIndex(mesh, use_int8=self.config.hnsw.quantize_int8)
+        else:
+            self.ann = PartitionedANN(self.config.hnsw, device=self.device)
         self._pending_texts: list[str] = []
         self._pending_refs: list[tuple[int, int]] = []  # (case_row, para)
         self._refs: "np.ndarray | list" = []
@@ -128,7 +156,7 @@ class VectorIndex:
         vectors and ANN, for an update while this one serves: adding and
         embedding documents makes new refs and vectors arrays, and the
         caller installs a new ANN before building one."""
-        out = VectorIndex(self.config, embedder=self.embedder, device=self.device)
+        out = VectorIndex(self.config, embedder=self.embedder, device=self.device, mesh=self.mesh)
         out.cache = self.cache
         out._refs = list(self._refs) if isinstance(self._refs, list) else self._refs
         out._vectors = self._vectors
@@ -222,7 +250,8 @@ class VectorIndex:
         path = Path(path)
         path.mkdir(parents=True, exist_ok=True)
         if self.ann.num_vectors:
-            if self.ann.get_stats().nbytes_total > _ANN_MMAP_SAVE_BYTES:
+            if (isinstance(self.ann, PartitionedANN)
+                    and self.ann.get_stats().nbytes_total > _ANN_MMAP_SAVE_BYTES):
                 self.ann.save_dir(path / "ann.mmap")
                 (path / "ann.npz").unlink(missing_ok=True)
             else:
@@ -267,14 +296,23 @@ class VectorIndex:
             v = np.load(vec_path, mmap_mode="r")
         self._vectors = v if (v is not None and len(v)) else None
         ann_dir, ann_npz = path / "ann.mmap", path / "ann.npz"
-        if ann_dir.exists():
+        sharded = isinstance(self.ann, ShardedCorpusIndex)
+        if ann_dir.exists() and not sharded:
             try:
                 self.ann = PartitionedANN.load_dir(ann_dir, self.config.hnsw, self.device)
                 return
             except Exception:
                 _log.warning("ann artifact dir %s not loadable; trying %s", ann_dir, ann_npz)
         if ann_npz.exists():
-            self.ann = PartitionedANN.load(ann_npz, self.config.hnsw, self.device)
-            return
+            # the file is the class the saving mesh implied; the other
+            # class's file is rebuilt from the saved vectors below
+            if _holds_sharded_corpus(ann_npz) == sharded:
+                if sharded:
+                    self.ann = ShardedCorpusIndex.load(ann_npz, self.mesh)
+                else:
+                    self.ann = PartitionedANN.load(ann_npz, self.config.hnsw, self.device)
+                return
+            _log.warning("ann artifact %s is not a %s; rebuilding from saved vectors",
+                         ann_npz, type(self.ann).__name__)
         if self._vectors is not None and len(self._vectors):
             self.ann.build(self._vectors)

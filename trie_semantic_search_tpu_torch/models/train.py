@@ -23,8 +23,8 @@ MiniLM init into a corpus-adapted encoder with no downloaded weights:
   copy, since AdamW updates the parameters in place.
 * :func:`select_pooling_guarded`: mean or SIF pooling on probe merit.
 
-The JAX package's ``make_sharded_train_step`` needs the device mesh and
-comes with the sharding slice.
+The JAX package's ``make_sharded_train_step`` (training over the device
+mesh of :mod:`..parallel`) comes with ROADMAP.md §1 slice 5b.
 """
 
 from __future__ import annotations

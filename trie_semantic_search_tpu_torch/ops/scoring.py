@@ -1,14 +1,23 @@
 """Dense similarity scoring helpers.
 
 Port of ``trie_semantic_search_tpu/ops/scoring.py``: L2 normalisation,
-per-row symmetric int8 quantisation (round half to even, as ``jnp.round``)
-and the exact gather-rescore that the rescore kernel
+per-row symmetric int8 quantisation (round half to even, as ``jnp.round``),
+the ``[B, N]`` cosine products of the sharded exact scans
+(:func:`cosine_scores`, :func:`cosine_scores_int8`) and the exact
+gather-rescore that the rescore kernel
 (:func:`.scan_kernels.gather_rescore_kernel`) is held against.
+
+The products are plain matrix products outside any kernel. There is no
+int8 product on CUDA in ``torch.matmul``, so int8 values multiply as f32:
+exact while ``127² · D < 2²⁴`` (``D <= 1040``) with TF32 off, hence equal
+to the JAX package's int32 accumulation.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .scan_kernels import exact_float32
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -24,6 +33,33 @@ def quantize_int8(vectors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     scale = torch.clamp(absmax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(v / scale), -127, 127).to(torch.int8)
     return q, scale
+
+
+def cosine_scores(
+    queries: torch.Tensor,  # [B, D] (assumed L2-normalised)
+    corpus: torch.Tensor,  # [N, D] bf16/f32 (assumed L2-normalised)
+) -> torch.Tensor:
+    """``[B, N]`` cosine similarity: the queries cast to the corpus dtype,
+    products and sums in f32."""
+    exact_float32()
+    q = queries.to(corpus.dtype).to(torch.float32)
+    return q @ corpus.to(torch.float32).T
+
+
+def cosine_scores_int8(
+    queries: torch.Tensor,  # [B, D] f32, L2-normalised
+    corpus_q: torch.Tensor,  # [N, D] int8
+    corpus_scale: torch.Tensor,  # [N, 1] f32
+) -> torch.Tensor:
+    """``[B, N]`` approximate cosine from an int8 corpus: the queries
+    quantised per row too, the int8 product exact, then both scales."""
+    exact_float32()
+    q = queries.to(torch.float32)
+    q_abs = q.abs().amax(dim=-1, keepdim=True)
+    q_scale = torch.clamp(q_abs, min=1e-12) / 127.0
+    q_int = torch.clamp(torch.round(q / q_scale), -127, 127)
+    acc = q_int @ corpus_q.to(torch.float32).T
+    return acc * q_scale * corpus_scale.reshape(1, -1)
 
 
 def as_segments(corpus) -> tuple[torch.Tensor, ...]:

@@ -1,8 +1,8 @@
 """Hybrid search engine: trie lexical + semantic vector, merged, ranked and
 hydrated into the results a user sees.
 
-Port of ``trie_semantic_search_tpu/search/engine.py`` for one device, with
-the same query semantics:
+Port of ``trie_semantic_search_tpu/search/engine.py``, with the same query
+semantics:
 
   * validation: query length within [min, max]
   * TTL query cache on the batch path (only misses run)
@@ -19,7 +19,9 @@ the same query semantics:
     health_check and get_stats
 
 The index, the fused state and the encoder live on ``device`` (default
-``"cuda"``); multi-GPU serving comes with the sharding slice.
+``"cuda"``). With a ``mesh`` (:mod:`..parallel.mesh`) the fused state is
+sharded over the mesh's devices and every full hybrid batch takes the fused
+path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -121,10 +123,12 @@ class SearchEngine:
         vector_index: Optional[VectorIndex] = None,
         columns: Optional[MetadataColumns] = None,
         device: DeviceLike = None,
+        mesh=None,  # parallel.mesh.Mesh: sharded serving over its devices
     ):
         self.config = config
         self.storage = storage
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.trie_index = trie_index or TrieIndex(config.trie, device=self.device)
         self.vector_index = vector_index or VectorIndex(config.vector, device=self.device)
         self.columns = columns or MetadataColumns.build(
@@ -340,6 +344,7 @@ class SearchEngine:
                     self.vector_index,
                     self.columns,
                     ann_mode=self.config.search.fused_ann_mode,
+                    mesh=self.mesh,
                     flat_escalate_eps=(
                         self.config.search.fused_flat_escalate_eps
                         if self.config.search.fused_flat_escalate else 0.0
@@ -441,7 +446,7 @@ class SearchEngine:
 
     def _execute_batch(self, queries: list[SearchQuery]) -> list[list[SearchResult]]:
         if (
-            self.config.search.use_fused_device_path
+            (self.config.search.use_fused_device_path or self.mesh is not None)
             and self.vector_index.vectors is not None
             and len(self.vector_index.vectors)
             and all(

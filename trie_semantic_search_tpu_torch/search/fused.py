@@ -11,10 +11,23 @@ columns, chunk→case map, trie) to the steps of :mod:`..ops.hybrid`:
     ``B·nprobe >= P·ceil(B/TILE_B)``, with flat-boundary escalation of
     probe results through the stream.
 
+With a ``mesh`` whose data axis is > 1 the corpus is sharded row-wise over
+the mesh's devices and the modes are
+
+  * ``sharded``: each shard's int8 scan (the fused-scan kernel at
+    ``recall_target < 1``) through :func:`..parallel.collectives.
+    sharded_fused_topk`;
+  * ``sharded-partitioned``: per-shard partition blocks against shared
+    global centroids (:func:`..index.sharded.build_sharded_partitions`),
+    the probe through :func:`..parallel.collectives.sharded_partitioned_topk`
+    and, past the same break-even, the stream through
+    :func:`..parallel.collectives.sharded_layout_brute_topk`;
+
+the shard-local lists merge on the mesh's first device.
+
 Every threshold keeps its JAX value (``PARTITIONED_MIN_VECTORS``, the
 break-even rule, ``TILE_B``, ``ESCALATE_BUCKET``, ``pick_num_chunks``), so
-both packages pick the same stage for the same batch. The sharded modes
-come with the multi-GPU slice.
+both packages pick the same stage for the same batch.
 """
 
 from __future__ import annotations
@@ -26,9 +39,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..index.ann import PartitionedANN
+from ..index.ann import PartitionedANN, _auto_partitions
+from ..index.kmeans import train_kmeans
+from ..index.sharded import build_sharded_partitions, slot_court_ids
 from ..index.trie import TrieIndex
-from ..index.vector import VectorIndex
+from ..index.vector import VectorIndex, _mesh_data_size
 from ..ops.hybrid import (
     SRC_CASE_NAME,
     SRC_CITATION,
@@ -40,8 +55,15 @@ from ..ops.hybrid import (
     pick_num_chunks,
     resolve_probe_kernel,
 )
-from ..ops.scan_kernels import TILE_B, pad_align_for
+from ..ops.scan_kernels import TILE_B, TILE_N, pad_align_for
 from ..ops.scoring import quantize_int8
+from ..parallel.collectives import (
+    resolve_scan_kernel,
+    sharded_fused_topk,
+    sharded_layout_brute_topk,
+    sharded_partitioned_topk,
+)
+from ..parallel.mesh import DATA_AXIS, pad_corpus, shard_block, shard_leading, shard_rows
 from ..storage.columns import MetadataColumns
 from ..utils import batch_bucket
 
@@ -66,6 +88,7 @@ class FusedHybridSearch:
         vector_index: VectorIndex,
         columns: MetadataColumns,
         ann_mode: str = "auto",  # "auto" | "brute" | "partitioned"
+        mesh=None,  # parallel.mesh.Mesh; data axis > 1 → the sharded modes
         flat_escalate_eps: float = 0.0,  # 0 disables escalation
     ):
         if vector_index.vectors is None or not len(vector_index.vectors):
@@ -73,7 +96,9 @@ class FusedHybridSearch:
         self.trie_index = trie_index
         self.vector_index = vector_index
         self.columns = columns
+        self.mesh = None
         self.device = dev = vector_index.device
+        self.num_vectors = len(vector_index.vectors)
         self.flat_escalate_eps = float(flat_escalate_eps)
         #: total queries escalated (under a lock: the server runs batches
         #: from two threads)
@@ -88,9 +113,13 @@ class FusedHybridSearch:
         # representative chunk per case: the FIRST chunk in ref order
         rep = np.full(len(columns), -1, np.int32)
         rep[chunk_case[::-1]] = np.arange(len(chunk_case) - 1, -1, -1, dtype=np.int32)
-        self.trie_chunk_of_case = t(rep)
+        self._rep_np = rep
         self.num_courts = max(len(columns.court_vocab), 1)
 
+        if mesh is not None and _mesh_data_size(mesh) > 1:
+            self._init_sharded(mesh, chunk_case, ann_mode)
+            return
+        self.trie_chunk_of_case = t(rep)
         ann = vector_index.ann
         if ann_mode == "auto":
             ann_mode = (
@@ -121,8 +150,7 @@ class FusedHybridSearch:
             ))
         else:
             self.ann = None
-            v = np.asarray(vector_index.vectors, np.float32)
-            v = v / np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-12)
+            v = self._norm_corpus()
             n = v.shape[0]
             align = pad_align_for(n)
             npad = -(-n // align) * align
@@ -143,14 +171,116 @@ class FusedHybridSearch:
         self.chunk_court = t(court_col.astype(np.int32))
         self.chunk_date = t(date_col.astype(np.int32))
 
+    def _norm_corpus(self) -> np.ndarray:
+        """The vector store as f32, L2-normalised (an O(corpus) host copy,
+        made only where a mode needs the raw rows)."""
+        v = np.asarray(self.vector_index.vectors, np.float32)
+        return v / np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-12)
+
+    def _init_sharded(self, mesh, chunk_case: np.ndarray, ann_mode: str = "auto") -> None:
+        """Lay the corpus and the chunk columns out row-sharded over the
+        mesh's data axis, padded to a per-shard ``TILE_N`` multiple so that
+        the fused-scan kernel applies on every shard. ``auto`` picks the
+        sharded-partitioned mode from ``PARTITIONED_MIN_VECTORS`` chunks,
+        the sharded brute scan below."""
+        self.mesh = mesh
+        self.device = dev = mesh.first_device
+        self.ann = None
+        if ann_mode == "auto":
+            ann_mode = "partitioned" if self.num_vectors >= PARTITIONED_MIN_VECTORS else "brute"
+        self.ann_mode = "sharded-partitioned" if ann_mode == "partitioned" else "sharded"
+        padded, n = pad_corpus(self._norm_corpus(), mesh, TILE_N)
+        S = int(mesh.shape[DATA_AXIS])
+        shard_n = padded.shape[0] // S
+
+        def pad_col(col: np.ndarray, fill: int) -> np.ndarray:
+            out = np.full(padded.shape[0], fill, np.int32)
+            out[:n] = col
+            return out
+
+        court_col = pad_col(self.columns.court_ids[chunk_case], 0)
+        date_col = pad_col(self.columns.dates[chunk_case], np.iinfo(np.int32).min)
+        self.chunk_case = shard_rows(pad_col(chunk_case, -1), mesh)
+        self.chunk_court = shard_rows(court_col, mesh)
+        self.chunk_date = shard_rows(date_col, mesh)
+        # case-level columns for the lexical filter check, on the merge device
+        self.case_court = torch.tensor(np.asarray(self.columns.court_ids, np.int32), device=dev)
+        self.case_date = torch.tensor(np.asarray(self.columns.dates, np.int32), device=dev)
+
+        if self.ann_mode == "sharded":
+            self.corpus_q, self.corpus_scale = [], []
+            for s in range(S):
+                q, scale = quantize_int8(shard_block(padded, mesh, s))
+                scale[max(0, n - s * shard_n):] = 0.0  # pad rows score 0 (n_valid masks them too)
+                self.corpus_q.append(q)
+                self.corpus_scale.append(scale)
+            return
+
+        # per-shard partition blocks against global centroids (the ANN's,
+        # when the vector index holds a built PartitionedANN)
+        self.corpus_q = self.corpus_scale = None
+        acfg = self.vector_index.config.hnsw
+        ann = self.vector_index.ann
+        if isinstance(ann, PartitionedANN) and ann.centroids is not None:
+            cent = ann.centroids
+            centroids = np.asarray(cent.cpu() if isinstance(cent, torch.Tensor) else cent, np.float32)
+        else:
+            P = acfg.num_partitions or _auto_partitions(n)
+            P = min(P, max(8, n))
+            centroids = train_kmeans(padded[:n], P, iters=acfg.kmeans_iters,
+                                     sample=acfg.kmeans_sample, seed=0, device=dev)
+        parts = build_sharded_partitions(padded, n, S, centroids, court_col, date_col,
+                                         overalloc=acfg.partition_overalloc, device=dev)
+        self.sp_centroids = torch.tensor(centroids, dtype=torch.float32, device=dev)
+        self.sp_rows = shard_leading(parts["part_rows"], mesh)
+        self.sp_int8 = shard_leading(parts.pop("part_int8"), mesh)
+        self.sp_scale = shard_leading(parts["part_scale"], mesh)
+        self.sp_cword = shard_leading(parts["part_cword"], mesh)
+        self.sp_cbit = shard_leading(parts["part_cbit"].view(np.int32), mesh)
+        self.sp_date = shard_leading(parts["part_date"], mesh)
+        # raw slot court ids for the stream's court-table lookup
+        self.sp_court = shard_leading(
+            slot_court_ids(parts["part_rows"], parts["part_cword"], parts["part_cbit"]), mesh)
+        self.sp_bf16 = shard_rows(padded, mesh, torch.bfloat16)
+        self.sp_m = int(parts["m"])
+        #: seconds of the per-shard layout build by stage
+        self.sp_build_seconds = dict(parts["seconds"])
+        P = centroids.shape[0]
+        # the artifact's tuned nprobe wins, then the user config (the
+        # precedence of PartitionedANN.default_nprobe)
+        nprobe_cfg = getattr(ann, "tuned_nprobe", 0) or acfg.num_probes
+        if nprobe_cfg:
+            self.sp_nprobe = min(nprobe_cfg, P)
+        else:
+            self.sp_nprobe = min(max(8, P // 10, acfg.ef_search // 4), P)
+        self.sp_rescore = max(1, acfg.rescore_factor)
+
     def _layout_brute_batch(self, batch: int) -> bool:
         """Stream the batch when the probe would read at least as many rows:
-        ``B·nprobe >= P·ceil(B/TILE_B)`` (the JAX package's break-even)."""
-        if self.ann is None:
+        ``B·nprobe >= P·ceil(B/TILE_B)`` (the JAX package's break-even; per
+        shard in the sharded-partitioned mode, where both sides divide by
+        the shard count)."""
+        if self.ann is not None:
+            P = int(self.ann.centroids.shape[0])
+            nprobe = int(self.ann.default_nprobe)
+        elif self.ann_mode == "sharded-partitioned":
+            P = int(self.sp_centroids.shape[0])
+            nprobe = int(self.sp_nprobe)
+        else:
             return False
-        P = int(self.ann.centroids.shape[0])
-        nprobe = int(self.ann.default_nprobe)
         return batch * nprobe >= P * (-(-batch // TILE_B))
+
+    def _sharded_shared(self, court_table, lo, hi, trie_rows, trie_src, min_sim, exact_w) -> tuple:
+        """The replicated arguments of the sharded steps, on the merge
+        device; lexical hits whose case has no chunk are dropped."""
+        t = lambda a: torch.tensor(np.asarray(a), device=self.device)  # noqa: E731
+        lex_chunk = self._rep_np[np.maximum(trie_rows, 0)]
+        trie_rows = np.where(lex_chunk >= 0, trie_rows, -1)
+        return (
+            t(court_table), t(lo), t(hi), t(trie_rows), t(np.ascontiguousarray(trie_src)),
+            t(np.maximum(lex_chunk, 0)), self.case_court, self.case_date,
+            t(np.asarray(min_sim, np.float32)), t(np.asarray(exact_w, np.float32)),
+        )
 
     def _dispatch_stream(
         self, q_np, court_table, lo, hi, trie_rows, trie_src, min_sim, exact_w,
@@ -160,6 +290,17 @@ class FusedHybridSearch:
         batch (large-batch pick and escalation share it)."""
         dev = self.device
         t = lambda a: torch.tensor(np.asarray(a), device=dev)  # noqa: E731
+        if self.ann_mode == "sharded-partitioned":
+            upk, _ = resolve_probe_kernel(recall_target, self.sp_m, int(self.sp_int8[0].shape[-1]))
+            out = sharded_layout_brute_topk(
+                self.mesh, t(np.asarray(q_np, np.float32)), self.sp_rows, self.sp_int8,
+                self.sp_scale, self.sp_court, self.sp_date, self.sp_bf16, self.chunk_case,
+                *self._sharded_shared(court_table, lo, hi, trie_rows, trie_src, min_sim, exact_w),
+                k=k, overfetch=overfetch * 2,  # replica and overalloc slot headroom
+                recall_target=recall_target, use_court=use_filters, use_date=use_filters,
+                use_gather_kernel=upk,
+            )
+            return _host(out)
         upk, _ = resolve_probe_kernel(
             recall_target, int(self.ann.part_rows.shape[1]),
             int(self.ann.part_int8.shape[-1]),
@@ -234,9 +375,14 @@ class FusedHybridSearch:
         ``ESCALATE_BUCKET``) once with an inert query, as the JAX package's
         warmup does to compile them; a no-op without escalation or outside
         the partitioned mode."""
-        if self.flat_escalate_eps <= 0.0 or self.ann_mode != "partitioned":
+        if self.flat_escalate_eps <= 0.0 or self.ann_mode not in (
+            "partitioned", "sharded-partitioned",
+        ):
             return
-        D = int(self.ann.part_int8.shape[-1])
+        if self.ann_mode == "partitioned":
+            D = int(self.ann.part_int8.shape[-1])
+        else:
+            D = int(self.sp_int8[0].shape[-1])
         W = self.trie_index.search_batch_rows(["__warmup__"])[0].shape[1]
         hostq = dict(
             q=np.zeros((1, D), np.float32),
@@ -317,6 +463,8 @@ class FusedHybridSearch:
         )
         dev = self.device
         t = lambda a: torch.tensor(np.asarray(a), device=dev)  # noqa: E731
+        if self.ann_mode in ("sharded", "sharded-partitioned"):
+            return self._query_sharded(hostq, use_filters, k, overfetch, recall_target, B, B0)
         common = dict(
             court_table=t(court_table), date_lo=t(lo), date_hi=t(hi),
             trie_rows=t(trie_rows), trie_src=t(trie_src),
@@ -361,5 +509,45 @@ class FusedHybridSearch:
             out = fused_hybrid_topk_chunked(*args, num_chunks=num_chunks, **kw)
         else:
             out = fused_hybrid_topk(*args, **kw)
+        v, i, cases, src = _host(out)
+        return v[:B0], i[:B0], cases[:B0], src[:B0]
+
+    def _query_sharded(
+        self, hostq: dict, use_filters: bool, k: int, overfetch: int,
+        recall_target: float, B: int, B0: int,
+    ) -> tuple[np.ndarray, ...]:
+        """The sharded modes of :meth:`query_batch` over its padded host
+        batch: the stream past the break-even, else the probe (with
+        flat-boundary escalation through the sharded stream), or the
+        sharded brute scan."""
+        names = ("court_table", "lo", "hi", "trie_rows", "trie_src", "min_sim", "exact_w")
+        if self.ann_mode == "sharded-partitioned" and self._layout_brute_batch(B):
+            v, i, cases, src = self._dispatch_stream(
+                hostq["q"], *(hostq[n] for n in names), use_filters, k, overfetch, recall_target,
+            )
+            return v[:B0], i[:B0], cases[:B0], src[:B0]
+        q = torch.tensor(hostq["q"], device=self.device)
+        shared = self._sharded_shared(*(hostq[n] for n in names))
+        if self.ann_mode == "sharded-partitioned":
+            upk, _ = resolve_probe_kernel(recall_target, self.sp_m, int(self.sp_int8[0].shape[-1]))
+            out = sharded_partitioned_topk(
+                self.mesh, q, self.sp_centroids, self.sp_rows, self.sp_int8, self.sp_scale,
+                self.sp_cword, self.sp_cbit, self.sp_date, self.sp_bf16, self.chunk_case,
+                *shared, k=k, nprobe=self.sp_nprobe, overfetch=overfetch,
+                rescore_factor=self.sp_rescore, use_probe_kernel=upk,
+            )
+            v, i, cases, src = self._escalate_flat(
+                hostq, use_filters, k, overfetch, recall_target, *_host(out), B0,
+            )
+            return v[:B0], i[:B0], cases[:B0], src[:B0]
+        scan_mode, _ = resolve_scan_kernel(
+            recall_target, int(self.corpus_q[0].shape[0]), self.corpus_q[0].device
+        )
+        out = sharded_fused_topk(
+            self.mesh, q, self.corpus_q, self.corpus_scale, self.chunk_case,
+            self.chunk_court, self.chunk_date, *shared, k=k, n_valid=self.num_vectors,
+            overfetch=overfetch, recall_target=recall_target, scan_mode=scan_mode,
+            use_court=use_filters, use_date=use_filters,
+        )
         v, i, cases, src = _host(out)
         return v[:B0], i[:B0], cases[:B0], src[:B0]
