@@ -91,7 +91,7 @@ What it does, in order (any failure exits non-zero before the last line):
    ``load_dir`` of it serves the same. Prints each pass's seconds, the RSS
    peak, the promotion and ``save_dir`` seconds. Both indexes are freed
    after.
-5c. M1-M3, sharded serving over phase 5's rows (the served corpus,
+5c. M1-M3 and M5, sharded serving over phase 5's rows (the served corpus,
    four chunks per case) in a seeded random order (in generation order a
    shard would hold whole clusters) on a mesh of four shards on ``cuda:0``
    (one shard per card when more than one is visible). M1: ``FusedHybridSearch(...,
@@ -114,7 +114,24 @@ What it does, in order (any failure exits non-zero before the last line):
    names. M3: ``ShardedCorpusIndex`` over 1,048,576 of the rows, int8 and
    bf16, against one exact top-k over the whole matrix; one of 32,768 rows
    saved and loaded on a mesh of 2, bitwise what the same file serves on
-   four shards.
+   four shards. M5, the mesh across processes: the first 1,048,576 of
+   those rows, phase A's centroids, phase 3's trie and M1's B=64, B=256
+   and filtered 64 batches go to a directory, and two processes of this
+   script join a job (``make_distributed_mesh`` with a coordinator on a
+   free port of 127.0.0.1), each owning two shards of a 4x1 mesh on
+   ``cuda:0`` (gloo; two cards each, and NCCL, when four are visible).
+   Each builds ``FusedHybridSearch(mesh=)`` in both modes from the same
+   rows, serves the three batches partitioned and B=64 brute (counts set to
+   0 just before, read just after: path ``distributed``, per process;
+   every probe, rescore and fused-scan call held against its plain
+   version), searches ``ShardedCorpusIndex`` over the rows in int8 and
+   bf16, and runs one sharded train step of the full-width encoder (f32,
+   a 2x2 mesh: dp across the processes). Meanwhile this process serves the
+   same batches on the single-process mesh of four shards and runs the same
+   step. Each process's case rows, chunk rows, sources and score bits must
+   equal this process's, its index results M3's, its loss this loss within
+   1e-5 and its parameters within T0's bound; a process that fails or
+   outlives its timeout fails the phase (logs: ``chiprun_out/m5_rank*.log``).
 6. Build, pipeline end to end: a sqlite store of 32,768 cases with the
    fixture's texts (131,072 chunks), ``build_indexes(storage, cfg,
    device="cuda")`` with mean pooling and no embedder (a corpus vocab and
@@ -189,12 +206,19 @@ What it does, in order (any failure exits non-zero before the last line):
    CPU from the same seeded parameters at f32 (TF32 off): the loss, the
    accuracy, every gradient leaf, the global norm before and after the
    clip, and the parameters after 3 AdamW steps (warmup 1), each within
-   the tolerance it prints. T1: ``pretrain_encoder_guarded`` at its
+   the tolerance it prints. T3: the sharded step
+   (``make_sharded_train_step``) on a 2x2 (dp x tp) and a 4x1 mesh over
+   four shards on ``cuda:0`` (four cards when visible): T0's batches
+   (without ``neg_mask``) at f32 against T0's single-device step on the
+   card (each loss within 1e-5, the parameters after 3 steps within T0's
+   bound), then 50 bf16 steps on the 2x2 mesh on drawn batches: steps/s, a
+   step's ms against its device ms under ``torch.profiler``, device events
+   a step. T1: ``pretrain_encoder_guarded`` at its
    defaults (B=32, max_len 64, views, Jaccard 0.5, scrubbing, bf16) for
    300 steps: pairs, steps/s, the loss and accuracy every 50 steps, the
    guardrail's MRRs and pick (the weights with the higher MRR kept; a kept
    init equal to its copy bitwise); timed alone beside it: the pair mining,
-   300 batches drawn on the host, a step on drawn batches and 20 steps
+   300 batches drawn on the host, a step on drawn batches and 2 steps
    under ``torch.profiler`` (the card's busy share). T2: ``cli build-index
    --streaming --shard-chunks 2048`` over that store with an empty vector
    directory (it pretrains 300 steps, saves the encoder, streams),
@@ -254,8 +278,8 @@ What it does, in order (any failure exits non-zero before the last line):
    /search, 64 new cases stored, ``POST /admin/reindex?mode=incremental``
    until /stats counts them, a new case found by name, ``quality.json``
    beside the vectors, SIGINT: exit 0 with "shutting down" in its log
-   (``chiprun_out/h2_serve.log``). Then, from an empty store with the
-   default ``[vector] pooling = "auto"``: ``ingest --source mock`` (3
+   (``chiprun_out/h2_serve.log``). Beside ``serve``'s lifecycle, from an
+   empty store with the default ``[vector] pooling = "auto"``: ``ingest --source mock`` (3
    cases processed), the same again (3 skipped), ``build-index
    --pretrain-steps 20`` (its log must carry the pretraining report),
    ``build-index --tune-recall 0.95`` (the pooling pick from its log; the tuner skipped
@@ -271,11 +295,12 @@ on each path (``build``: phase 5's recall search; ``case_tuner``: phase
 5's case-level tuner; ``stream_ann``: S1's first search; ``stream_build``:
 S2's resumed build; ``eval``: S2's evaluation; ``tune``: phase 6b's tuned
 build; ``pretrain_build``: T2's resumed build; ``http``: phase 10;
-``sharded``: M1, M2 and M4 summed). Each kernel's ``max_abs_err`` is the
+``sharded``: M1, M2 and M4 summed; ``distributed rank <r>``: M5's serving
+runs in process ``r``). Each kernel's ``max_abs_err`` is the
 largest difference from its plain version over the kernel phase and every
 call held on the ``build``, ``case_tuner``, ``stream_ann``,
-``stream_build``, ``eval``, ``tune``, ``pretrain_build`` and ``sharded``
-paths. The last line is
+``stream_build``, ``eval``, ``tune``, ``pretrain_build``, ``sharded`` and
+``distributed`` paths. The last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 
@@ -287,9 +312,10 @@ variants of the int8 top-k's wgmma kernel (``TSS_INT8_TOPK_ABLATE``) and
 prints the device time of each at B=256, k=32 over the corpus of phase 3.
 ``--only stream`` runs phases 1, 2, 5, 5b, 6 and 6a: the builds and their
 kernel checks, with no kernel timing, serving, store or engine.
-``--only train`` runs phases 1, 2 and 6c: pretraining with its own store.
-``--only mesh`` runs phases 1, 2, 3, 5 (without the case-level tuner and
-S1), 5c, 6 and 6M: the sharded phases and the builds they serve.
+``--only train`` runs phases 1, 2 and 6c: pretraining with its own store
+(T3, the sharded step, included). ``--only mesh`` runs phases 1, 2, 3, 5
+(without the case-level tuner and S1), 5c (M5, the mesh across processes,
+included), 6 and 6M: the sharded phases and the builds they serve.
 """
 
 from __future__ import annotations
@@ -303,6 +329,7 @@ import json
 import logging
 import math
 import multiprocessing
+import pickle
 import shutil
 import subprocess
 import sys
@@ -507,7 +534,6 @@ def build_search(torch, np, device, P, m, D, seed, n_names, num_probes, gen_devi
         train_wordpiece_vocab,
     )
     from trie_semantic_search_tpu_torch.search.fused import FusedHybridSearch
-    from trie_semantic_search_tpu_torch.storage.columns import MetadataColumns
 
     N = P * m
     cents, part_int8, part_scale, segs = make_corpus(torch, P, m, D, seed, device, gen_device)
@@ -521,13 +547,7 @@ def build_search(torch, np, device, P, m, D, seed, n_names, num_probes, gen_devi
     n_cases = N // CHUNKS_PER_CASE
     rows = np.arange(N, dtype=np.int32)
     refs = np.stack([rows // CHUNKS_PER_CASE, rows % CHUNKS_PER_CASE], axis=1)
-    court_ids, dates = case_columns(np, n_cases)
-    columns = MetadataColumns(
-        case_ids=[uuid.UUID(int=i + 1) for i in range(n_cases)],
-        court_ids=court_ids,
-        dates=dates,
-        court_vocab={c: i for i, c in enumerate(COURTS)},
-    )
+    columns = serving_columns(np, n_cases)
     names = case_names(np, n_cases, n_names, seed)
     trie = TrieIndex(device=device)
     for c, name in names.items():
@@ -544,6 +564,19 @@ def build_search(torch, np, device, P, m, D, seed, n_names, num_probes, gen_devi
     vi.set_frozen(refs, np.broadcast_to(np.zeros((1, D), np.float32), (N, D)), ann)
     fused = FusedHybridSearch(trie, vi, columns, ann_mode=ann_mode, flat_escalate_eps=serving_settings()[2])
     return fused, vi, names, WORDS, COURTS
+
+
+def serving_columns(np, n_cases: int):
+    """The served cases' metadata columns (ids, courts, dates)."""
+    from trie_semantic_search_tpu_torch.storage.columns import MetadataColumns
+
+    court_ids, dates = case_columns(np, n_cases)
+    return MetadataColumns(
+        case_ids=[uuid.UUID(int=i + 1) for i in range(n_cases)],
+        court_ids=court_ids,
+        dates=dates,
+        court_vocab={c: i for i, c in enumerate(COURTS)},
+    )
 
 
 def case_columns(np, n_cases: int):
@@ -1555,11 +1588,15 @@ def ann_build_phase(torch, np, seed: int, work: Path, keep: dict | None = None,
     # read just after: the path ``case_tuner``)
     tuner_launches = stream_launches = None
     if full:
-        out["case_tuner"], tuner_launches = case_tuner_check(torch, np, sk, ann, host, seed, q, thresh)
+        out["case_tuner"], tuner_launches, pending = case_tuner_check(torch, np, sk, ann, host, seed, q, thresh)
         log(f"phase: S1, build_streaming of the same {N} rows from the same centroids into a memmap "
             "emit directory (counts reset just before the first search, read just after)")
         out["stream_ann"], stream_launches = stream_ann_phase(
             torch, np, sk, ann, host, nprobe, q, gv, gi, work, out["save_dir_s"])
+        ct = out["case_tuner"]
+        ct["plain_err"], _, ct["plain_s"] = pending.result()
+        log(f"  the case-level tuner's {ct['held']} against the plain versions in {ct['plain_s']:.1f} s "
+            f"(beside S1): probe bitwise equal, rescore within {ct['plain_err']['gather_rescore']:.3g}")
     if keep is not None:
         keep.update(host=host, centroids=cents)
     del ann, host
@@ -1582,8 +1619,8 @@ def case_tuner_check(torch, np, sk, ann, host, seed: int, q, thresh) -> tuple[di
     the oracle's seconds, and the sweep's steps and routes. The pick must
     follow from the steps (:func:`check_pick`), and every probe and rescore
     call of the sweep must match its plain version on the same inputs
-    (:func:`hold_against_plain`). Returns the details (``plain_err``: the
-    largest differences) and the launch counts of the tuner's run."""
+    (:func:`held_in_background`, which the caller reads after S1). Returns
+    the details, the launch counts of the tuner's run and that future."""
     from trie_semantic_search_tpu_torch.index import tuning
 
     N = len(host)
@@ -1607,11 +1644,10 @@ def case_tuner_check(torch, np, sk, ann, host, seed: int, q, thresh) -> tuple[di
         launches = dict(sk.LAUNCHES)
     oracle_s, sweep, settled = tuner_steps(records)
     rule = check_pick(sweep, case_pick, CASE_TUNE_RECALL, CASE_TUNE_RECALL)
-    # every sweep step's kernel calls against the plain versions, same inputs
-    t0 = time.perf_counter()
-    plain_err = hold_against_plain(torch, sk, calls)
+    # every sweep step's kernel calls against the plain versions, same
+    # inputs, in a thread beside S1's host-bound build
     held = held_summary(calls)
-    plain_s = time.perf_counter() - t0
+    pending = held_in_background(torch, sk, calls)
     del calls
     steps = {st["nprobe"]: st for st in sweep}
     if row_pick not in steps:
@@ -1622,8 +1658,7 @@ def case_tuner_check(torch, np, sk, ann, host, seed: int, q, thresh) -> tuple[di
                                route=ann.search_route(len(probes), row_pick), measured_apart=True)
     row_recall = {n: float(np.mean(ann.search(q, 10, nprobe=n)[0] >= thresh)) for n in (row_pick, case_pick)}
     out = dict(row_pick=row_pick, case_pick=case_pick, seconds=seconds, oracle_s=oracle_s,
-               sweep=list(steps.values()), settled=settled, rule=rule, launches=launches,
-               plain_err=plain_err, plain_s=plain_s,
+               sweep=list(steps.values()), settled=settled, rule=rule, launches=launches, held=held,
                case_recall_at_row_pick=steps[row_pick], case_recall_at_case_pick=steps[case_pick],
                row_recall=row_recall)
     log(f"  case-level tuner ({CASE_TUNE_PROBES} query-shaped probes, chunk -> case row // "
@@ -1639,11 +1674,9 @@ def case_tuner_check(torch, np, sk, ann, host, seed: int, q, thresh) -> tuple[di
         f"{steps[case_pick]['mean']:.4f} min {steps[case_pick]['min']:.4f}, row recall@10 "
         f"{row_recall[case_pick]:.4f}; the pick follows from the steps ({rule}); launches on the "
         f"case_tuner path {launches}")
-    log(f"  the sweep's {held} against the plain versions in {plain_s:.1f} s: probe bitwise "
-        f"equal, rescore within {plain_err['gather_rescore']:.3g}")
     if launches["probe_candidates"] <= 0 or launches["gather_rescore"] <= 0:
         raise AssertionError(f"the case-level tuner did not run the probe and rescore kernels: {launches}")
-    return out, launches
+    return out, launches, pending
 
 
 @contextlib.contextmanager
@@ -2440,6 +2473,9 @@ TRAIN_STEPS, TRAIN_SAMPLE = 300, 2000
 #: magnitude (f32 with TF32 off on both: cuBLAS and the CPU's BLAS sum in
 #: other orders; the embedding gather's backward adds with atomics)
 T0_B, T0_L, T0_STEPS, T0_LOSS_RTOL, T0_GRAD_RTOL = 32, 64, 3, 1e-5, 1e-4
+#: T1's steps under torch.profiler (reading a profile takes seconds per
+#: 10,000 events; a step has about 3,200 device events)
+T1_PROFILED = 2
 #: T: the largest share of in-batch negatives the Jaccard mask may drop
 #: before the corpus counts as not exercising the loss
 MASK_DROP_LIMIT = 0.5
@@ -2553,7 +2589,7 @@ def t1_pretrain(torch, np, storage, cfg, tok, docs) -> dict:
     pick, checked against its MRRs and, when it keeps ``"init"``, against
     a copy of the init bitwise. Beside it, timed alone: the pair mining,
     ``TRAIN_STEPS`` batches drawn on the host (tokenize, mask, copy to the
-    card), and 20 steps of the loop under ``torch.profiler`` (the card's
+    card), and ``T1_PROFILED`` steps of the loop under ``torch.profiler`` (the card's
     busy share) and on pre-drawn batches (a step without its batch)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2632,19 +2668,135 @@ def t1_pretrain(torch, np, storage, cfg, tok, docs) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t = time.perf_counter()
-            for _ in range(20):
+            for _ in range(T1_PROFILED):
                 train.train_step(model, opt, next(it), 0.05)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
+            t_end = time.perf_counter()
+            wall_ms = (t_end - t) * 1e3
     on_dev = [e for e in prof.key_averages() if on_device(e)]
     device_ms = sum(dev_us(e) for e in on_dev) / 1e3
-    out.update(profile_wall_ms=wall_ms / 20, profile_device_ms=device_ms / 20, busy_share=device_ms / wall_ms,
-               kernels_per_step=sum(e.count for e in on_dev) / 20)
-    log(f"  a step on drawn batches {out['step_ms']:.2f} ms; 20 steps of the loop under torch.profiler: "
+    out.update(profile_wall_ms=wall_ms / T1_PROFILED, profile_device_ms=device_ms / T1_PROFILED,
+               busy_share=device_ms / wall_ms, kernels_per_step=sum(e.count for e in on_dev) / T1_PROFILED,
+               profile_read_s=time.perf_counter() - t_end)
+    log(f"  a step on drawn batches {out['step_ms']:.2f} ms; {T1_PROFILED} steps of the loop under torch.profiler: "
         f"{out['profile_wall_ms']:.2f} ms a step, device {out['profile_device_ms']:.2f} ms (busy "
-        f"{out['busy_share']:.3f}), {out['kernels_per_step']:.0f} device events a step")
+        f"{out['busy_share']:.3f}), {out['kernels_per_step']:.0f} device events a step (the profile read in "
+        f"{out['profile_read_s']:.1f} s)")
     del model, opt, drawn, emb
     torch.cuda.empty_cache()
+    return out
+
+
+#: T3: the meshes of the sharded step (dp, mp), the one whose bf16 steps
+#: are timed (dp x tp), those steps, and the ones profiled (reading a
+#: profile costs seconds per 10,000 events: a sharded step has about 10,000
+#: device events and several times as many host ones)
+T3_MESHES, T3_BF16_MESH, T3_STEPS, T3_PROFILED = ((2, 2), (4, 1)), (2, 2), 50, 1
+
+
+def t0_param_tol() -> float:
+    """T0's bound on the parameters after its steps (warmup 1): the steps'
+    summed learning rates (where a gradient is f32 noise, Adam can move an
+    element by up to the learning rate)."""
+    from trie_semantic_search_tpu_torch.models import train
+
+    cfg = train.TrainConfig(warmup_steps=1, total_steps=T0_STEPS)
+    return sum(cfg.learning_rate * train.warmup_cosine_factor(s, cfg.warmup_steps, cfg.total_steps)
+               for s in range(T0_STEPS))
+
+
+def t3_sharded(torch, np, tok, model_config, pairs) -> dict:
+    """T3: the sharded step (``make_sharded_train_step``) of the full-width
+    encoder on each of ``T3_MESHES`` over :func:`mesh_devices` (four
+    shards on ``cuda:0``, or four cards). T0's batches (B=32, L=64, its
+    ``neg_mask`` left out: the sharded batch holds ``ids_a``, ``mask_a``,
+    ``ids_b``, ``mask_b`` only) through ``T0_STEPS`` steps at f32 against
+    T0's single-device step on the card: each loss within ``T0_LOSS_RTOL``,
+    the parameters after the steps within T0's bound. Then, on
+    ``T3_BF16_MESH``, ``T3_STEPS`` bf16 steps on drawn batches (3 more to
+    warm): steps/s, a step's ms against its device ms under
+    ``torch.profiler`` (``T3_PROFILED`` steps), device events a step, the
+    losses finite."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from trie_semantic_search_tpu_torch.core.config import MeshConfig
+    from trie_semantic_search_tpu_torch.models import minilm, train
+    from trie_semantic_search_tpu_torch.parallel.mesh import make_mesh
+
+    def sharded_batch(b):
+        return {k: b[k] for k in train.SHARDED_BATCH_KEYS}
+
+    it = train.batches_from_pairs(pairs, tok, T0_B, T0_L, false_negative_jaccard=0.5, device="cuda")
+    batches = [sharded_batch(next(it)) for _ in range(T0_STEPS)]
+    tcfg = train.TrainConfig(warmup_steps=1, total_steps=T0_STEPS)
+    ref = minilm.MiniLM(model_config, device="cuda", seed=0, compute_dtype=torch.float32)
+    init = {k: v.clone() for k, v in ref.state_dict().items()}
+    opt = train.make_optimizer(tcfg, ref)
+    with ref.trainable():
+        ref_losses = [float(train.train_step(ref, opt, b, tcfg.temperature)[0]) for b in batches]
+    want = ref.state_dict()
+    devices = mesh_devices(torch, torch.device("cuda"))
+    out: dict = {"param_tol": t0_param_tol(), "ref_losses": ref_losses, "devices": [str(d) for d in devices]}
+    per_mesh = 3 + T3_STEPS + T3_PROFILED
+    drawn = [sharded_batch(next(it)) for _ in range(per_mesh)]
+    for dp, mp in T3_MESHES:
+        mesh = make_mesh(MeshConfig(data_parallel=dp, model_parallel=mp), devices=devices)
+        step = train.make_sharded_train_step(mesh, model_config, tcfg, tcfg.temperature)
+        state = step.init(minilm.MiniLM(model_config, device="cuda", compute_dtype=torch.float32).load_params(init))
+        t = time.perf_counter()
+        losses = [float(step(state, b)[0]) for b in batches]
+        f32_s = time.perf_counter() - t
+        got = step.gather(state).state_dict()
+        diffs = sorted(((float((got[k] - want[k]).abs().max()), k) for k in want), reverse=True)
+        row = dict(losses=losses, f32_s=f32_s, param_max_diff=diffs[0][0], param_worst=diffs[:3],
+                   leaves=len(state.leaves()))
+        if not (all(abs(a - b) <= T0_LOSS_RTOL * abs(b) for a, b in zip(losses, ref_losses))
+                and diffs[0][0] <= out["param_tol"]):
+            raise AssertionError(f"T3 {dp}x{mp}: losses {losses} vs one device {ref_losses}, parameters off "
+                                 f"by {diffs[:3]} (bound {out['param_tol']})")
+        out[f"{dp}x{mp}"] = row
+        log(f"    T3 {dp}x{mp} over {sorted(set(out['devices']))} ({row['leaves']} parameter slices): f32 losses "
+            + ", ".join(f"{a:.6f}" for a in losses) + " (one device " + ", ".join(f"{b:.6f}" for b in ref_losses)
+            + f"), parameters after {T0_STEPS} steps within {diffs[0][0]:.3g} of one device's (bound "
+            f"{out['param_tol']:.3g}; {diffs[:3]})")
+        del step, state
+        if (dp, mp) != T3_BF16_MESH:
+            continue
+        bstep = train.make_sharded_train_step(mesh, model_config,
+                                              train.TrainConfig(total_steps=per_mesh, warmup_steps=2))
+        bstate = bstep.init(minilm.MiniLM(model_config, device="cuda", seed=1))
+        mine = drawn
+        for b in mine[:3]:
+            bstep(bstate, b)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        bl = [bstep(bstate, b)[0] for b in mine[3 : 3 + T3_STEPS]]
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t_prof = time.perf_counter()
+            for b in mine[3 + T3_STEPS :]:
+                bstep(bstate, b)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            wall_ms = (t - t_prof) * 1e3 / T3_PROFILED
+        on_dev = [e for e in prof.key_averages() if on_device(e)]
+        read_s = time.perf_counter() - t
+        bl = [float(x) for x in bl]
+        if not np.isfinite(bl).all():
+            raise AssertionError(f"T3 {dp}x{mp}: bf16 losses not finite: {bl}")
+        row.update(bf16_steps=T3_STEPS, steps_per_s=T3_STEPS / loop_s, step_ms=loop_s / T3_STEPS * 1e3,
+                   profile_wall_ms=wall_ms, profile_device_ms=sum(dev_us(e) for e in on_dev) / 1e3 / T3_PROFILED,
+                   kernels_per_step=sum(e.count for e in on_dev) / T3_PROFILED, profile_read_s=read_s,
+                   bf16_loss_first_last=(bl[0], bl[-1]))
+        row["busy_share"] = row["profile_device_ms"] / wall_ms
+        log(f"    T3 {dp}x{mp} bf16: {T3_STEPS} steps at {row['steps_per_s']:.1f} steps/s, a step "
+            f"{row['step_ms']:.2f} ms; {T3_PROFILED} under torch.profiler {wall_ms:.2f} ms a step, device "
+            f"{row['profile_device_ms']:.2f} ms (busy {row['busy_share']:.3f}), {row['kernels_per_step']:.0f} "
+            f"device events a step (the profile read in {read_s:.1f} s); loss {bl[0]:.4f} -> {bl[-1]:.4f}")
+        del bstep, bstate
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2716,6 +2868,13 @@ def train_phase(torch, np, sk, seed: int, work: Path, out_dir: Path) -> tuple[di
         f"{T0_STEPS} steps {t0['param_tol']:.3g} (the steps' summed learning rates): max "
         f"{t0['param_max_diff']:.3g} ({t0['param_worst']}), {t0['params_off_1e6']} of {t0['params']} "
         f"elements off by more than 1e-6; T0 {t0['seconds']:.1f} s")
+
+    log(f"  T3: the sharded step on {T3_MESHES} (dp, mp) meshes against T0's single-device step on the card, "
+        f"then {T3_STEPS} bf16 steps on {T3_BF16_MESH}")
+    t = time.perf_counter()
+    out["t3"] = t3_sharded(torch, np, tok, model_config, train.mine_view_pairs(docs, scrub_digits=True))
+    out["t3"]["seconds"] = time.perf_counter() - t
+    log(f"    T3 {out['t3']['seconds']:.1f} s")
 
     log(f"  T1: {TRAIN_STEPS} steps of pretrain_encoder_guarded at its defaults (bf16) on the sample")
     out["t1"] = t1_pretrain(torch, np, storage, cfg, tok, docs)
@@ -2964,16 +3123,18 @@ def tie_aware_equal(np, want, got, k: int) -> tuple[int, list]:
     return wv.shape[0], differ
 
 
-def mesh_phase(torch, np, sk, fused, vi, host, cents, names, words, courts, seed: int):
+def mesh_phase(torch, np, sk, fused, vi, host, cents, names, words, courts, seed: int, out_dir: Path):
     """Phase M1-M3 over phase A's rows (the served corpus: 5,242,880 chunks,
     four per case) on a mesh of :func:`mesh_devices`, the rows in a seeded
     random order: in generation order each shard would hold whole clusters
     (a cluster's 1,024 rows are adjacent), which a corpus stored in ingest
     order does not, and the per-shard capacity cap of
     ``build_sharded_partitions`` (2.5 times a shard's mean fill) would spill
-    a third of the rows. Returns the details, the launch counts of M1's and
-    M2's serving runs (summed: the path ``sharded``) and each kernel's
-    largest difference from its plain version over the held calls."""
+    a third of the rows. Then M5 (:func:`distributed_phase`) over the
+    first ``M5_ROWS`` of those rows. Returns the details, the launch counts
+    of M1's and M2's serving runs (summed: the path ``sharded``) and each
+    kernel's largest difference from its plain version over the held calls
+    (M5's processes' included)."""
     from trie_semantic_search_tpu_torch.core.config import AnnConfig, MeshConfig, VectorConfig
     from trie_semantic_search_tpu_torch.index.ann import PartitionedANN
     from trie_semantic_search_tpu_torch.index.vector import VectorIndex
@@ -3104,11 +3265,17 @@ def mesh_phase(torch, np, sk, fused, vi, host, cents, names, words, courts, seed
     del f2, one, recs
     torch.cuda.empty_cache()
 
-    out["m3"] = sharded_index_check(torch, np, host, seed, dev)
+    out["m3"], m3_ref = sharded_index_check(torch, np, host, seed, dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["m5"] = distributed_phase(torch, np, host[:M5_ROWS], refs[:M5_ROWS], cents, fused, batches, m3_ref,
+                                  seed, out_dir)
+    out["m5"]["seconds"] = time.perf_counter() - t0
+    fold(out["m5"].pop("plain_err"))
     return out, launches, err
 
 
-def sharded_index_check(torch, np, host, seed: int, dev) -> dict:
+def sharded_index_check(torch, np, host, seed: int, dev) -> tuple[dict, dict]:
     """M3: ``ShardedCorpusIndex`` over the first ``M3_ROWS`` rows of phase A
     on ``MESH_SHARDS`` shards, int8 and bf16, against one exact top-k over
     the whole matrix on the card (int8: bitwise; bf16: values within 1e-6
@@ -3116,7 +3283,8 @@ def sharded_index_check(torch, np, host, seed: int, dev) -> dict:
     ``M3_SAVE_ROWS`` rows saved and loaded on a mesh of 2, which must serve
     bitwise what the same file serves on the phase's mesh (the overlap
     with the top 10 served before the save is printed: the file holds f16
-    rows, so the int8 codes loaded from it may round otherwise)."""
+    rows, so the int8 codes loaded from it may round otherwise). Returns
+    the details and, for M5, the queries and both searches' results."""
     from trie_semantic_search_tpu_torch.core.config import MeshConfig
     from trie_semantic_search_tpu_torch.index.sharded import ShardedCorpusIndex
     from trie_semantic_search_tpu_torch.ops.scoring import cosine_scores, cosine_scores_int8, quantize_int8
@@ -3133,6 +3301,7 @@ def sharded_index_check(torch, np, host, seed: int, dev) -> dict:
     # normalised as the index normalises its input (numpy, on the host)
     vn = torch.as_tensor(rows / np.maximum(np.linalg.norm(rows, axis=1, keepdims=True), 1e-12), device=dev)
     qt = torch.as_tensor(q, device=dev)
+    ref = {"q": q}
     for use_int8 in (True, False):
         t0 = time.perf_counter()
         idx = ShardedCorpusIndex(mesh, use_int8=use_int8)
@@ -3158,6 +3327,7 @@ def sharded_index_check(torch, np, host, seed: int, dev) -> dict:
             if not (e <= 1e-6 and (mine >= rv[:, -1:] - 1e-6).all()):
                 raise AssertionError(f"M3: the sharded bf16 scan differs from the one-card top-k by {e}")
         out["int8" if use_int8 else "bf16"] = dict(build_s=build_s, search_ms=search_ms, max_abs_err=e)
+        ref["int8" if use_int8 else "bf16"] = (gv, gi)
         log(f"  M3 ShardedCorpusIndex(int8={use_int8}) of {M3_ROWS} rows on {mesh.shape['data']} shards: "
             f"build {build_s:.1f} s, search_brute B={M3_QUERIES} k={M3_K} {search_ms:.1f} ms, equal to "
             f"the one-card exact top-k ({'bitwise' if use_int8 else f'values within {e:.3g}'})")
@@ -3190,6 +3360,256 @@ def sharded_index_check(torch, np, host, seed: int, dev) -> dict:
         f"2 {out['load_s']:.1f} s: bitwise the results of the same file on {mesh.shape['data']} shards; "
         f"recall@10 against the index before the save (f32 rows, the file's are f16) "
         f"{out['saved_vs_built_recall_at_10']:.4f}")
+    return out, ref
+
+
+#: M5: processes of the job, rows served, seconds a process may take to
+#: join and the whole phase to finish its processes
+M5_WORLD, M5_ROWS, M5_JOIN_S, M5_TIMEOUT_S = 2, 1 << 20, 300, 480
+#: M5's serving runs: (name, ``FusedHybridSearch`` mode, B, filtered)
+M5_PLAN = (("partitioned B=64", "partitioned", 64, False), ("partitioned B=256", "partitioned", 256, False),
+           ("partitioned B=64 filtered", "partitioned", 64, True), ("brute B=64", "brute", 64, False))
+#: M5's train step: full-width MiniLM at f32 on a 2x2 mesh (dp across the
+#: processes), one step at the schedule's peak (no warmup), on a seeded batch
+M5_TRAIN_B, M5_TRAIN_L, M5_TRAIN = 32, 64, dict(warmup_steps=0, total_steps=3)
+
+
+def m5_devices(torch, rank: int) -> list:
+    """Process ``rank``'s two shards: two cards of its own when the host
+    has a pair for every process (the backend is then NCCL), else both on
+    ``cuda:0``, shared with the other process (gloo)."""
+    if torch.cuda.device_count() >= 2 * M5_WORLD:
+        return [torch.device("cuda", 2 * rank), torch.device("cuda", 2 * rank + 1)]
+    return [torch.device("cuda", 0)] * 2
+
+
+def m5_fused(torch, np, work: Path, mesh, dev) -> dict:
+    """Both M5 searches over the rows in ``work`` on ``mesh``: the served
+    state (phase 3's trie, the case columns, the rows with phase A's
+    centroids) and a ``FusedHybridSearch`` per mode, keyed by mode."""
+    from trie_semantic_search_tpu_torch.core.config import AnnConfig, VectorConfig
+    from trie_semantic_search_tpu_torch.index.ann import PartitionedANN
+    from trie_semantic_search_tpu_torch.index.trie import TrieIndex
+    from trie_semantic_search_tpu_torch.index.vector import VectorIndex
+    from trie_semantic_search_tpu_torch.models.embedder import Embedder
+    from trie_semantic_search_tpu_torch.models.minilm import MiniLM, MiniLMConfig
+    from trie_semantic_search_tpu_torch.models.tokenizer import WordPieceTokenizer, train_wordpiece_vocab
+    from trie_semantic_search_tpu_torch.search.fused import FusedHybridSearch
+
+    rows, refs, cents = (np.load(work / f"{n}.npy") for n in ("rows", "refs", "cents"))
+    trie = TrieIndex.load_from_disk(work / "trie", device=dev)
+    columns = serving_columns(np, P_PARTS * M_SLOTS // CHUNKS_PER_CASE)
+    cfg = VectorConfig()
+    cfg.hnsw = AnnConfig(num_probes=MESH_NPROBE)
+    ann = PartitionedANN(cfg.hnsw, device=dev)
+    ann.centroids, ann.num_vectors = torch.tensor(cents, device=dev), rows.shape[0]
+    # the query vectors come with the batches: a small encoder stands in
+    tok = WordPieceTokenizer(train_wordpiece_vocab(WORDS, vocab_size=1024, min_frequency=1))
+    small = MiniLM(MiniLMConfig(vocab_size=1024, num_layers=1, max_position=64), device=dev)
+    vm = VectorIndex(cfg, embedder=Embedder(tokenizer=tok, model=small, device=dev), device=dev)
+    vm.set_frozen(refs, rows, ann)
+    return {mode: FusedHybridSearch(trie, vm, columns, ann_mode=mode, mesh=mesh,
+                                    flat_escalate_eps=serving_settings()[2])
+            for mode in ("partitioned", "brute")}
+
+
+def m5_serve(fused: dict, batches: dict) -> dict:
+    """M5_PLAN's batches through ``query_batch`` at the serving settings."""
+    out = {}
+    for name, mode, B, filtered in M5_PLAN:
+        texts, cf, dr, q = batches[(B, filtered)]
+        out[name] = fused[mode].query_batch(q, texts, cf, dr, [0.0] * B, [2.0] * B, k=K,
+                                            overfetch=serving_settings()[0],
+                                            recall_target=serving_settings()[1])
+    return out
+
+
+def m5_train(torch, np, mesh, seed: int) -> tuple[float, dict]:
+    """M5's train step on ``mesh``: the loss and the parameters after it."""
+    from trie_semantic_search_tpu_torch.models import minilm, train
+
+    cfg = minilm.MiniLMConfig()
+    rng = np.random.default_rng(seed + 9)
+    batch = {}
+    for side in ("a", "b"):
+        ids = rng.integers(1, cfg.vocab_size, (M5_TRAIN_B, M5_TRAIN_L)).astype(np.int32)
+        mask = (np.arange(M5_TRAIN_L)[None, :] < rng.integers(8, M5_TRAIN_L + 1, (M5_TRAIN_B, 1))).astype(np.int32)
+        batch[f"ids_{side}"], batch[f"mask_{side}"] = ids * mask, mask
+    step = train.make_sharded_train_step(mesh, cfg, train.TrainConfig(**M5_TRAIN))
+    state = step.init(minilm.MiniLM(cfg, device=mesh.first_device, seed=seed, compute_dtype=torch.float32))
+    loss, _ = step(state, batch)
+    return float(loss), {k: v.cpu().numpy() for k, v in step.gather(state).state_dict().items()}
+
+
+def m5_child(torch, np, sk, rank: int, port: int, work: Path, seed: int) -> int:
+    """One process of M5: joins the job (``make_distributed_mesh``, a 4x1
+    mesh of two shards per process), builds both searches from the rows
+    in ``work``, serves M5_PLAN (counts set to 0 just before, read just
+    after; every probe, rescore and fused-scan call kept and then held
+    against its plain version), searches ``ShardedCorpusIndex`` over the
+    rows in int8 and bf16, runs M5's train step on a 2x2 mesh of the same
+    job, leaves the job, and writes ``rank<r>.npz`` and ``rank<r>.json``."""
+    from trie_semantic_search_tpu_torch.core.config import MeshConfig
+    from trie_semantic_search_tpu_torch.index.sharded import ShardedCorpusIndex
+    from trie_semantic_search_tpu_torch.parallel.mesh import make_distributed_mesh, shutdown_distributed
+
+    t_start = time.perf_counter()
+    sk.exact_float32()
+    sk.load_library()
+    devs = m5_devices(torch, rank)
+    address, timeout = f"127.0.0.1:{port}", dt.timedelta(seconds=M5_JOIN_S)
+    info: dict = {"rank": rank, "devices": [str(d) for d in devs]}
+    arrays: dict = {}
+    try:
+        mesh = make_distributed_mesh(MeshConfig(), address, M5_WORLD, rank, devices=devs, timeout=timeout)
+        info.update(join_s=time.perf_counter() - t_start, backend=mesh.backend, local_rows=mesh.local_data_rows,
+                    shape=mesh.shape)
+        t = time.perf_counter()
+        fused = m5_fused(torch, np, work, mesh, devs[0])
+        torch.cuda.synchronize()
+        info["build_s"] = time.perf_counter() - t
+        with open(work / "batches.pkl", "rb") as f:
+            batches = pickle.load(f)
+        with kept_calls(sk, MESH_HELD) as calls:
+            sk.reset_launch_counts()
+            t = time.perf_counter()
+            served = m5_serve(fused, batches)
+            torch.cuda.synchronize()
+            info["serve_s"] = time.perf_counter() - t
+            info["launches"] = dict(sk.LAUNCHES)
+        t = time.perf_counter()
+        info["plain_err"], info["held"] = hold_against_plain(torch, sk, calls), held_counts(calls)
+        info["hold_s"] = time.perf_counter() - t
+        del calls, fused
+        torch.cuda.empty_cache()
+        for name, outs in served.items():
+            arrays.update({f"{name}/{i}": a for i, a in enumerate(outs)})
+        rows, q3 = np.load(work / "rows.npy"), np.load(work / "q3.npy")
+        t = time.perf_counter()
+        for use_int8 in (True, False):
+            idx = ShardedCorpusIndex(mesh, use_int8=use_int8)
+            idx.build(rows)
+            v, i = idx.search_brute(q3, M3_K)
+            arrays[f"index {'int8' if use_int8 else 'bf16'}/0"], arrays[f"index {'int8' if use_int8 else 'bf16'}/1"] = v, i
+            del idx
+        info["index_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        tmesh = make_distributed_mesh(MeshConfig(model_parallel=2), address, M5_WORLD, rank, devices=devs)
+        info["train_loss"], params = m5_train(torch, np, tmesh, seed)
+        info["train_s"], info["train_local_rows"] = time.perf_counter() - t, tmesh.local_data_rows
+        arrays.update({f"train/{k}": v for k, v in params.items()})
+    finally:
+        shutdown_distributed()
+    info["seconds"] = time.perf_counter() - t_start
+    np.savez(work / f"rank{rank}.npz", **arrays)
+    (work / f"rank{rank}.json").write_text(json.dumps(info, default=str))
+    return 0
+
+
+def distributed_phase(torch, np, rows, refs, cents, fused, batches, m3_ref, seed: int, out_dir: Path) -> dict:
+    """M5, the mesh across processes. ``M5_ROWS`` rows of phase M (M1's
+    seeded order), phase A's centroids, phase 3's trie, M1's B=64, B=256
+    and filtered 64 batches (their query vectors) and M3's queries go to a
+    directory; ``M5_WORLD`` processes of this script (:func:`m5_child`)
+    join a job on a free port of 127.0.0.1, each owning two shards of the
+    4x1 mesh (:func:`m5_devices`). Meanwhile this process serves the same
+    batches on a single-process mesh of four shards (phase M's) and runs
+    the same train step on a 2x2 mesh of them. Every process's case rows,
+    chunk rows, sources and score bits must equal this process's; its
+    ``ShardedCorpusIndex`` results M3's bitwise; its train loss this one's
+    within ``T0_LOSS_RTOL`` and its parameters within T0's bound (the
+    steps' summed learning rates); each process must have launched the
+    probe, the rescore and the fused scan (path ``distributed``), every
+    call equal to its plain version. A process that fails, or outlives
+    ``M5_TIMEOUT_S`` (then every process is killed), fails the phase."""
+    from trie_semantic_search_tpu_torch.core.config import MeshConfig
+    from trie_semantic_search_tpu_torch.parallel.mesh import make_mesh
+
+    out: dict = {"rows": int(rows.shape[0]), "processes": M5_WORLD}
+    plan_batches = {(B, f): (texts, cf, dr, q) for B, f, texts, cf, dr, q in batches
+                    if any((B, f) == (b, fl) for _, _, b, fl in M5_PLAN)}
+    with tempfile.TemporaryDirectory(prefix="m5_") as tmp:
+        work = Path(tmp)
+        t0 = time.perf_counter()
+        for name, a in (("rows", rows), ("refs", refs), ("cents", cents), ("q3", m3_ref["q"])):
+            np.save(work / f"{name}.npy", np.ascontiguousarray(a))
+        with open(work / "batches.pkl", "wb") as f:
+            pickle.dump(plan_batches, f)
+        fused.trie_index.save_to_disk(work / "trie")
+        out["write_s"] = time.perf_counter() - t0
+        port = free_port()
+        logs = [open(out_dir / f"m5_rank{r}.log", "w") for r in range(M5_WORLD)]
+        procs = [subprocess.Popen([sys.executable, str(HERE / "chip_smoke.py"), "--seed", str(seed),
+                                   "--m5-rank", str(r), "--m5-port", str(port), "--m5-dir", str(work)],
+                                  stdout=logs[r], stderr=subprocess.STDOUT, cwd=HERE)
+                 for r in range(M5_WORLD)]
+        t_spawn = time.perf_counter()
+        try:
+            dev = torch.device("cuda")
+            mesh = make_mesh(MeshConfig(), devices=mesh_devices(torch, dev))
+            t = time.perf_counter()
+            want = {k: tuple(np.asarray(a) for a in v) for k, v in m5_serve(m5_fused(torch, np, work, mesh, dev),
+                                                                            plan_batches).items()}
+            want["index int8"], want["index bf16"] = m3_ref["int8"], m3_ref["bf16"]
+            out["reference_serve_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            tmesh = make_mesh(MeshConfig(model_parallel=2), devices=mesh_devices(torch, dev))
+            loss, params = m5_train(torch, np, tmesh, seed)
+            out["reference_train_s"] = time.perf_counter() - t
+            torch.cuda.empty_cache()
+            for p in procs:
+                p.wait(timeout=max(1.0, M5_TIMEOUT_S - (time.perf_counter() - t_spawn)))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"M5: a process outlived {M5_TIMEOUT_S} s (logs: chiprun_out/m5_rank*.log)") from None
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        out["wall_s"] = time.perf_counter() - t_spawn
+        bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+        if bad:
+            tails = {r: (out_dir / f"m5_rank{r}.log").read_text()[-2000:] for r, _ in bad}
+            raise AssertionError(f"M5: processes exited non-zero {bad}: {tails}")
+        tol = t0_param_tol()
+        ranks, err = [], {"probe_candidates": 0.0, "gather_rescore": 0.0, "fused_scan": 0.0}
+        for r in range(M5_WORLD):
+            info = json.loads((work / f"rank{r}.json").read_text())
+            with np.load(work / f"rank{r}.npz") as z:
+                got = {k: z[k] for k in z.files}
+            for name, arrs in want.items():
+                for i, a in enumerate(arrs):
+                    g = got[f"{name}/{i}"]
+                    if not (g.dtype == a.dtype and g.shape == a.shape and np.array_equal(g.view(np.uint8),
+                                                                                         a.view(np.uint8))):
+                        raise AssertionError(f"M5 rank {r}: {name} output {i} differs from the single-process mesh's")
+            pdiff = max(float(np.abs(got[f"train/{k}"] - v).max()) for k, v in params.items())
+            if not (abs(info["train_loss"] - loss) <= T0_LOSS_RTOL * abs(loss) and pdiff <= tol):
+                raise AssertionError(f"M5 rank {r}: train loss {info['train_loss']} vs {loss}, parameters off "
+                                     f"by {pdiff} (bound {tol})")
+            c = info["launches"]
+            if min(c["probe_candidates"], c["gather_rescore"], c["fused_scan"]) <= 0 or c["fused_scan_dp4a"]:
+                raise AssertionError(f"M5 rank {r} did not launch the probe, rescore and fused scan: {c}")
+            for k, e in info.pop("plain_err").items():
+                err[k] = max(err[k], e)
+            info["train_param_max_diff"] = pdiff
+            ranks.append(info)
+            log(f"  M5 rank {r} ({info['backend']}, shards {info['local_rows']} on {info['devices']}): joined in "
+                f"{info['join_s']:.1f} s, both searches built in {info['build_s']:.1f} s, served {len(M5_PLAN)} "
+                f"batches in {info['serve_s']:.2f} s, held {info['held']} against the plain versions in "
+                f"{info['hold_s']:.1f} s; index int8 and bf16 {info['index_s']:.1f} s; train step (rows "
+                f"{info['train_local_rows']} of 2x2) {info['train_s']:.1f} s, loss {info['train_loss']:.6f} "
+                f"(one process {loss:.6f}), parameters within {pdiff:.3g} of one process's (bound {tol:.3g}); "
+                f"process {info['seconds']:.1f} s")
+            log(f"  M5 launches on the distributed path, rank {r}: {c}")
+    out.update(ranks=ranks, launches=[i["launches"] for i in ranks], plain_err=err, train_loss=loss,
+               param_tol=tol)
+    log(f"  M5: every rank's {len(want)} outputs ({', '.join(want)}) bitwise the single-process mesh's; "
+        f"rows written in {out['write_s']:.1f} s, reference {out['reference_serve_s']:.1f} s + train "
+        f"{out['reference_train_s']:.1f} s, processes done {out['wall_s']:.1f} s after their start; "
+        f"plain-version differences {err}")
     return out
 
 
@@ -3801,7 +4221,8 @@ def cli_phase(np, seed: int, work: Path, out_dir: Path) -> dict:
     incremental branch runs); ``POST /admin/reindex?mode=incremental``;
     /stats polled until they are indexed; a new case found by name;
     ``quality.json`` beside the vectors; SIGINT, exit 0, "shutting down"
-    in the log. Each step's seconds."""
+    in the log. Each step's seconds. :func:`cli_fresh_lifecycle` runs in a
+    thread beside the ``serve`` lifecycle (its own store, no server)."""
     import concurrent.futures
     import signal
     import urllib.request
@@ -3846,6 +4267,11 @@ def cli_phase(np, seed: int, work: Path, out_dir: Path) -> dict:
         f"search {steps['search']:.1f} s ({len(hits)} hits, {name!r} first), completions "
         f"{steps['completions']:.1f} s ({len(comps)}), all four started together")
 
+    # the fresh-store commands (their own store, no server) run beside the
+    # serve lifecycle
+    fresh_pool = concurrent.futures.ThreadPoolExecutor(1)
+    fresh = fresh_pool.submit(cli_fresh_lifecycle, work / "h2_fresh")
+    fresh_pool.shutdown(wait=False)
     log_path = work / "serve.log"
     base = f"http://127.0.0.1:{cfg.server.port}"
 
@@ -3924,7 +4350,7 @@ def cli_phase(np, seed: int, work: Path, out_dir: Path) -> dict:
     if rc != 0 or "shutting down" not in text:
         raise AssertionError(f"serve exited {rc} on SIGINT; 'shutting down' logged: {'shutting down' in text}")
     rec["update_log"] = next(ln for ln in text.splitlines() if "incremental update:" in ln)
-    rec["fresh"] = cli_fresh_lifecycle(work / "h2_fresh")
+    rec["fresh"] = fresh.result()
     rec.update(cases_before=before, cases_after=before + H2_NEW_CASES, new_case=new_name,
                quality_gate=dict(mode=quality["mode"], degraded=quality["degraded"],
                                  trained_mrr=quality["trained"]["all"]["mrr"],
@@ -4006,12 +4432,16 @@ def main() -> int:
                          "top-k's wgmma variant at its timed case; stream: the build phases only "
                          "(A with S1, B with S2 and the evaluation), with no kernel timing, "
                          "serving, store or engine; train: phase T alone (pretraining, its own "
-                         "store) after the kernel build and the small reference; mesh: the sharded "
-                         "phases M1-M4 after the card state, phase A (without S1 and the case tuner) "
-                         "and phase B")
+                         "store; the sharded step T3 included) after the kernel build and the small "
+                         "reference; mesh: the sharded phases M1-M5 (M5: two processes) after the card "
+                         "state, phase A (without S1 and the case tuner) and phase B")
     ap.add_argument("--ingest-cases", type=int, default=ING_CASES,
                     help="fixture cases phase I ingests (at least 1,024; its time grows with the "
                          "square of the count)")
+    # one process of phase M5's job (the script starts them itself)
+    ap.add_argument("--m5-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--m5-port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--m5-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
         import torch
@@ -4027,6 +4457,8 @@ def main() -> int:
 
     from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
 
+    if args.m5_rank is not None:
+        return m5_child(torch, np, sk, args.m5_rank, args.m5_port, Path(args.m5_dir), args.seed)
     if args.only in ("kernels", "int8-ablations"):
         return run(torch, np, sk, args.seed, "", None, only=args.only)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -4090,17 +4522,19 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None,
                       detail["build_ann"]["stream_ann"]["plain_err"])
         if state is not None:
             devs = mesh_devices(torch, state["vi"].device)
-            log(f"phase: M1-M3, sharded serving over phase A's rows in a seeded order ({len(devs)} shards "
+            log(f"phase: M1-M3 and M5, sharded serving over phase A's rows in a seeded order ({len(devs)} shards "
                 f"on {sorted({str(d) for d in devs})}; counts reset just before each serving run, "
                 "read just after)")
             t0 = time.perf_counter()
             detail["mesh"], paths["sharded"], err = mesh_phase(
                 torch, np, sk, state["fused"], state["vi"], keep.pop("host"), keep.pop("centroids"),
-                state["names"], WORDS, COURTS, seed)
+                state["names"], WORDS, COURTS, seed, out_dir)
             note_errs(kernels, err)
+            for r, counts in enumerate(detail["mesh"]["m5"]["launches"]):
+                paths[f"distributed rank {r}"] = counts
             detail["mesh"]["seconds"] = time.perf_counter() - t0
             torch.cuda.empty_cache()
-            log(f"  {card}: phase M1-M3 {detail['mesh']['seconds']:.1f} s")
+            log(f"  {card}: phase M1-M3 and M5 {detail['mesh']['seconds']:.1f} s")
         log("phase: build: pipeline end to end (build_indexes -> save_artifacts -> load_artifacts "
             "-> SearchEngine)")
         detail["build_pipeline"] = pipeline_phase(torch, np, seed, work)

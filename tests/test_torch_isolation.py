@@ -229,3 +229,41 @@ def test_sharded_serving_stands_alone():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["4", "2"]
+
+
+def test_distributed_mesh_and_sharded_training_stand_alone():
+    """A job through ``make_distributed_mesh`` (one process, a coordinator
+    on a free local port) and a dp × tp train step on its mesh, where
+    ``jax`` cannot be imported; the process group is left at the end."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    block = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'ml_dtypes', 'optax', 'trie_semantic_search_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np, torch\n"
+        "import torch.distributed as dist\n"
+        "from trie_semantic_search_tpu_torch.core.config import MeshConfig\n"
+        "from trie_semantic_search_tpu_torch.models import minilm, train\n"
+        "from trie_semantic_search_tpu_torch.parallel import make_distributed_mesh\n"
+        "from trie_semantic_search_tpu_torch.parallel.mesh import shutdown_distributed\n"
+        f"mesh = make_distributed_mesh(MeshConfig(model_parallel=2), '127.0.0.1:{port}', 1, 0,\n"
+        "                              devices=['cpu'] * 4)\n"
+        "cfg = minilm.MiniLMConfig(vocab_size=64, hidden_size=16, num_layers=1, num_heads=2,\n"
+        "                          intermediate_size=32, max_position=8)\n"
+        "step = train.make_sharded_train_step(mesh, cfg, train.TrainConfig())\n"
+        "state = step.init(minilm.MiniLM(cfg, device='cpu'))\n"
+        "ids = np.arange(32, dtype=np.int32).reshape(4, 8) % 64\n"
+        "b = {'ids_a': ids, 'mask_a': np.ones_like(ids), 'ids_b': ids[::-1].copy(), 'mask_b': np.ones_like(ids)}\n"
+        "loss, _ = step(state, b)\n"
+        "print(mesh.shape['data'], mesh.shape['model'], mesh.backend, bool(np.isfinite(float(loss))))\n"
+        "shutdown_distributed()\n"
+        "print(dist.is_initialized())\n"
+    )
+    out = subprocess.run([sys.executable, "-c", block], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["2", "2", "gloo", "True", "False"]

@@ -23,6 +23,7 @@ from jax.sharding import NamedSharding
 from jax.sharding import PartitionSpec as PS
 from test_parallel import _fused_inputs, _run_fused
 from test_torch_engine import QUERIES, _assert_same, _requests
+from torch_distributed_job import run_job
 from torch_engine_fixtures import (  # noqa: F401  (fixtures)
     art,
     kernels_interpret,
@@ -141,9 +142,12 @@ def test_make_mesh_errors_match_jax(cpu_devices, dp, mp):
     assert str(got.value) == str(want.value)
 
 
-def test_mesh_placement_and_distributed_mesh(pmesh):
+def test_mesh_placement_and_distributed_mesh(pmesh, tmp_path):
     """Shard blocks never alias, even on one device; replicas are one copy
-    per distinct device; a multi-host mesh is refused."""
+    per distinct device; a mesh across two processes (one ``cpu`` shard in
+    rank 0, three in rank 1) orders its rows by rank, places only local
+    blocks, gathers in shard order, and refuses a model axis across the
+    processes."""
     x = torch.arange(64, dtype=torch.float32).reshape(16, 4)
     blocks = shard_rows(x, pmesh)
     assert [tuple(b.shape) for b in blocks] == [(2, 4)] * 8
@@ -158,8 +162,16 @@ def test_mesh_placement_and_distributed_mesh(pmesh):
     with pytest.raises(ValueError):
         shard_rows(x[:15], pmesh)
     assert single_device_mesh("cpu").shape == {DATA_AXIS: 1, MODEL_AXIS: 1}
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        make_distributed_mesh(MeshConfig(), coordinator_address="localhost:1234")
+    for rank, (info, _) in enumerate(run_job("mesh", tmp_path, [["cpu"], ["cpu"] * 3])):
+        assert info["shape"] == {DATA_AXIS: 4, MODEL_AXIS: 1} and info["backend"] == "gloo"
+        assert info["owners"] == [[0], [1], [1], [1]] and info["rows_of"] == [[0], [1, 2, 3]]
+        assert info["local_rows"] == ([0] if rank == 0 else [1, 2, 3])
+        assert info["gathered"] == [0.0, 11.0, 21.0, 31.0]
+        assert info["blocks"] == ([[0.0, 1.0], None, None, None] if rank == 0
+                                  else [None, [2.0, 3.0], [4.0, 5.0], [6.0, 7.0]])
+        assert "spans processes [0, 1]" in info["model_axis_error"]
+        assert info["other_job_error"].startswith("RuntimeError: this process already joined")
+    assert make_distributed_mesh(MeshConfig(data_parallel=8), devices=CPU8).shape == pmesh.shape
     four = make_mesh(MeshConfig(), devices=["cuda"] * 4)
     assert four.data_devices == [torch.device("cuda", 0)] * 4
 

@@ -608,3 +608,112 @@ def test_train_step_reduces_loss_on_a_fixed_batch():
             loss, _ = tt.train_step(model, opt, b, 0.05)
             losses.append(float(loss))
     assert losses[-1] < losses[0] and np.isfinite(losses).all()
+
+
+# -- the sharded step (dp × tp over a mesh) -------------------------------------
+
+
+def test_param_partition_specs_equal_jax():
+    """Per leaf of the parameter tree: the dim that shards over ``model``
+    is the position of ``"model"`` in the JAX PartitionSpec (none where it
+    replicates)."""
+    from jax.sharding import PartitionSpec
+
+    cfg = jm.MiniLMConfig(**TINY)
+    want = jm.param_partition_specs(cfg)
+    got = tm.param_partition_specs(tm.MiniLMConfig(**TINY))
+    assert sorted(got) == sorted(want)
+    for group, leaves in want.items():
+        assert sorted(got[group]) == sorted(leaves), group
+        for name, spec in leaves.items():
+            assert isinstance(spec, PartitionSpec)
+            dim = list(spec).index("model") if "model" in spec else None
+            assert got[group][name] == dim, (group, name)
+
+
+@pytest.mark.parametrize("mp", [1, 2, 4])
+def test_split_and_join_params_round_trip(mp):
+    """Sharded leaves split into equal slices and join back bitwise;
+    replicated leaves are the same tensor in every column; a model axis
+    that does not divide the heads is refused."""
+    _, _, tree = _params()
+    state = tm.params_from_jax(tree)
+    cfg = tm.MiniLMConfig(**TINY)
+    cols = tm.split_params(state, cfg, mp)
+    dims = tm.split_dims(cfg)
+    for key, t in state.items():
+        if dims[key] is None:
+            assert all(c[key] is t for c in cols)
+        else:
+            assert all(c[key].shape[dims[key]] == t.shape[dims[key]] // mp for c in cols)
+    back = tm.join_params(cols, cfg)
+    assert sorted(back) == sorted(state)
+    for key, t in state.items():
+        np.testing.assert_array_equal(back[key].numpy(), t.numpy())
+    with pytest.raises(ValueError, match="model_parallel 3"):
+        tm.split_params(state, cfg, 3)
+
+
+@pytest.mark.parametrize("mp", [1, 2, 4])
+def test_tensor_parallel_encoder_equals_the_model(mp):
+    """The encoder with its heads and FFN split over ``mp`` columns: one
+    column is the model's own function (bitwise); more columns sum the
+    partial products in another order (within 1e-6)."""
+    _, _, tree = _params()
+    model = _model(tree)
+    cfg = tm.MiniLMConfig(**TINY)
+    b = _tb(_batch(4))
+    want = model.encode(b["ids_a"], b["mask_a"])
+    with torch.no_grad():
+        got = tm.tp_sentence_embeddings(tm.split_params(tm.params_from_jax(tree), cfg, mp), cfg,
+                                        b["ids_a"], b["mask_a"], torch.float32)
+    if mp == 1:
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
+
+
+def _jax_sharded_train(jcfg, params, cfg, batches, dp, mp):
+    """The JAX ``make_sharded_train_step`` on its dp × mp CPU mesh, its
+    encode at f32 (wrapped while the step traces)."""
+    from jax.sharding import Mesh, NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    mesh = Mesh(np.array(jax.devices()[: dp * mp]).reshape(dp, mp), ("data", "model"))
+    opt = jt.make_optimizer(cfg)
+    opt_state = opt.init(params)
+    step = jt.make_sharded_train_step(mesh, jcfg, opt, 0.05)
+    sh = NamedSharding(mesh, P("data", None))
+    orig = jm.encode
+    jm.encode = functools.partial(orig, compute_dtype=jnp.float32)
+    try:
+        losses = []
+        for b in batches:
+            params, opt_state, loss, _ = step(params, opt_state, {k: jax.device_put(jnp.asarray(v), sh)
+                                                                  for k, v in b.items()})
+            losses.append(float(loss))
+    finally:
+        jm.encode = orig
+    return params, losses
+
+
+@pytest.mark.parametrize("dp,mp", [(4, 2), (8, 1)])
+def test_sharded_step_equals_jax_sharded_step(cpu_devices, dp, mp):
+    """The port's sharded step on a dp × mp mesh of ``cpu`` against the
+    JAX sharded step on its dp × mp CPU mesh, from the same parameters
+    (``params_from_jax`` through ``init_from_jax``) and batches, f32
+    compute: the losses within 1e-5 and the parameters after 3 AdamW steps
+    within ``PARAM_TOL``."""
+    from trie_semantic_search_tpu_torch.core.config import MeshConfig
+    from trie_semantic_search_tpu_torch.parallel import make_mesh
+
+    jcfg, params, tree = _params()
+    batches = [_batch(s) for s in (7, 8, 9)]
+    cfg = dict(ADAM_CFG, total_steps=3)
+    jp, jlosses = _jax_sharded_train(jcfg, params, jt.TrainConfig(**cfg), batches, dp, mp)
+    mesh = make_mesh(MeshConfig(data_parallel=dp, model_parallel=mp), devices=["cpu"] * (dp * mp))
+    step = tt.make_sharded_train_step(mesh, tm.MiniLMConfig(**TINY), tt.TrainConfig(**cfg), 0.05)
+    state = step.init_from_jax(tree, compute_dtype=torch.float32)
+    losses = [float(step(state, b)[0]) for b in batches]
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
+    _assert_params_close(step.gather(state, "cpu"), jp)

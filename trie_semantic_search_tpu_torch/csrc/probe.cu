@@ -420,7 +420,11 @@ __global__ void __launch_bounds__(THREADS, 1) probe_scan(
   }
 }
 
-int g_sms = 0;  // streaming multiprocessors of the current device
+// Per device: its streaming multiprocessors, 0 until probe_scan's shared
+// memory limit is raised there (a function attribute is set per device, so
+// a process that launches on several cards sets it on each).
+constexpr int MAX_DEVICES = 64;
+int g_sms[MAX_DEVICES] = {};
 
 }  // namespace
 
@@ -447,14 +451,17 @@ extern "C" int tss_probe_candidates(
   const size_t smem = 1024 + (size_t)stages * (L.bytes + 16);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (g_sms == 0) {
-    int dev = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-    if ((err = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (g_sms[dev] == 0) {
+    int sms = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
       return (int)err;
     if ((err = cudaFuncSetAttribute(probe_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     SMEM_BLOCK)) != cudaSuccess)
       return (int)err;
+    g_sms[dev] = sms;
   }
   // the partitions' rows as one [P * m, D] byte matrix, boxes of 128 rows
   // x 128 bytes (zeros past the row's end)
@@ -472,7 +479,7 @@ extern "C" int tss_probe_candidates(
   probe_plan<<<1, PLAN_THREADS, in_smem ? P * 4 : 0, st>>>(top_p, B * NP, P, max_groups, groups,
                                                           meta, counts, pairs, in_smem);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int grid = std::min(g_sms, max_groups);
+  const int grid = std::min(g_sms[dev], max_groups);
   probe_scan<<<grid, THREADS, smem, st>>>(rows_map, q8, qscale, pscale, prows, pcword, pcbit,
                                          pdate, qwords, dlo, dhi, mins, out_v, out_s, groups, meta,
                                          pairs, NP, m, D, W, stages);

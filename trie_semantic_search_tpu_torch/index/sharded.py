@@ -7,7 +7,11 @@ queries through :func:`..parallel.collectives.sharded_int8_topk` /
 ``sharded_brute_topk``; :class:`.vector.VectorIndex` picks it in place of
 :class:`.ann.PartitionedANN` when the data axis is > 1. Its ``save`` writes
 the logical (unpadded) corpus in the JAX package's npz format, so either
-package loads the other's file on any mesh size.
+package loads the other's file on any mesh size. On a mesh across
+processes every process builds from the same host rows and keeps only its
+own shards' blocks, as JAX's ``device_put`` places a process's addressable
+shards; ``save``, which reads every shard back to the host, is refused
+there, as reading a non-addressable array is in JAX.
 
 :func:`build_sharded_partitions` lays each shard's rows out in the
 partition-major blocks of the sharded-partitioned serving mode, on the
@@ -48,9 +52,10 @@ class ShardedCorpusIndex:
         self.row_multiple = row_multiple
         self.num_vectors = 0
         self._n_pad = 0
-        self._corpus: Optional[list[torch.Tensor]] = None  # bf16 [Npad/S, D] per shard
-        self._corpus_q: Optional[list[torch.Tensor]] = None  # int8 [Npad/S, D] per shard
-        self._corpus_scale: Optional[list[torch.Tensor]] = None  # f32 [Npad/S, 1] per shard
+        # per shard (None where another process owns it)
+        self._corpus: Optional[list] = None  # bf16 [Npad/S, D]
+        self._corpus_q: Optional[list] = None  # int8 [Npad/S, D]
+        self._corpus_scale: Optional[list] = None  # f32 [Npad/S, 1]
 
     @property
     def num_shards(self) -> int:
@@ -66,13 +71,13 @@ class ShardedCorpusIndex:
         self._n_pad = padded.shape[0]
         r = self._n_pad // self.num_shards
         if self.use_int8:
-            self._corpus_q, self._corpus_scale = [], []
-            for s in range(self.num_shards):
+            self._corpus_q = [None] * self.num_shards
+            self._corpus_scale = [None] * self.num_shards
+            for s in self.mesh.local_data_rows:
                 q, scale = quantize_int8(shard_block(padded, self.mesh, s))
                 # zero-scale the pad rows so they score exactly 0
                 scale[max(0, n - s * r):] = 0.0
-                self._corpus_q.append(q)
-                self._corpus_scale.append(scale)
+                self._corpus_q[s], self._corpus_scale[s] = q, scale
         self._corpus = shard_rows(padded, self.mesh, torch.bfloat16)
         _log.info("sharded corpus: %d vectors (+%d pad) over %d shards",
                   n, self._n_pad - n, self.num_shards)
@@ -113,8 +118,15 @@ class ShardedCorpusIndex:
 
     def save(self, path) -> None:
         """Save the logical (unpadded) corpus as f16 in the JAX package's
-        npz; the device layout is derived again from the loading mesh."""
+        npz; the device layout is derived again from the loading mesh.
+        Raises on a mesh across processes, where this process holds only
+        its own shards."""
         self._require_built()
+        if self.mesh.distributed:
+            raise RuntimeError(
+                "ShardedCorpusIndex.save reads every shard to the host; on a mesh across "
+                f"processes rank {self.mesh.rank} holds only shards {self.mesh.local_data_rows}"
+            )
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
         n = self.num_vectors
@@ -165,7 +177,9 @@ def build_sharded_partitions(
     with ``m`` the largest partition fill over all shards, padded to a
     ``lanes`` multiple (the probe kernel's rule), and ``seconds`` by stage
     (assign, rebalance, quantise, layout). The nearest-centroid assignment
-    and the quantisation run on ``device`` (default ``"cuda"``)."""
+    and the quantisation run on ``device`` (default ``"cuda"``). Every
+    shard's layout is computed (``m`` depends on all of them); on a mesh
+    across processes each process then places only its own shards'."""
     from .ann import _capacity_cap, _rebalance_overflow
     from .kmeans import assign_clusters
 

@@ -16,6 +16,15 @@ Serving calls :meth:`MiniLM.encode` (``no_grad``); training calls the same
 body, :meth:`MiniLM.sentence_embeddings`, inside :meth:`MiniLM.trainable`,
 where the parameters require gradients (``models/train.py``).
 
+Tensor parallelism (:func:`param_partition_specs`, :func:`split_params`,
+:func:`join_params`, :func:`tp_sentence_embeddings`) splits the attention
+heads and the FFN's intermediate dimension over the ``model`` axis of a
+mesh, as the JAX package's ``param_partition_specs`` (:137-172 there) does:
+each column computes its heads and its slice of the FFN, and the partial
+sums of the attention output and of ``wo`` are added up before the
+replicated biases. One layer function serves both: the unsplit model is
+the case of one column.
+
 :func:`load_hf_checkpoint` reads a local HuggingFace checkpoint into the
 same layout, as the JAX package's loader does (:331-403 there).
 :func:`count_token_ids` and :func:`sif_weights_from_counts` (numpy, :296-325
@@ -29,7 +38,7 @@ import dataclasses
 import math
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -194,6 +203,171 @@ def _layer_norm(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
+#: the dim of each layer leaf that shards over ``model`` (JAX's
+#: ``param_partition_specs``); every embedding leaf is replicated
+_LAYER_SPLIT: dict[str, Optional[int]] = {
+    "q_kernel": 2, "q_bias": 1, "k_kernel": 2, "k_bias": 1, "v_kernel": 2, "v_bias": 1,
+    "o_kernel": 1, "o_bias": None, "attn_ln_scale": None, "attn_ln_bias": None,
+    "wi_kernel": 2, "wi_bias": 1, "wo_kernel": 1, "wo_bias": None,
+    "mlp_ln_scale": None, "mlp_ln_bias": None,
+}
+
+
+def param_partition_specs(config: MiniLMConfig) -> dict[str, dict[str, Optional[int]]]:
+    """Tensor parallelism over the ``model`` mesh axis, per leaf of the JAX
+    parameter tree: the dim that shards, or None (replicated). The q/k/v
+    kernels and biases and ``wi`` shard their last (head or intermediate)
+    dim, ``o_kernel`` and ``wo_kernel`` their input rows; embeddings, layer
+    norms, ``o_bias`` and ``wo_bias`` replicate."""
+    return {
+        "embeddings": {name: None for name in param_shapes(config)["embeddings"]},
+        "layers": dict(_LAYER_SPLIT),
+    }
+
+
+def split_dims(config: MiniLMConfig) -> dict[str, Optional[int]]:
+    """:func:`param_partition_specs` by state-dict key (``"<group>.<name>"``)."""
+    return {f"{g}.{n}": d for g, leaves in param_partition_specs(config).items() for n, d in leaves.items()}
+
+
+def check_model_parallel(config: MiniLMConfig, mp: int) -> None:
+    """Raise ``ValueError`` unless ``mp`` columns divide the heads and the
+    FFN's intermediate size (each column holds whole heads)."""
+    if mp < 1 or config.num_heads % mp or config.intermediate_size % mp:
+        raise ValueError(f"model_parallel {mp} must divide the {config.num_heads} heads and the "
+                         f"intermediate size {config.intermediate_size}")
+
+
+def split_params(state: Mapping[str, torch.Tensor], config: MiniLMConfig, mp: int) -> list[dict[str, torch.Tensor]]:
+    """A full state dict → ``mp`` column state dicts: a sharded leaf's
+    ``c``-th of ``mp`` equal slices along its split dim (a view) in column
+    ``c``; a replicated leaf whole, the same tensor, in every column."""
+    check_model_parallel(config, mp)
+    dims = split_dims(config)
+    out: list[dict[str, torch.Tensor]] = [{} for _ in range(mp)]
+    for key, t in state.items():
+        d = dims[key]
+        parts = [t] * mp if d is None else list(torch.chunk(t, mp, dim=d))
+        for c in range(mp):
+            out[c][key] = parts[c]
+    return out
+
+
+def join_params(columns: Sequence[Mapping[str, torch.Tensor]], config: MiniLMConfig) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`split_params` on column 0's device: sharded
+    leaves concatenated along their split dim, replicated leaves from
+    column 0 (the other columns may leave them out)."""
+    dims = split_dims(config)
+    out = {}
+    for key, t in columns[0].items():
+        d = dims[key]
+        out[key] = t if d is None else torch.cat([col[key].to(t.device) for col in columns], dim=d)
+    return out
+
+
+def _embed_tokens(emb: Mapping[str, torch.Tensor], config: MiniLMConfig, compute_dtype: torch.dtype,
+                  input_ids: torch.Tensor, attention_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The embedding stage: ``(hidden [B, L, H] at compute_dtype, mask
+    bias [B, 1, 1, L])``."""
+    from ..ops.scan_kernels import exact_float32
+
+    exact_float32()
+    L = input_ids.shape[1]
+    pos = torch.arange(L, device=input_ids.device)
+    hidden = emb["word"][input_ids.long()] + emb["position"][pos][None] + emb["token_type"][0][None, None]
+    hidden = _layer_norm(hidden, emb["ln_scale"], emb["ln_bias"], config.layer_norm_eps)
+    mask_bias = (1.0 - attention_mask.to(torch.float32))[:, None, None, :] * -1e9
+    return hidden.to(compute_dtype), mask_bias
+
+
+def _encoder_layer(columns: Sequence[Mapping[str, torch.Tensor]], hidden: torch.Tensor,
+                   mask_bias: torch.Tensor, config: MiniLMConfig) -> torch.Tensor:
+    """One encoder layer over model columns: ``columns[c]`` holds column
+    ``c``'s slices of the layer's sharded leaves (on its device) and column
+    0 also the replicated ones; ``hidden`` lies on column 0's device, where
+    the columns' partial sums meet. Every projection is a product at
+    ``hidden``'s dtype plus a bias at that dtype; attention in f32."""
+    home = hidden.device
+    B, Lq = hidden.shape[:2]
+    hd = config.head_dim
+    f32 = torch.float32
+    dt = hidden.dtype
+
+    def proj(x, kernel, bias):
+        return torch.matmul(x, kernel.to(dt)) + bias.to(dt)
+
+    def reduced(partials: list) -> torch.Tensor:
+        total = partials[0]
+        for p in partials[1:]:
+            total = total + p.to(home)
+        return total
+
+    lp0 = columns[0]
+    attn_parts, mlp_in = [], []
+    for lp in columns:
+        h = hidden.to(lp["q_kernel"].device)
+        nh = lp["q_kernel"].shape[-1] // hd
+        q = proj(h, lp["q_kernel"], lp["q_bias"]).reshape(B, Lq, nh, hd)
+        k = proj(h, lp["k_kernel"], lp["k_bias"]).reshape(B, Lq, nh, hd)
+        v = proj(h, lp["v_kernel"], lp["v_bias"]).reshape(B, Lq, nh, hd)
+        scores = torch.einsum("bqnd,bknd->bnqk", q.to(f32), k.to(f32))
+        scores = scores / math.sqrt(hd) + mask_bias.to(h.device)
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        ctx = torch.einsum("bnqk,bknd->bqnd", probs.to(f32), v.to(f32)).to(dt)
+        attn_parts.append(torch.matmul(ctx.reshape(B, Lq, nh * hd), lp["o_kernel"].to(dt)))
+    attn_out = reduced(attn_parts) + lp0["o_bias"].to(dt)
+    hidden = _layer_norm(
+        hidden.to(f32) + attn_out.to(f32), lp0["attn_ln_scale"], lp0["attn_ln_bias"],
+        config.layer_norm_eps,
+    ).to(dt)
+    for lp in columns:
+        h = hidden.to(lp["wi_kernel"].device)
+        inter = proj(h, lp["wi_kernel"], lp["wi_bias"])
+        inter = torch.nn.functional.gelu(inter.to(f32), approximate="tanh").to(dt)
+        mlp_in.append(torch.matmul(inter, lp["wo_kernel"].to(dt)))
+    mlp_out = reduced(mlp_in) + lp0["wo_bias"].to(dt)
+    return _layer_norm(
+        hidden.to(f32) + mlp_out.to(f32), lp0["mlp_ln_scale"], lp0["mlp_ln_bias"],
+        config.layer_norm_eps,
+    ).to(dt)
+
+
+def _pool(hidden: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+          token_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked mean pool (SIF-weighted with ``token_weights [vocab]``) of f32
+    hidden states, then L2 normalise → ``[B, H]``."""
+    mask = attention_mask.to(torch.float32)
+    if token_weights is not None:
+        mask = mask * token_weights.to(torch.float32)[input_ids.long()]
+    mask = mask[:, :, None]
+    summed = (hidden * mask).sum(dim=1)
+    counts = torch.clamp(mask.sum(dim=1), min=1e-9)
+    pooled = summed / counts
+    norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+    return pooled / torch.clamp(norm, min=1e-12)
+
+
+def tp_sentence_embeddings(
+    columns: Sequence[Mapping[str, torch.Tensor]],
+    config: MiniLMConfig,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """:meth:`MiniLM.sentence_embeddings` (mean pooling) with the model
+    axis split over ``columns`` (:func:`split_params`, each column on its
+    device; column 0 holds the replicated leaves and the inputs lie on its
+    device): ``[B, H]`` f32 on column 0's device, with gradients where the
+    columns' tensors require them. One column computes what the model does."""
+    emb = {k.split(".", 1)[1]: t for k, t in columns[0].items() if k.startswith("embeddings.")}
+    hidden, mask_bias = _embed_tokens(emb, config, compute_dtype, input_ids, attention_mask)
+    names = [k for k in columns[0] if k.startswith("layers.")]
+    for i in range(config.num_layers):
+        layer = [{k.split(".", 1)[1]: col[k][i] for k in names if k in col} for col in columns]
+        hidden = _encoder_layer(layer, hidden, mask_bias, config)
+    return _pool(hidden.to(torch.float32), input_ids, attention_mask)
+
+
 class MiniLM(nn.Module):
     """The encoder; parameters in the JAX package's stacked layout."""
 
@@ -230,53 +404,15 @@ class MiniLM(nn.Module):
         self.load_state_dict({k: v.to(torch.float32) for k, v in state.items()})
         return self
 
-    def _proj(self, x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        dt = x.dtype
-        return torch.matmul(x, kernel.to(dt)) + bias.to(dt)
-
-    def _encoder_layer(self, hidden: torch.Tensor, mask_bias: torch.Tensor, i: int) -> torch.Tensor:
-        c = self.config
-        lp = {name: p[i] for name, p in self.layers.items()}
-        B, Lq, H = hidden.shape
-        nh, hd = c.num_heads, c.head_dim
-        f32 = torch.float32
-        q = self._proj(hidden, lp["q_kernel"], lp["q_bias"]).reshape(B, Lq, nh, hd)
-        k = self._proj(hidden, lp["k_kernel"], lp["k_bias"]).reshape(B, Lq, nh, hd)
-        v = self._proj(hidden, lp["v_kernel"], lp["v_bias"]).reshape(B, Lq, nh, hd)
-        scores = torch.einsum("bqnd,bknd->bnqk", q.to(f32), k.to(f32))
-        scores = scores / math.sqrt(hd) + mask_bias
-        probs = torch.softmax(scores, dim=-1).to(hidden.dtype)
-        ctx = torch.einsum("bnqk,bknd->bqnd", probs.to(f32), v.to(f32)).to(hidden.dtype)
-        attn_out = self._proj(ctx.reshape(B, Lq, H), lp["o_kernel"], lp["o_bias"])
-        hidden = _layer_norm(
-            hidden.to(f32) + attn_out.to(f32), lp["attn_ln_scale"],
-            lp["attn_ln_bias"], c.layer_norm_eps,
-        ).to(hidden.dtype)
-        inter = self._proj(hidden, lp["wi_kernel"], lp["wi_bias"])
-        inter = torch.nn.functional.gelu(inter.to(f32), approximate="tanh").to(hidden.dtype)
-        mlp_out = self._proj(inter, lp["wo_kernel"], lp["wo_bias"])
-        return _layer_norm(
-            hidden.to(f32) + mlp_out.to(f32), lp["mlp_ln_scale"],
-            lp["mlp_ln_bias"], c.layer_norm_eps,
-        ).to(hidden.dtype)
-
     def hidden_states(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """Token-level hidden states ``[B, L, H]`` (f32), recorded for
         autograd where a parameter requires gradients (training);
         :meth:`forward` is the same under ``no_grad``."""
-        from ..ops.scan_kernels import exact_float32
-
-        exact_float32()
-        c = self.config
-        emb = self.embeddings
-        L = input_ids.shape[1]
-        pos = torch.arange(L, device=input_ids.device)
-        hidden = emb["word"][input_ids.long()] + emb["position"][pos][None] + emb["token_type"][0][None, None]
-        hidden = _layer_norm(hidden, emb["ln_scale"], emb["ln_bias"], c.layer_norm_eps)
-        hidden = hidden.to(self.compute_dtype)
-        mask_bias = (1.0 - attention_mask.to(torch.float32))[:, None, None, :] * -1e9
-        for i in range(c.num_layers):
-            hidden = self._encoder_layer(hidden, mask_bias, i)
+        hidden, mask_bias = _embed_tokens(self.embeddings, self.config, self.compute_dtype,
+                                          input_ids, attention_mask)
+        for i in range(self.config.num_layers):
+            layer = {name: p[i] for name, p in self.layers.items()}
+            hidden = _encoder_layer([layer], hidden, mask_bias, self.config)
         return hidden.to(torch.float32)
 
     def sentence_embeddings(
@@ -287,16 +423,8 @@ class MiniLM(nn.Module):
         when ``token_weights [vocab]`` is given), then L2 normalise; with
         gradients as :meth:`hidden_states` has them. :meth:`encode` is the
         same under ``no_grad``."""
-        hidden = self.hidden_states(input_ids, attention_mask)
-        mask = attention_mask.to(torch.float32)
-        if token_weights is not None:
-            mask = mask * token_weights.to(torch.float32)[input_ids.long()]
-        mask = mask[:, :, None]
-        summed = (hidden * mask).sum(dim=1)
-        counts = torch.clamp(mask.sum(dim=1), min=1e-9)
-        pooled = summed / counts
-        norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
-        return pooled / torch.clamp(norm, min=1e-12)
+        return _pool(self.hidden_states(input_ids, attention_mask), input_ids, attention_mask,
+                     token_weights)
 
     @torch.no_grad()
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:

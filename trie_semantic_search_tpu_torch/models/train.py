@@ -22,9 +22,10 @@ MiniLM init into a corpus-adapted encoder with no downloaded weights:
   when they do not lower probe retrieval; its snapshot of the init is a
   copy, since AdamW updates the parameters in place.
 * :func:`select_pooling_guarded`: mean or SIF pooling on probe merit.
-
-The JAX package's ``make_sharded_train_step`` (training over the device
-mesh of :mod:`..parallel`) comes with ROADMAP.md §1 slice 5b.
+* :func:`make_sharded_train_step`: the same step with data parallelism over
+  the ``data`` axis of a :mod:`..parallel` mesh and tensor parallelism over
+  its ``model`` axis (the leaves :func:`.minilm.param_partition_specs`
+  names), also across processes (:func:`..parallel.mesh.make_distributed_mesh`).
 """
 
 from __future__ import annotations
@@ -40,7 +41,19 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .minilm import count_token_ids, sif_weights_from_counts
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, all_gather_shards, batch_sharding
+from .minilm import (
+    MiniLM,
+    MiniLMConfig,
+    check_model_parallel,
+    count_token_ids,
+    join_params,
+    leaf_keys,
+    params_from_jax,
+    sif_weights_from_counts,
+    split_params,
+    tp_sentence_embeddings,
+)
 from .quality import build_probes, evaluate_embedder_direct
 
 _log = logging.getLogger("tss_torch.train")
@@ -71,12 +84,14 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torc
     """``optax.clip_by_global_norm`` in place: ``g_norm = sqrt(Σ‖g‖²)``;
     the gradients are kept when ``g_norm < max_norm`` and become
     ``g / g_norm * max_norm`` otherwise (no epsilon, unlike
-    ``torch.nn.utils.clip_grad_norm_``). Returns ``g_norm``, without a
-    host sync."""
-    g_norm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in grads))
-    keep = g_norm < max_norm
+    ``torch.nn.utils.clip_grad_norm_``). Returns ``g_norm`` on the first
+    gradient's device (the leaves may lie on several), without a host
+    sync."""
+    dev = grads[0].device
+    g_norm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))).to(dev) for g in grads))
     for g in grads:
-        g.copy_(torch.where(keep, g, g / g_norm.to(g.dtype) * max_norm))
+        n = g_norm.to(g.device)
+        g.copy_(torch.where(n < max_norm, g, g / n.to(g.dtype) * max_norm))
     return g_norm
 
 
@@ -198,6 +213,164 @@ def train_step(
     loss, acc = loss_and_grads(model, batch, temperature)
     optimizer.step()
     return loss, acc
+
+
+# ---------------------------------------------------------------------------
+# The sharded step (data and tensor parallel over a mesh)
+# ---------------------------------------------------------------------------
+
+#: the batch of a sharded step (the JAX step's ``in_shardings`` names these)
+SHARDED_BATCH_KEYS = ("ids_a", "mask_a", "ids_b", "mask_b")
+
+
+class ShardedTrainState:
+    """Parameters and optimizer state of :class:`ShardedTrainStep`: per
+    mesh column ``c``, ``columns[c]`` holds that column's slices of the
+    sharded leaves (:func:`.minilm.split_params`) as f32 parameters on the
+    device of cell (this process's first data row, ``c``); the replicated
+    leaves live once, in column 0. ``optimizer`` (the clip, AdamW and the
+    schedule of :class:`Optimizer`) holds a moment pair per slice, so the
+    clip's global norm counts every replicated leaf once."""
+
+    def __init__(self, columns: list[dict[str, torch.Tensor]], config: MiniLMConfig,
+                 compute_dtype: torch.dtype, optimizer_cfg: TrainConfig):
+        self.config = config
+        self.compute_dtype = compute_dtype
+        self.columns = [{k: torch.nn.Parameter(t) for k, t in col.items()} for col in columns]
+        self.optimizer = Optimizer(optimizer_cfg, self)
+
+    def leaves(self) -> list[tuple[str, torch.nn.Parameter]]:
+        """``(key, parameter)`` in the parameter tree's leaf order, a
+        sharded leaf's slices in column order (``key@c``)."""
+        out = []
+        for key in leaf_keys(self.config):
+            held = [(c, col[key]) for c, col in enumerate(self.columns) if key in col]
+            out.extend((key if len(held) == 1 else f"{key}@{c}", p) for c, p in held)
+        return out
+
+
+class ShardedTrainStep:
+    """One InfoNCE step over ``mesh`` (the port's ``make_sharded_train_step``).
+
+    The batch (``ids_a``, ``mask_a``, ``ids_b``, ``mask_b`` ``[B, L]``, the
+    same on every process) splits over the data axis (:func:`..parallel.
+    mesh.batch_sharding`). Each local data row encodes its block with its
+    columns' parameter slices (:func:`.minilm.tp_sentence_embeddings`); the
+    row's replicas are differentiable copies of the state's slices, so
+    their gradients sum back into the state. The embeddings of every row
+    meet in data order on this process's first device
+    (:func:`..parallel.mesh.all_gather_shards`: across processes a
+    ``torch.distributed.nn.functional.all_gather``) for the
+    symmetric loss of the whole batch. That gather's backward sums over
+    the processes, which all hold the same loss, so each backpropagates
+    its loss divided by the process count; the gradients of each process's
+    rows are then summed over the processes. The optimizer clips by the
+    global norm and steps AdamW with the warmup-cosine factor, the same on
+    every process."""
+
+    def __init__(self, mesh: Mesh, model_config: MiniLMConfig, optimizer_cfg: TrainConfig,
+                 temperature: float = 0.05):
+        self.mesh = mesh
+        self.config = model_config
+        self.optimizer_cfg = optimizer_cfg
+        self.temperature = temperature
+        self.split = batch_sharding(mesh)
+        check_model_parallel(model_config, mesh.shape[MODEL_AXIS])
+
+    def init(self, model: MiniLM) -> ShardedTrainState:
+        """The state of ``model``'s parameters (copied), at its compute dtype."""
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        return self._state(params, model.compute_dtype)
+
+    def init_from_jax(self, tree, compute_dtype: torch.dtype = torch.bfloat16) -> ShardedTrainState:
+        """The state of a JAX parameter tree (through :func:`.minilm.params_from_jax`)."""
+        return self._state(params_from_jax(tree), compute_dtype)
+
+    def _state(self, params: dict, compute_dtype: torch.dtype) -> ShardedTrainState:
+        home = self.mesh.local_data_rows[0]
+        cols = split_params(params, self.config, self.mesh.shape[MODEL_AXIS])
+        placed = [
+            {k: t.to(self.mesh.devices[home][c], torch.float32, copy=True)
+             for k, t in col.items() if c == 0 or t is not params[k]}
+            for c, col in enumerate(cols)
+        ]
+        return ShardedTrainState(placed, self.config, compute_dtype, self.optimizer_cfg)
+
+    def gather(self, state: ShardedTrainState, device: DeviceLike = None) -> MiniLM:
+        """The state's parameters as a :class:`MiniLM` on ``device``
+        (default: this process's first device)."""
+        dev = self.mesh.first_device if device is None else resolve_device(device)
+        full = {k: t.detach() for k, t in join_params(state.columns, self.config).items()}
+        return MiniLM(self.config, device=dev, compute_dtype=state.compute_dtype).load_params(full)
+
+    def _replicas(self, state: ShardedTrainState, r: int) -> list[dict[str, torch.Tensor]]:
+        """The state's columns on data row ``r``'s devices (differentiable
+        copies where a cell's device differs from the state's)."""
+        return [{k: p if p.device == d else p.to(d) for k, p in col.items()}
+                for col, d in zip(state.columns, self.mesh.devices[r])]
+
+    def _sum_over_processes(self, grads: list[torch.Tensor]) -> None:
+        """Each gradient summed over the job's processes, in place."""
+        import torch.distributed as dist
+
+        stage = self.mesh.first_device if self.mesh.backend == "nccl" else torch.device("cpu")
+        flat = torch.cat([g.reshape(-1).to(stage) for g in grads])
+        dist.all_reduce(flat, group=self.mesh.group)
+        off = 0
+        for g in grads:
+            g.copy_(flat[off : off + g.numel()].view_as(g))
+            off += g.numel()
+
+    def __call__(self, state: ShardedTrainState, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """One step in place on ``state``; returns ``(loss, accuracy)`` of
+        the whole batch, the same on every process."""
+        mesh = self.mesh
+        if set(batch) != set(SHARDED_BATCH_KEYS):
+            raise ValueError(f"a sharded batch holds exactly {SHARDED_BATCH_KEYS}, got {sorted(batch)}")
+        B = int(batch["ids_a"].shape[0])
+        dp = mesh.shape[DATA_AXIS]
+        if B % dp:
+            raise ValueError(f"batch {B} does not divide over the {dp} data rows")
+        blocks = {k: self.split(torch.as_tensor(v)) for k, v in batch.items()}
+        for _, p in state.leaves():
+            p.grad = None
+        home = mesh.first_device
+        emb_a, emb_b = [], []
+        for r in mesh.local_data_rows:
+            cols = self._replicas(state, r)
+            for side, out in (("a", emb_a), ("b", emb_b)):
+                e = tp_sentence_embeddings(cols, self.config, blocks[f"ids_{side}"][r],
+                                           blocks[f"mask_{side}"][r], state.compute_dtype)
+                out.append(e.to(home))
+        # every data row's embeddings, in data order (a row block per shard)
+        a = all_gather_shards(mesh, torch.stack(emb_a)).reshape(B, -1)
+        b = all_gather_shards(mesh, torch.stack(emb_b)).reshape(B, -1)
+        loss, acc = info_nce_loss(a, b, self.temperature)
+        (loss / mesh.world_size).backward()
+        grads = []
+        for _, p in state.leaves():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        if mesh.distributed:
+            self._sum_over_processes(grads)
+        state.optimizer.step()
+        return loss.detach(), acc
+
+
+def make_sharded_train_step(
+    mesh: Mesh,
+    model_config: MiniLMConfig,
+    optimizer_cfg: TrainConfig,
+    temperature: float = 0.05,
+) -> ShardedTrainStep:
+    """The train step with explicit dp×tp sharding over ``mesh`` (the JAX
+    package's ``make_sharded_train_step``): build its state with
+    ``step.init(model)`` or ``step.init_from_jax(tree)``, run
+    ``loss, acc = step(state, batch)``, and read the parameters back with
+    ``step.gather(state)``. Raises ``ValueError`` when the model axis does
+    not divide the heads and the FFN's intermediate size."""
+    return ShardedTrainStep(mesh, model_config, optimizer_cfg, temperature)
 
 
 # ---------------------------------------------------------------------------

@@ -3,11 +3,14 @@
 Port of ``trie_semantic_search_tpu/parallel/collectives.py``. The JAX
 package runs one ``shard_map`` program per call: every chip scores its
 corpus shard, keeps a shard-local top-k, and an ``all_gather`` brings the
-``S·k`` lists to every chip for the final merge. Here one process issues
-each shard's stage on that shard's device, in shard order, then copies each
-shard's ``[B, k]`` lists to the mesh's first device and merges there; the
-results are wanted on one device only, since the caller copies them to the
-host.
+``S·k`` lists to every chip for the final merge. Here each process issues
+the stages of the shards it owns on their devices, in shard order, then
+copies each local shard's ``[B, k]`` lists to its first local device; on a
+mesh across processes those lists are all-gathered over the job's process
+group (:func:`.mesh.all_gather_shards`), so that every process merges the
+same ``S·k`` lists in global shard order, and so returns bitwise what a
+single-process mesh of the same shape returns. The results are wanted on
+one device per process, since the caller copies them to the host.
 
 Each stage is the port's single-device one (:mod:`..ops.hybrid`, the
 kernel wrappers of :mod:`..ops.scan_kernels`) run on the shard's own rows,
@@ -44,7 +47,7 @@ from ..ops.hybrid import (
 from ..ops.scan_kernels import TILE_N, exact_float32, fused_scan_topk
 from ..ops.scoring import cosine_scores, cosine_scores_int8
 from ..ops.topk import exact_topk, fast_topk, merge_topk
-from .mesh import DATA_AXIS, Mesh, replicate, shard_leading, shard_rows
+from .mesh import DATA_AXIS, Mesh, all_gather_shards, replicate, shard_leading, shard_rows
 
 Sharded = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -87,8 +90,9 @@ def _shard(s: int, device: torch.device):
         yield
 
 
-def _blocks(x: Sharded, mesh: Mesh, leading: bool = False) -> list[torch.Tensor]:
-    """A sharded input as its per-shard blocks."""
+def _blocks(x: Sharded, mesh: Mesh, leading: bool = False) -> list[Optional[torch.Tensor]]:
+    """A sharded input as its per-shard blocks (``None`` where another
+    process owns the shard)."""
     if isinstance(x, torch.Tensor):
         return shard_leading(x, mesh) if leading else shard_rows(x, mesh)
     blocks = list(x)
@@ -97,16 +101,23 @@ def _blocks(x: Sharded, mesh: Mesh, leading: bool = False) -> list[torch.Tensor]
     return blocks
 
 
+def _local_block(blocks: list, mesh: Mesh) -> torch.Tensor:
+    """The block of this process's first shard (every shard's has the same
+    shape)."""
+    return blocks[mesh.local_data_rows[0]]
+
+
 def _gather(mesh: Mesh, per_shard: list[tuple[torch.Tensor, ...]]) -> tuple[torch.Tensor, ...]:
-    """The shards' outputs on the mesh's first device, stacked shard-major
+    """The outputs of every shard (``per_shard``: this process's, in its
+    shard order) on its first local device, stacked in global shard order
     (``[S, ...]`` each): the port's ``all_gather``. Called after every
-    shard's work is issued."""
+    local shard's work is issued."""
     dst = mesh.first_device
     moved = []
-    for s, outs in enumerate(per_shard):
+    for s, outs in zip(mesh.local_data_rows, per_shard):
         with _on(mesh.data_devices[s]):
             moved.append(tuple(t.to(dst, non_blocking=True) for t in outs))
-    return tuple(torch.stack(parts) for parts in zip(*moved))
+    return tuple(all_gather_shards(mesh, torch.stack(parts)) for parts in zip(*moved))
 
 
 def _dedup_by_case_sorted(values: torch.Tensor, cases: torch.Tensor) -> torch.Tensor:
@@ -199,7 +210,8 @@ def _gather_merge_lexical(
 def _merge_on_first(mesh: Mesh, per_shard, lexical: tuple, k: int):
     """Gather the shards' ``(v, cases, rows)`` and merge them with the
     lexical list (``lexical``: the replicated arguments of
-    :func:`_gather_merge_lexical` after ``rows``) on the first device."""
+    :func:`_gather_merge_lexical` after ``rows``) on the first local
+    device."""
     with record_function("sharded merge"):
         v, cases, rows = _gather(mesh, per_shard)
         dst = mesh.first_device
@@ -244,12 +256,13 @@ def sharded_fused_topk(
     cq = _blocks(corpus_q, mesh)
     cs, ccase, ccourt, cdate = (_blocks(x, mesh) for x in (corpus_scale, chunk_case,
                                                            chunk_court, chunk_date))
-    shard_n = cq[0].shape[0]
+    shard_n = _local_block(cq, mesh).shape[0]
     n_real = shard_n * S if n_valid is None else int(n_valid)
     kf = min(max(k * max(1, overfetch), k), shard_n)
     reps = [replicate(t, mesh) for t in (query_emb, court_table, date_lo, date_hi, min_similarity)]
     per_shard = []
-    for s, dev in enumerate(mesh.data_devices):
+    for s in mesh.local_data_rows:
+        dev = mesh.data_devices[s]
         q, ctable, dlo, dhi, msim = (r[s] for r in reps)
         with _shard(s, dev):
             q8, q_scale = quantize_queries(q)
@@ -332,15 +345,16 @@ def sharded_partitioned_topk(
     pint8, pscale, pcw, pcb, pdt = (_blocks(x, mesh, leading=True)
                                     for x in (part_int8, part_scale, part_cword, part_cbit, part_date))
     bf16, ccase = _blocks(corpus_bf16, mesh), _blocks(chunk_case, mesh)
-    shard_n = bf16[0].shape[0]
-    m = prows[0].shape[1]
+    shard_n = _local_block(bf16, mesh).shape[0]
+    m = _local_block(prows, mesh).shape[1]
     np_eff = min(nprobe, centroids.shape[0])
     ksem = min(max(k * max(1, overfetch), k), np_eff * m)
     W = min(ksem * max(1, rescore_factor), np_eff * m)
     reps = [replicate(t, mesh) for t in (query_emb, centroids, court_table, date_lo, date_hi,
                                           min_similarity)]
     per_shard = []
-    for s, dev in enumerate(mesh.data_devices):
+    for s in mesh.local_data_rows:
+        dev = mesh.data_devices[s]
         q, cent, ctable, dlo, dhi, msim = (r[s] for r in reps)
         with _shard(s, dev):
             sem_v, local_rows = partitioned_semantic_topk(
@@ -394,11 +408,13 @@ def sharded_layout_brute_topk(
     pint8, pscale, scourt, sdate = (_blocks(x, mesh, leading=True)
                                     for x in (part_int8, part_scale, slot_court, slot_date))
     bf16, ccase = _blocks(corpus_bf16, mesh), _blocks(chunk_case, mesh)
-    shard_n = bf16[0].shape[0]
-    ksem = min(max(k * max(1, overfetch), k), int(prows[0].shape[0]) * int(prows[0].shape[1]))
+    shard_n = _local_block(bf16, mesh).shape[0]
+    P, m = _local_block(prows, mesh).shape
+    ksem = min(max(k * max(1, overfetch), k), int(P) * int(m))
     reps = [replicate(t, mesh) for t in (query_emb, court_table, date_lo, date_hi, min_similarity)]
     per_shard = []
-    for s, dev in enumerate(mesh.data_devices):
+    for s in mesh.local_data_rows:
+        dev = mesh.data_devices[s]
         q, ctable, dlo, dhi, msim = (r[s] for r in reps)
         with _shard(s, dev):
             sem_v, local_rows = layout_brute_semantic_topk(
@@ -416,13 +432,15 @@ def sharded_layout_brute_topk(
 
 def _sharded_scan_topk(mesh: Mesh, queries, blocks: list, score, k: int,
                        n_valid: Optional[int], recall_target: float):
-    """Each shard's ``score(q, s)`` scores, pad rows masked, a shard-local
-    top-k with global ids, then the exact merge on the first device."""
-    shard_n = blocks[0].shape[0]
+    """Each local shard's ``score(q, s)`` scores, pad rows masked, a
+    shard-local top-k with global ids, then the exact merge of every
+    shard's list on the first local device."""
+    shard_n = _local_block(blocks, mesh).shape[0]
     n_real = shard_n * len(blocks) if n_valid is None else int(n_valid)
     qs = replicate(queries, mesh)
     per_shard = []
-    for s, dev in enumerate(mesh.data_devices):
+    for s in mesh.local_data_rows:
+        dev = mesh.data_devices[s]
         with _shard(s, dev):
             scores = score(qs[s], s)
             glob = s * shard_n + torch.arange(shard_n, dtype=torch.int32, device=dev)

@@ -23,7 +23,10 @@ the mesh's devices and the modes are
     and, past the same break-even, the stream through
     :func:`..parallel.collectives.sharded_layout_brute_topk`;
 
-the shard-local lists merge on the mesh's first device.
+the shard-local lists merge on the mesh's first device. On a mesh across
+processes (:func:`..parallel.mesh.make_distributed_mesh`) every process
+builds from the same host rows, keeps its own shards' blocks, and merges
+the all-gathered lists, so each returns the same answers.
 
 Every threshold keeps its JAX value (``PARTITIONED_MIN_VECTORS``, the
 break-even rule, ``TILE_B``, ``ESCALATE_BUCKET``, ``pick_num_chunks``), so
@@ -208,12 +211,11 @@ class FusedHybridSearch:
         self.case_date = torch.tensor(np.asarray(self.columns.dates, np.int32), device=dev)
 
         if self.ann_mode == "sharded":
-            self.corpus_q, self.corpus_scale = [], []
-            for s in range(S):
+            self.corpus_q, self.corpus_scale = [None] * S, [None] * S
+            for s in mesh.local_data_rows:
                 q, scale = quantize_int8(shard_block(padded, mesh, s))
                 scale[max(0, n - s * shard_n):] = 0.0  # pad rows score 0 (n_valid masks them too)
-                self.corpus_q.append(q)
-                self.corpus_scale.append(scale)
+                self.corpus_q[s], self.corpus_scale[s] = q, scale
             return
 
         # per-shard partition blocks against global centroids (the ANN's,
@@ -243,6 +245,7 @@ class FusedHybridSearch:
             slot_court_ids(parts["part_rows"], parts["part_cword"], parts["part_cbit"]), mesh)
         self.sp_bf16 = shard_rows(padded, mesh, torch.bfloat16)
         self.sp_m = int(parts["m"])
+        self.sp_dim = int(padded.shape[1])
         #: seconds of the per-shard layout build by stage
         self.sp_build_seconds = dict(parts["seconds"])
         P = centroids.shape[0]
@@ -291,7 +294,7 @@ class FusedHybridSearch:
         dev = self.device
         t = lambda a: torch.tensor(np.asarray(a), device=dev)  # noqa: E731
         if self.ann_mode == "sharded-partitioned":
-            upk, _ = resolve_probe_kernel(recall_target, self.sp_m, int(self.sp_int8[0].shape[-1]))
+            upk, _ = resolve_probe_kernel(recall_target, self.sp_m, self.sp_dim)
             out = sharded_layout_brute_topk(
                 self.mesh, t(np.asarray(q_np, np.float32)), self.sp_rows, self.sp_int8,
                 self.sp_scale, self.sp_court, self.sp_date, self.sp_bf16, self.chunk_case,
@@ -382,7 +385,7 @@ class FusedHybridSearch:
         if self.ann_mode == "partitioned":
             D = int(self.ann.part_int8.shape[-1])
         else:
-            D = int(self.sp_int8[0].shape[-1])
+            D = self.sp_dim
         W = self.trie_index.search_batch_rows(["__warmup__"])[0].shape[1]
         hostq = dict(
             q=np.zeros((1, D), np.float32),
@@ -529,7 +532,7 @@ class FusedHybridSearch:
         q = torch.tensor(hostq["q"], device=self.device)
         shared = self._sharded_shared(*(hostq[n] for n in names))
         if self.ann_mode == "sharded-partitioned":
-            upk, _ = resolve_probe_kernel(recall_target, self.sp_m, int(self.sp_int8[0].shape[-1]))
+            upk, _ = resolve_probe_kernel(recall_target, self.sp_m, self.sp_dim)
             out = sharded_partitioned_topk(
                 self.mesh, q, self.sp_centroids, self.sp_rows, self.sp_int8, self.sp_scale,
                 self.sp_cword, self.sp_cbit, self.sp_date, self.sp_bf16, self.chunk_case,
@@ -540,9 +543,8 @@ class FusedHybridSearch:
                 hostq, use_filters, k, overfetch, recall_target, *_host(out), B0,
             )
             return v[:B0], i[:B0], cases[:B0], src[:B0]
-        scan_mode, _ = resolve_scan_kernel(
-            recall_target, int(self.corpus_q[0].shape[0]), self.corpus_q[0].device
-        )
+        first = self.corpus_q[self.mesh.local_data_rows[0]]
+        scan_mode, _ = resolve_scan_kernel(recall_target, int(first.shape[0]), first.device)
         out = sharded_fused_topk(
             self.mesh, q, self.corpus_q, self.corpus_scale, self.chunk_case,
             self.chunk_court, self.chunk_date, *shared, k=k, n_valid=self.num_vectors,
