@@ -8,7 +8,12 @@ Run from the repository root with no arguments:
 What it does, in order (any failure exits non-zero before the last line):
 
 1. Device: requires CUDA (no CPU path); prints the card's name and power
-   limit (``nvidia-smi``), ``torch.version.cuda`` and the kernel build time.
+   limit (``nvidia-smi``), ``torch.version.cuda``, the kernel build time
+   and that of the native host library (``g++``, built beside ``nvcc``;
+   a run without it fails). Every trie build of phases 6, 6a, 6b, 6c and
+   11 must run on that library: phases 6 and 6b read the builders'
+   backend, 6a also its spill's CSR route, and the CLI subprocesses of 6a,
+   6c and 11 the ``trie builder: native`` line of their logs.
    A child process starts writing the case store (phase 9) at once.
 2. Small-input reference: the same small partitioned index served on the
    CPU (plain versions) and on the card (kernels) must agree.
@@ -141,6 +146,20 @@ What it does, in order (any failure exits non-zero before the last line):
    in-memory indexes returns, name queries led by a case-name or exact
    hit. Prints each stage's time (vocab, text processing and trie inserts,
    embedding in chunks/s, trie freeze, ANN build, save, load).
+6P. P, the rest of the public surface at full width: ``brute_force_topk``
+   over the first 1,048,576 rows of phase 3's corpus (drawn on the card
+   again) for 64 queries (rows plus noise) at k=32, also at recall target
+   0.95, equal to ``exact_topk(cosine_scores(...))``; ``chunked_topk`` (8
+   chunks) over those scores equal to ``exact_topk``; ``segment_max_dedup``
+   of the top-k by case on the card equal to its CPU result; over phase
+   6's three tries, ``FrozenTrie.search_batch`` and ``walk_and_gather``
+   (with the postings' weights) on the card equal to
+   ``TrieIndex.search_batch_rows`` for 64 names, words, citations and
+   phrases, ``FrozenTrie.walk`` equal to their nodes, the unranked
+   ``walk_and_gather`` on the card equal to the CPU's; and
+   ``VectorIndex.generate_embedding`` of 8 texts (cold memo) equal to
+   ``generate_embeddings([text])`` bitwise and within cosine 0.999 of its
+   row of one 8-text batch. Each op's time.
 6M. M4, ``load_artifacts(cfg, mesh=)`` of phase 6's artifacts on the
    mesh of 5c (the vector index a ``ShardedCorpusIndex`` rebuilt from the
    saved vectors) and ``SearchEngine(..., mesh=)``: ``search_batch`` at
@@ -313,7 +332,12 @@ prints the device time of each at B=256, k=32 over the corpus of phase 3.
 ``--only stream`` runs phases 1, 2, 5, 5b, 6 and 6a: the builds and their
 kernel checks, with no kernel timing, serving, store or engine.
 ``--only train`` runs phases 1, 2 and 6c: pretraining with its own store
-(T3, the sharded step, included). ``--only mesh`` runs phases 1, 2, 3, 5
+(T3, the sharded step, included). ``--only build`` runs phases 1, 2, 5
+(without the case-level tuner and S1), 6 and 6P. Phase 6P runs after
+phase 6 in every mode that runs phase 6. Before the last two lines a line
+collects the host figures the native library moves (phase 6's text + tries
+and trie freeze, 6a's CSR pass, 11's reindex, 5b's and 6a's anonymous RSS
+peaks). ``--only mesh`` runs phases 1, 2, 3, 5
 (without the case-level tuner and S1), 5c (M5, the mesh across processes,
 included), 6 and 6M: the sharded phases and the builds they serve.
 """
@@ -1314,6 +1338,23 @@ def logged_records(name: str):
         logger.setLevel(level)
 
 
+def trie_backends(text: str) -> list[str]:
+    """The backend of each trie build a log records (its ``trie builder:
+    <backend>`` lines), in order."""
+    return [ln.split("trie builder: ", 1)[1].split()[0] for ln in text.splitlines() if "trie builder: " in ln]
+
+
+def require_native(what: str, backends) -> list[str]:
+    """Fail unless every trie build in ``backends`` (one at least) ran the
+    native host library: a build that fell back to the Python builder is a
+    failed run."""
+    backends = list(backends)
+    if not backends or any(b != "native" for b in backends):
+        raise AssertionError(f"{what}: trie builds on {backends or 'no logged backend'}, not the native "
+                             "host library")
+    return backends
+
+
 @contextlib.contextmanager
 def kept_calls(sk, names):
     """While open, each call of the launchers ``names`` of ``sk`` (which
@@ -1879,7 +1920,7 @@ def pipeline_config(work: Path):
     return cfg
 
 
-def pipeline_phase(torch, np, seed: int, work: Path) -> dict:
+def pipeline_phase(torch, np, seed: int, work: Path, keep: dict | None = None) -> dict:
     """Phase B, the build pipeline through the entry points a user calls:
     a sqlite store of ``PIPE_CASES`` fixture cases (four sentences each),
     ``build_indexes(storage, cfg, device="cuda")`` with mean pooling and no
@@ -1887,7 +1928,9 @@ def pipeline_phase(torch, np, seed: int, work: Path) -> dict:
     ``save_artifacts``, ``load_artifacts(cfg, device="cuda")``, then
     ``SearchEngine.search_batch`` at B=8 and 64 over the loaded artifacts,
     which must return what an engine over the in-memory indexes returns,
-    with name queries led by a case-name or exact hit."""
+    with name queries led by a case-name or exact hit. Every trie must
+    have been built by the native host library. ``keep`` receives the
+    in-memory build (phase P reads it)."""
     from trie_semantic_search_tpu_torch.core.types import CaseMetadata, SearchConfig
     from trie_semantic_search_tpu_torch.index.builder import build_indexes, load_artifacts, save_artifacts
     from trie_semantic_search_tpu_torch.search.engine import MatchType, SearchEngine, SearchQuery
@@ -1902,6 +1945,7 @@ def pipeline_phase(torch, np, seed: int, work: Path) -> dict:
     storage = StorageManager(cfg.storage)
     built = build_indexes(storage, cfg, device="cuda")
     torch.cuda.synchronize()
+    out["trie_backend"] = require_native("phase B build_indexes", [built.trie.backend])[0]
     r = built.report
     chunks = built.vector.ann.num_vectors
     if (r.cases, r.content_chunks, chunks) != (PIPE_CASES, CHUNKS_PER_CASE * PIPE_CASES, r.content_chunks):
@@ -1916,7 +1960,8 @@ def pipeline_phase(torch, np, seed: int, work: Path) -> dict:
     log(f"  store of {PIPE_CASES} cases {out['store_s']:.1f} s; build_indexes {r.seconds:.1f} s = vocab "
         f"{r.vocab_seconds:.1f} + text processing and trie inserts {out['text_and_trie_s']:.1f} + embed "
         f"{r.embed_seconds:.1f} ({out['chunks_per_s']:.0f} chunks/s) + trie freeze "
-        f"{out['trie_freeze_s']:.1f} + ANN build {ann_s:.1f} (P={out['partitions']} m={out['capacity']})")
+        f"{out['trie_freeze_s']:.1f} + ANN build {ann_s:.1f} (P={out['partitions']} m={out['capacity']}); "
+        f"trie builder {out['trie_backend']}")
     t0 = time.perf_counter()
     save_artifacts(built, cfg)
     out["save_s"] = time.perf_counter() - t0
@@ -1943,7 +1988,150 @@ def pipeline_phase(torch, np, seed: int, work: Path) -> dict:
         log(f"  search_batch B={B} over the loaded artifacts: {n} results, equal to the in-memory "
             f"engine's, {out[f'search_B{B}_ms']:.1f} ms")
     storage.close()
+    if keep is not None:
+        keep.update(built=built, names=names)
     del in_memory, from_disk, loaded, built
+    torch.cuda.empty_cache()
+    return out
+
+
+#: phase P: rows of phase A's corpus, queries, k; the chunked top-k's
+#: chunks; query batch of the trie checks; texts embedded one by one
+P_ROWS, P_QUERIES, P_K, P_CHUNKS, P_TRIE_B, P_EMBED = 1 << 20, 64, K, 8, 64, 8
+#: phase P: the least cosine between a text embedded alone and its row of
+#: an 8-text batch (bf16 encoder; the batches' shapes differ)
+P_EMBED_MIN_COS = 0.999
+
+
+def surface_phase(torch, np, seed: int, built, names: dict) -> dict:
+    """Phase P, the rest of the public surface on the card at full width:
+    ``brute_force_topk`` over the first ``P_ROWS`` rows of phase A's corpus
+    (:func:`corpus_slabs`, drawn on the card again) for B=64 queries (rows
+    plus noise) at k=32, equal to ``exact_topk(cosine_scores(...))``, also
+    below a recall target of 1; ``chunked_topk`` over those scores equal to
+    ``exact_topk``; ``segment_max_dedup`` of the top-k by case (four rows a
+    case) on the card equal to its CPU result; over phase B's three tries
+    (``built``), ``FrozenTrie.search_batch`` and ``walk_and_gather`` (the
+    module function, with the postings' weights) on the card concatenated
+    equal to ``TrieIndex.search_batch_rows``, the unranked
+    ``walk_and_gather`` on the card equal to the CPU's; and
+    ``VectorIndex.generate_embedding`` with a cold memo equal to
+    ``generate_embeddings([text])`` bitwise and within ``P_EMBED_MIN_COS``
+    of its row of an 8-text batch. Each op's time (CUDA events)."""
+    from trie_semantic_search_tpu_torch.index.trie import TrieIndex, word_tokens
+    from trie_semantic_search_tpu_torch.ops import scoring, topk, trie_kernels
+
+    dev = torch.device("cuda")
+    out: dict = {}
+    t0 = time.perf_counter()
+    parts = []
+    for _, _, v in corpus_slabs(torch, P_PARTS, M_SLOTS, DIM, seed, dev):
+        parts.append(v.reshape(-1, DIM))
+        if sum(x.shape[0] for x in parts) >= P_ROWS:
+            break
+    corpus = torch.cat(parts)[:P_ROWS].contiguous()
+    del parts
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    pick = torch.randint(0, P_ROWS, (P_QUERIES,), generator=g, device=dev)
+    q = scoring.l2_normalize(corpus[pick] + 0.1 * torch.randn((P_QUERIES, DIM), generator=g, device=dev) / DIM**0.5)
+    torch.cuda.synchronize()
+    out["draw_s"] = time.perf_counter() - t0
+
+    bv, bi = scoring.brute_force_topk(q, corpus, P_K)
+    scores = scoring.cosine_scores(q, corpus)
+    ev, ei = topk.exact_topk(scores, P_K)
+    av, ai = scoring.brute_force_topk(q, corpus, P_K, recall_target=0.95)
+    cv, ci = topk.chunked_topk(scores, P_K, num_chunks=P_CHUNKS)
+    if not (torch.equal(bi, ei) and torch.equal(bv, ev) and torch.equal(ai, ei) and torch.equal(av, ev)):
+        raise AssertionError("brute_force_topk differs from exact_topk(cosine_scores(...))")
+    if not (torch.equal(ci, ei) and torch.equal(cv, ev)):
+        raise AssertionError("chunked_topk differs from exact_topk")
+    if not bool((bi == pick[:, None]).any(dim=1).all()):
+        raise AssertionError("a query's own row is not in its brute-force top-k")
+    out["brute_ms"] = cuda_ms(torch, lambda: scoring.brute_force_topk(q, corpus, P_K), 5)
+    out["chunked_ms"] = cuda_ms(torch, lambda: topk.chunked_topk(scores, P_K, num_chunks=P_CHUNKS), 5)
+    out["exact_ms"] = cuda_ms(torch, lambda: topk.exact_topk(scores, P_K), 5)
+    del scores
+
+    seg = (bi // CHUNKS_PER_CASE).to(torch.int32)
+    seg[:, ::7] = -1  # invalid ids
+    n_seg = P_ROWS // CHUNKS_PER_CASE
+    dd = topk.segment_max_dedup(bv, seg, n_seg)
+    dd_cpu = topk.segment_max_dedup(bv.cpu(), seg.cpu(), n_seg)
+    if not torch.equal(dd.cpu(), dd_cpu):
+        raise AssertionError("segment_max_dedup on the card differs from the CPU's")
+    kept = int(torch.isfinite(dd).sum())
+    out.update(dedup_kept=kept, dedup_ms=cuda_ms(torch, lambda: topk.segment_max_dedup(bv, seg, n_seg), 5))
+    log(f"  {P_ROWS} of phase A's rows (D={DIM}) drawn on the card in {out['draw_s']:.1f} s; B={P_QUERIES} "
+        f"k={P_K}: brute_force_topk (also at recall_target 0.95) equal to exact_topk(cosine_scores), "
+        f"{out['brute_ms']:.2f} ms; chunked_topk ({P_CHUNKS} chunks) equal to exact_topk, "
+        f"{out['chunked_ms']:.2f} ms (exact_topk {out['exact_ms']:.2f} ms); segment_max_dedup over "
+        f"{n_seg} cases on the card equal to the CPU's ({kept} of {dd.numel()} kept), {out['dedup_ms']:.3f} ms")
+    del corpus, q, bv, bi, ev, ei, av, ai, cv, ci, dd
+
+    trie = built.trie
+    rng = np.random.default_rng(seed + 13)
+    named = sorted(names)[:8]
+    texts = (texts_for(rng, names, WORDS, P_TRIE_B - 16) + [citation(c) for c in named]
+             + [" ".join(case_text(c).split()[6:10]) for c in named])  # names, words, citations, phrases
+    want_rows, want_valid = trie.search_batch_rows(texts)
+    B = len(texts)
+    Bpad = max(8, 1 << (B - 1).bit_length())
+    pad = [[] for _ in range(Bpad - B)]
+    lower = [word_tokens(t) for t in texts] + pad
+    raw = [t.split() for t in texts] + pad
+    got_r, got_v, mod_r, mod_v, nodes = [], [], [], [], 0
+    for f, toks, prefix in ((trie.name_trie, lower, False), (trie.citation_trie, raw, False),
+                            (trie.content_trie, lower, True)):
+        ids = f.encode_queries(toks, TrieIndex.MAX_QUERY_TOKENS)
+        n, r, v = f.search_batch(ids, 64, prefix, device=dev)
+        if not np.array_equal(f.walk(ids, device=dev), n):
+            raise AssertionError("FrozenTrie.walk differs from search_batch's nodes")
+        a = f.device(dev)
+        mn, mr, mv = trie_kernels.walk_and_gather(
+            None, None, a["edge_targets"], a["post_offsets"], a["post_rows"], a["is_end"],
+            torch.as_tensor(ids, device=dev), 64, keys=(a["edge_keys"], a["key_mult"]),
+            post_weight=a["post_weight"], subtree_end=a["subtree_end"] if prefix else None)
+        got_r.append(r)
+        got_v.append(v)
+        mod_r.append(mr.cpu().numpy())
+        mod_v.append(mv.cpu().numpy())
+        t = lambda x: torch.as_tensor(np.asarray(x))  # noqa: E731
+        cpu = trie_kernels.walk_and_gather(t(f.edge_offsets), t(f.edge_tokens), t(f.edge_targets),
+                                           t(f.post_offsets), t(f.post_case), t(f.is_end), t(ids), 64)
+        card = trie_kernels.walk_and_gather(*(x.to(dev) for x in (
+            t(f.edge_offsets), t(f.edge_tokens), t(f.edge_targets), t(f.post_offsets), t(f.post_case),
+            t(f.is_end), t(ids))), 64)
+        if not all(torch.equal(x.cpu(), y) for x, y in zip(card, cpu)):
+            raise AssertionError("walk_and_gather on the card differs from the CPU's")
+        nodes += int((n >= 0).sum())
+    for rows, valid, what in ((got_r, got_v, "FrozenTrie.search_batch"), (mod_r, mod_v, "walk_and_gather")):
+        if not (np.array_equal(np.concatenate(rows, 1)[:B], want_rows)
+                and np.array_equal(np.concatenate(valid, 1)[:B], want_valid)):
+            raise AssertionError(f"{what} over phase B's tries differs from TrieIndex.search_batch_rows")
+    out.update(trie_queries=B, trie_hits=int(want_valid.sum()), trie_nodes=nodes)
+    log(f"  phase B's three tries, {B} queries: FrozenTrie.search_batch and walk_and_gather (weighted) on "
+        f"the card equal TrieIndex.search_batch_rows ({out['trie_hits']} postings); FrozenTrie.walk equal "
+        "to their nodes; the unranked walk_and_gather on the card equal to the CPU's")
+
+    vec = built.vector
+    etexts = [f"{names[c]} {case_text(c)}" for c in sorted(names)[:P_EMBED]]
+    vec.cache = type(vec.cache)(max_size=1000)
+    ones = [vec.generate_embedding(t) for t in etexts]
+    vec.cache = type(vec.cache)(max_size=1000)
+    singles = [vec.generate_embeddings([t])[0] for t in etexts]
+    vec.cache = type(vec.cache)(max_size=1000)
+    batch = vec.generate_embeddings(etexts)
+    if not all(np.array_equal(a, b) for a, b in zip(ones, singles)):
+        raise AssertionError("generate_embedding differs from generate_embeddings([text])")
+    cos = float(min(float(np.dot(a, b)) for a, b in zip(ones, batch)))
+    diff = float(max(np.abs(a - b).max() for a, b in zip(ones, batch)))
+    if cos < P_EMBED_MIN_COS or any(vec.generate_embedding(t) is None for t in etexts):
+        raise AssertionError(f"generate_embedding vs its row of an {P_EMBED}-text batch: cosine {cos}")
+    out.update(embed_min_cos=cos, embed_max_diff=diff, embedder_stats=vec.embedder.get_stats())
+    log(f"  VectorIndex.generate_embedding of {P_EMBED} texts (cold memo) equal to generate_embeddings([text]) "
+        f"bitwise; against their rows of one {P_EMBED}-text batch: least cosine {cos:.6f} (bound "
+        f"{P_EMBED_MIN_COS}), largest difference {diff:.3g}; Embedder.get_stats {out['embedder_stats']}")
     torch.cuda.empty_cache()
     return out
 
@@ -2065,7 +2253,9 @@ def stream_build_phase(torch, np, sk, work: Path, out_dir: Path) -> tuple[dict, 
                                           out_dir / "s2_build.log")
     at_kill = _Manifest.load(wd / "manifest.json")
     out.update(killed_after_s=t_kill - t0, returncode=rc, kill_shards=len(at_kill.shards),
-               kill_row=at_kill.next_row, kill_chunks=at_kill.chunks)
+               kill_row=at_kill.next_row, kill_chunks=at_kill.chunks,
+               killed_backends=require_native("S2's killed build-index --streaming",
+                                              trie_backends((root / "build.log").read_text())))
     log(f"  build-index --streaming SIGKILLed {out['killed_after_s']:.1f} s after its start (exit "
         f"{rc}); the manifest records {len(at_kill.shards)} shards, watermark row "
         f"{at_kill.next_row}, {at_kill.chunks} chunks; checkpoint {at_kill.trie_ckpt}")
@@ -2081,12 +2271,17 @@ def stream_build_phase(torch, np, sk, work: Path, out_dir: Path) -> tuple[dict, 
 
     sb._write_shard = counted
     with (logged_records("tss_torch.index.tuning") as records,
+          logged_records("tss_torch.spill") as spilled,
           kept_calls(sk, ("probe_candidates_cuda", "gather_rescore_cuda")) as calls):
         sk.reset_launch_counts()
         t_resume = time.perf_counter()
         built = sb.build(resume=True)
         torch.cuda.synchronize()
         launches = dict(sk.LAUNCHES)
+    routes = [m.getMessage().rsplit(", ", 1)[1].rstrip(")") for m in spilled
+              if m.getMessage().startswith("spill finalize")]
+    out["trie_backend"] = require_native("S2's resumed build", [built.trie.backend])[0]
+    out["csr_route"] = require_native("S2's spill CSR pass", routes)[0]
     out["kill_to_resume_s"] = t_resume - t_kill
     out["resume_s"] = time.perf_counter() - t_resume
     r, ann = built.report, built.vector.ann
@@ -2110,7 +2305,9 @@ def stream_build_phase(torch, np, sk, work: Path, out_dir: Path) -> tuple[dict, 
         f"{fin['run_sort']:.2f} s, merge {fin['merge']:.2f} s, CSR {fin['csr']:.2f} s; store fill "
         f"{fin['store_fill']:.2f} s; ANN {fin['ann']:.2f} s (P={out['partitions']} m={out['capacity']}); "
         f"tune {fin.get('tune', 0.0):.2f} s; peak RSS {r.peak_rss_bytes / 2**30:.2f} GiB, anonymous "
-        + (f"{r.peak_anon_rss_bytes / 2**30:.2f} GiB" if r.peak_anon_rss_bytes else "not measured"))
+        + (f"{r.peak_anon_rss_bytes / 2**30:.2f} GiB" if r.peak_anon_rss_bytes else "not measured")
+        + f"; trie builders {out['trie_backend']} (the killed build's {out['killed_backends']}), spill CSR "
+        f"pass {out['csr_route']}")
     oracle_s, steps, settled = tuner_steps(records)
     out.update(sweep=steps, settled=settled, tune_oracle_s=oracle_s,
                rule=check_pick(steps, ann.tuned_nprobe, 0.95, cfg.vector.hnsw.tune_min_recall or None))
@@ -2387,6 +2584,7 @@ def ingest_phase(torch, np, sk, n_cases: int, seed: int, work: Path) -> tuple[di
         built = build_indexes(storage, cfg, tune_recall=ING_TUNE_RECALL, device="cuda")
         torch.cuda.synchronize()
         launches = dict(sk.LAUNCHES)
+    out["trie_backend"] = require_native("phase I build_indexes", [built.trie.backend])[0]
     r, ann = built.report, built.vector.ann
     oracle_s, steps, settled = tuner_steps(records)
     ann_s = sum(ann.build_seconds.values())
@@ -2890,6 +3088,7 @@ def train_phase(torch, np, sk, seed: int, work: Path, out_dir: Path) -> tuple[di
                                            out_dir / "t2_build.log",
                                            extra=("--shard-chunks", str(TRAIN_SHARD_CHUNKS)))
     text = (root / "build.log").read_text()
+    killed_backends = require_native("T2's killed build-index --streaming", trie_backends(text))
     at_kill = _Manifest.load(wd / "manifest.json")
     saved = encoder_sha()
     stamps = [(ln[:19], ln) for ln in text.splitlines() if "pretrain step" in ln or "pooling selection" in ln
@@ -2906,7 +3105,7 @@ def train_phase(torch, np, sk, seed: int, work: Path, out_dir: Path) -> tuple[di
                           logged_steps=[n for n, _ in logged], logged_span_s=span_s,
                           steps_per_s=(logged[-1][0] - logged[0][0]) / span_s if span_s else None,
                           pretrain_report=rep_line.split("streaming-build pretraining: ", 1)[1],
-                          encoder_files=sorted(saved))
+                          encoder_files=sorted(saved), killed_backends=killed_backends)
     log(f"  T2: build-index --streaming --shard-chunks {TRAIN_SHARD_CHUNKS} over the empty vector directory "
         f"SIGKILLed {t2['killed_after_s']:.1f} s after its start (exit {rc}) at {len(at_kill.shards)} shards, "
         f"watermark row {at_kill.next_row} ({at_kill.chunks} chunks); its log stamps pretraining steps "
@@ -2942,7 +3141,8 @@ def train_phase(torch, np, sk, seed: int, work: Path, out_dir: Path) -> tuple[di
         built = sb.build(resume=True)
         torch.cuda.synchronize()
         launches = dict(sk.LAUNCHES)
-    t2.update(kill_to_resume_s=t_resume - t_kill, resume_s=time.perf_counter() - t_resume, launches=launches)
+    t2.update(kill_to_resume_s=t_resume - t_kill, resume_s=time.perf_counter() - t_resume, launches=launches,
+              trie_backend=require_native("T2's resumed build", [built.trie.backend])[0])
     r, ann = built.report, built.vector.ann
     after = encoder_sha()
     quality_path = root / "vec" / "quality.json"
@@ -2970,7 +3170,8 @@ def train_phase(torch, np, sk, seed: int, work: Path, out_dir: Path) -> tuple[di
     log(f"  resumed {t2['kill_to_resume_s']:.1f} s after the kill from row {r.resumed_from_row}: no pretraining, "
         f"the {len(saved)} encoder files' sha256 unchanged; embedded only the {r.embedded_chunks} chunks after "
         f"the watermark of {r.content_chunks} ({r.chunks_per_second:.0f} chunks/s); build {t2['resume_s']:.1f} s; "
-        f"tuned nprobe {ann.tuned_nprobe} in {len(steps)} steps ({t2['rule']}); quality gate {t2['quality_gate']}")
+        f"tuned nprobe {ann.tuned_nprobe} in {len(steps)} steps ({t2['rule']}); quality gate {t2['quality_gate']}; "
+        f"trie builders {t2['trie_backend']} (the killed build's {killed_backends})")
     log(f"  launches on the pretrain_build path {launches}; the tuner's {held_summary(calls)} against the plain "
         f"versions: probe bitwise, rescore within {t2['plain_err']['gather_rescore']:.3g}")
     del calls
@@ -4350,6 +4551,7 @@ def cli_phase(np, seed: int, work: Path, out_dir: Path) -> dict:
     if rc != 0 or "shutting down" not in text:
         raise AssertionError(f"serve exited {rc} on SIGINT; 'shutting down' logged: {'shutting down' in text}")
     rec["update_log"] = next(ln for ln in text.splitlines() if "incremental update:" in ln)
+    rec["reindex_backends"] = require_native("H2's incremental reindex in serve", trie_backends(text))
     rec["fresh"] = fresh.result()
     rec.update(cases_before=before, cases_after=before + H2_NEW_CASES, new_case=new_name,
                quality_gate=dict(mode=quality["mode"], degraded=quality["degraded"],
@@ -4403,6 +4605,8 @@ def cli_fresh_lifecycle(root: Path) -> dict:
         steps[key] = dict(s=sec, out=out.splitlines()[-1] if first is None else
                           f"{first['case_metadata']['name']} ({first['match_type']})")
         log(f"  fresh store: {key} exit 0 in {sec:.1f} s: {steps[key]['out']}")
+        if key.startswith("build-index"):
+            steps[key]["trie_backends"] = require_native(f"H2's {key}", trie_backends(logs[0]))
         if key.startswith("build-index --pretrain"):
             rep = [ln.split("encoder pretraining: ", 1)[1] for ln in logs[0].splitlines()
                    if "encoder pretraining: " in ln]
@@ -4425,7 +4629,7 @@ def cli_fresh_lifecycle(root: Path) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["kernels", "int8-ablations", "stream", "train", "mesh"],
+    ap.add_argument("--only", choices=["kernels", "int8-ablations", "stream", "train", "mesh", "build"],
                     help="kernels: the device, kernel build, small-reference and kernel phases "
                          "only (no index builds, serving, profile, store or engine); "
                          "int8-ablations: the device time of each ablation build of the int8 "
@@ -4434,7 +4638,8 @@ def main() -> int:
                          "serving, store or engine; train: phase T alone (pretraining, its own "
                          "store; the sharded step T3 included) after the kernel build and the small "
                          "reference; mesh: the sharded phases M1-M5 (M5: two processes) after the card "
-                         "state, phase A (without S1 and the case tuner) and phase B")
+                         "state, phase A (without S1 and the case tuner) and phase B; build: phase A "
+                         "(without S1 and the case tuner), phase B and phase P")
     ap.add_argument("--ingest-cases", type=int, default=ING_CASES,
                     help="fixture cases phase I ingests (at least 1,024; its time grows with the "
                          "square of the count)")
@@ -4484,13 +4689,25 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None,
     log(f"gpu: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     sk.exact_float32()
+    import threading
+
+    from trie_semantic_search_tpu_torch import native
+
+    host_build = threading.Thread(target=native.available)  # g++ beside nvcc
+    host_build.start()
     lib = sk.load_library()
     log(f"kernel library: {lib.path.name} built in {lib.build_seconds:.2f} s")
+    host_build.join()
+    if not native.available():
+        raise AssertionError("the native host library did not build (g++): see the log above")
+    log(f"native host library: {native.LIBRARY_PATH.parent.name}/{native.LIBRARY_PATH.name} built and "
+        f"loaded in {native.BUILD_SECONDS:.2f} s")
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("  " + line.strip())
     detail = {"gpu": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "build_seconds": lib.build_seconds, "build_log": lib.log}
+              "build_seconds": lib.build_seconds, "build_log": lib.log,
+              "native_build_seconds": native.BUILD_SECONDS}
 
     log("phase: small-input reference (CPU plain versions vs card kernels)")
     detail["small_reference_max_score_diff"] = small_reference(torch, np, seed)
@@ -4537,7 +4754,14 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None,
             log(f"  {card}: phase M1-M3 and M5 {detail['mesh']['seconds']:.1f} s")
         log("phase: build: pipeline end to end (build_indexes -> save_artifacts -> load_artifacts "
             "-> SearchEngine)")
-        detail["build_pipeline"] = pipeline_phase(torch, np, seed, work)
+        kept: dict = {}
+        detail["build_pipeline"] = pipeline_phase(torch, np, seed, work, kept)
+        log(f"phase: P, the rest of the public surface on the card ({P_ROWS} of phase A's rows, phase B's "
+            "tries and encoder)")
+        t0 = time.perf_counter()
+        detail["surface"] = surface_phase(torch, np, seed, kept.pop("built"), kept.pop("names"))
+        detail["surface"]["seconds"] = time.perf_counter() - t0
+        log(f"  {card}: phase P {detail['surface']['seconds']:.1f} s")
         if state is not None:
             log("phase: M4, SearchEngine(mesh) over phase B's artifacts loaded with the mesh (counts "
                 "reset just before the batches, read just after)")
@@ -4570,9 +4794,9 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None,
         note_errs(kernels, detail["train"]["t2"]["plain_err"])
         log(f"  {card}: phase T {detail['train']['seconds']:.1f} s")
 
-    if only == "stream":
+    if only in ("stream", "build"):
         paths: dict = {}
-        build_phases({}, paths)
+        build_phases({}, paths, full=only == "stream")
         return finish(torch, detail, {}, paths, out_dir, card, t_start)
     if only == "train":
         paths = {}
@@ -4744,14 +4968,39 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None,
         f"{h2['new_case']!r} found first; quality gate {h2['quality_gate']}); SIGINT -> 'stopped' "
         f"logged in {st['shutdown_stopped']:.1f} s, exit 0 in {st['shutdown']:.1f} s; phase "
         f"{h2['seconds']:.1f} s")
-    log(f"  serve's log: {h2['update_log'].split(': ', 1)[1]}")
+    log(f"  serve's log: {h2['update_log'].split(': ', 1)[1]}; trie builders: reindex "
+        f"{h2['reindex_backends']}, fresh-store builds "
+        f"{[v['trie_backends'] for k, v in h2['fresh'].items() if k.startswith('build-index')]}")
     detail["cli"] = h2
     paths = {"query_batch": launches, "SearchEngine": elaunches, "http": hlaunches, **paths}
     return finish(torch, detail, kernels, paths, out_dir, card, t_start)
 
 
+def host_figures(detail: dict) -> str:
+    """The host figures the native library moves, from whichever phases
+    ran: phase B's text + tries and trie freeze, S2's CSR pass, H2's
+    reindex read-and-insert, and S1's and S2's anonymous RSS peaks."""
+    parts = [f"native host library built in {detail['native_build_seconds']:.2f} s"]
+    b = detail.get("build_pipeline")
+    if b:
+        parts.append(f"B text + tries {b['text_and_trie_s']:.2f} s, trie freeze {b['trie_freeze_s']:.2f} s")
+    s2 = detail.get("stream_build")
+    if s2:
+        parts.append(f"S2 CSR {s2['finalize_s']['csr']:.2f} s ({s2['csr_route']}), anonymous RSS peak "
+                     f"{s2['peak_anon_rss_bytes'] / 2**30:.2f} GiB")
+    s1 = detail.get("build_ann", {}).get("stream_ann")
+    if s1:
+        parts.append(f"S1 anonymous RSS peak {(s1['rss']['peak'] - s1['rss']['base']) / 2**30:.2f} GiB above "
+                     "its base")
+    cli = detail.get("cli")
+    if cli:
+        parts.append("H2 reindex " + cli["update_log"].split("(", 1)[1].split(",", 1)[0])
+    return "; ".join(parts)
+
+
 def finish(torch, detail, kernels, paths, out_dir: Path, card: str, t_start: float) -> int:
     """Write the details and print the kernel line and the last line."""
+    log(f"host figures ({card}): {host_figures(detail)}")
     for n, rec in kernels.items():
         rec["launches_by_path"] = {p: counts[n] for p, counts in paths.items()}
     detail["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30

@@ -23,7 +23,6 @@ import torch
 
 import trie_semantic_search_tpu.index.kmeans as jk
 import trie_semantic_search_tpu.models.minilm as jm
-import trie_semantic_search_tpu.native as jax_native
 import trie_semantic_search_tpu.ops.hybrid as jax_hybrid
 from trie_semantic_search_tpu.core.config import AnnConfig as JaxAnnConfig
 from trie_semantic_search_tpu.core.config import Config as JaxConfig
@@ -59,6 +58,8 @@ from trie_semantic_search_tpu_torch.models.embedder import Embedder, EmbeddingRe
 from trie_semantic_search_tpu_torch.models.tokenizer import WordPieceTokenizer
 from trie_semantic_search_tpu_torch.search.engine import SearchEngine, SearchQuery
 from trie_semantic_search_tpu_torch.storage.store import StorageManager
+
+from torch_trie_backend import BACKENDS, force_trie_backend
 
 torch.set_num_threads(1)
 
@@ -469,12 +470,13 @@ def _configs(root, tag):
     return cfgs
 
 
-@pytest.fixture()
-def f32_jax_encoder(monkeypatch):
+@pytest.fixture(params=BACKENDS)
+def f32_jax_encoder(request, monkeypatch):
     """The JAX encoder in f32 compute (the port's model is switched to f32
-    beside it), so the two differ only in summation order."""
+    beside it), so the two differ only in summation order; both packages'
+    tries on the same builder backend (each case runs on both)."""
     monkeypatch.setattr(jm, "encode", functools.partial(jm.encode, compute_dtype=jnp.float32))
-    monkeypatch.setattr(jax_native, "available", lambda: False)  # the Python trie builder
+    force_trie_backend(monkeypatch, request.param)
     yield
 
 

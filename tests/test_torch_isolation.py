@@ -3,6 +3,8 @@ JAX or the JAX package; it imports with JAX made unimportable; and its
 entry points refuse a missing card unless the caller asks for the CPU."""
 
 import ast
+import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -267,3 +269,41 @@ def test_distributed_mesh_and_sharded_training_stand_alone():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["2", "2", "gloo", "True", "False"]
+
+
+def test_native_library_is_the_ports_own(tmp_path):
+    """The port's ``native.py`` builds from ``csrc/host/`` into its own
+    build directory and loads that library: no file it opens, no command
+    it runs and no library it loads lies under the repository's
+    ``native/`` (the JAX package's library), and the build directory holds
+    its own ``libtss_native.so``."""
+    block = (
+        "import os, sys\n"
+        "seen = []\n"
+        "def hook(event, args):\n"
+        "    if event in ('open', 'ctypes.dlopen', 'subprocess.Popen', 'os.listdir', 'os.scandir'):\n"
+        "        seen.append((event, repr(args)))\n"
+        "sys.addaudithook(hook)\n"
+        "for name in ('jax', 'jaxlib', 'ml_dtypes', 'trie_semantic_search_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "from trie_semantic_search_tpu_torch import native\n"
+        "assert native.available()\n"
+        "b = native.NativeTrieBuilder()\n"
+        "b.insert([1, 2, 3], 0, 0)\n"
+        "assert b.freeze_arrays()['post_case'].tolist() == [0]\n"
+        "assert native.tokenize_spans('a bc').tolist() == [[0, 1], [2, 4]]\n"
+        "import json\n"
+        "print(json.dumps({'lib': str(native.LIBRARY_PATH), 'seen': seen}))\n"
+    )
+    env = {**os.environ, "TSS_TORCH_BUILD_DIR": str(tmp_path)}
+    out = subprocess.run([sys.executable, "-c", block], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    lib = Path(rec["lib"])
+    assert lib.parent.parent == tmp_path / "host" and lib.name == "libtss_native.so" and lib.exists()
+    jax_native = str(REPO / "native")
+    assert not [s for s in rec["seen"] if jax_native + "/" in s[1] or s[1].endswith(jax_native + "'")], rec
+    assert any(e == "ctypes.dlopen" and str(lib) in a for e, a in rec["seen"])
+    assert any(e == "subprocess.Popen" and str(PORT / "csrc" / "host" / "trie_builder.cpp") in a
+               for e, a in rec["seen"])

@@ -1,8 +1,8 @@
 """The port's spill-built content trie against the JAX package's, on the CPU.
 
 The same content stream goes through the port's ``SpillContentBuilder`` and
-the JAX package's (its Python CSR pass, and its native one where the
-library loads): the frozen arrays and the vocab must be bitwise equal, and
+the JAX package's, both on the Python CSR pass or both on the native one:
+the frozen arrays and the vocab must be bitwise equal, and
 equal to the port's pooled builder (``TrieIndex.insert_content`` +
 ``freeze``) over the same stream. Resume, the sorted-run cache, a k-way
 merge of many rounds and ``set_content_frozen`` are held as the JAX
@@ -19,6 +19,8 @@ from trie_semantic_search_tpu.index import spill as jspill
 from trie_semantic_search_tpu_torch.core.config import TrieConfig
 from trie_semantic_search_tpu_torch.index import spill as tspill
 from trie_semantic_search_tpu_torch.index.trie import FrozenTrie, TrieIndex
+
+from torch_trie_backend import BACKENDS, force_trie_backend
 
 torch.set_num_threads(1)
 
@@ -83,21 +85,23 @@ def _assert_same(got, want):
         np.testing.assert_array_equal(a, b, err_msg=f)
 
 
-@pytest.fixture()
-def python_csr(monkeypatch):
-    """The JAX package's spill on its Python CSR pass."""
-    monkeypatch.setattr(jax_native, "available", lambda: False)
-    monkeypatch.setattr(jax_native, "csr_from_sorted_windows", lambda *a, **k: None)
+@pytest.fixture(params=BACKENDS)
+def trie_backend(request, monkeypatch):
+    """Both packages' spills (and pooled builders) on the same backend: the
+    Python CSR pass, or the native one writing into the memmaps."""
+    force_trie_backend(monkeypatch, request.param)
+    return request.param
 
 
 @pytest.mark.parametrize("mode", ["all", "phrase_start", "sentence_start"])
 @pytest.mark.parametrize("stream", ["legal", "random"])
-def test_spill_finalize_matches_jax_and_pooled(tmp_path, python_csr, mode, stream):
+def test_spill_finalize_matches_jax_and_pooled(tmp_path, trie_backend, mode, stream):
     """Arrays and vocab bitwise the JAX package's spill and, windowing
     every token or phrase starts, the port's pooled builder over the same
     stream (with sentence starts the spill's vocab also holds the tokens
-    past the first window, in both packages); the outputs are memmaps
-    under ``work_dir/csr``."""
+    past the first window, in both packages); the native pass writes its
+    outputs as memmaps under ``work_dir/csr``, the Python pass keeps them
+    in RAM, as the JAX package's passes do."""
     sents = SENTS if stream == "legal" else _random_sents()
     tcfg, jcfg = _configs(mode)
     got, names = _spilled(tspill, tcfg, sents, tmp_path / "port")
@@ -105,8 +109,10 @@ def test_spill_finalize_matches_jax_and_pooled(tmp_path, python_csr, mode, strea
     _assert_same(got, want)
     if mode != "sentence_start":
         _assert_same(got, _pooled(tcfg, sents))
-    assert isinstance(got.post_case, np.memmap)
-    assert (tmp_path / "port" / "csr" / "post_case.npy").exists()
+    native = trie_backend == "native"
+    assert isinstance(got.post_case, np.memmap) == native
+    assert (tmp_path / "port" / "csr" / "post_case.npy").exists() == native
+    assert isinstance(want.post_case, np.memmap) == native
     assert sorted(p.name for p in (tmp_path / "port").glob("*.npy")) == sorted(
         p.name for p in (tmp_path / "jax").glob("*.npy"))
     assert set(tspill.SpillContentBuilder(tmp_path / "port", tcfg).vocab) == set(got.vocab)
@@ -142,7 +148,7 @@ def test_python_csr_matches_jax_python_and_native():
 
 
 @pytest.mark.parametrize("block", [1, 4, 7])
-def test_multi_round_merge_matches_jax(tmp_path, python_csr, block):
+def test_multi_round_merge_matches_jax(tmp_path, trie_backend, block):
     """A tiny ``merge_block_rows`` forces many pivot rounds and galloping
     over eight or more runs: bitwise the JAX package's and the pooled
     builder's, duplicates across runs in stream order."""
@@ -184,7 +190,7 @@ def test_resume_keeps_vocab_and_shards(tmp_path):
     assert fresh.vocab == {} and not list(d.glob("spill_*.npy")) and not list(d.glob("sorted_*.npy"))
 
 
-def test_sorted_run_cache_survives_a_resumed_finalize(tmp_path, python_csr):
+def test_sorted_run_cache_survives_a_resumed_finalize(tmp_path, trie_backend):
     """A second finalize over the same shards reuses the cached sorted runs
     (their mtimes unchanged) and gives the same arrays; shards left out of
     the manifest's list are left out, as in the JAX package."""
@@ -200,6 +206,7 @@ def test_sorted_run_cache_survives_a_resumed_finalize(tmp_path, python_csr):
         jp.flush(names[-1])
     a = sp.finalize(names, merge_block_rows=2)
     assert set(sp.finalize_seconds) == {"run_sort", "merge", "csr"}
+    assert sp.csr_route == trie_backend
     mtimes = {p.name: p.stat().st_mtime_ns for p in (tmp_path / "spill").glob("sorted_s*.npy")}
     assert len(mtimes) == len(SENTS)
     b = tspill.SpillContentBuilder(tmp_path / "spill", tcfg, resume=True).finalize(names, merge_block_rows=2)
@@ -230,7 +237,7 @@ def test_set_content_frozen_survives_freeze(tmp_path):
     assert 9 in rows[0][valid[0]].tolist()
 
 
-def test_empty_finalize_matches_jax(tmp_path, python_csr):
+def test_empty_finalize_matches_jax(tmp_path, trie_backend):
     """Shards with no content windows finalize to the empty trie, as the
     JAX package's do."""
     tcfg, jcfg = _configs("all")

@@ -17,6 +17,8 @@ from trie_semantic_search_tpu_torch.index.trie import (
     TrieIndex,
 )
 
+from torch_trie_backend import BACKENDS, force_trie_backend
+
 torch.set_num_threads(1)
 
 WORDS = [f"w{i}" for i in range(40)] + ["v.", "ohio", "state", "the", "of"]
@@ -71,13 +73,13 @@ def test_search_batch_rows_matches_jax_saved_trie(tmp_path, mmap_format):
     assert tidx.search_batch_rows(["new case"])[0][0, 0] == 0
 
 
+@pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("windowing", ["all", "phrase_start", "sentence_start"])
-def test_port_builder_freezes_like_jax(windowing, monkeypatch):
-    """Against the JAX package's Python builder (its native builder assigns
-    token ids per paragraph, not per window, so its vocab can differ)."""
-    import trie_semantic_search_tpu.native as jax_native
-
-    monkeypatch.setattr(jax_native, "available", lambda: False)
+def test_port_builder_freezes_like_jax(windowing, backend, monkeypatch):
+    """Both packages on the same trie backend (the native one assigns token
+    ids per paragraph, the Python one per window, so the vocab depends on
+    it): every frozen array and the vocab equal."""
+    force_trie_backend(monkeypatch, backend)
     names, cites, paras = _corpus(seed=3, n_cases=60)
     jidx = JaxTrieIndex(JaxTrieConfig(content_windowing=windowing, max_windows_per_paragraph=5))
     tidx = TrieIndex(TrieConfig(content_windowing=windowing, max_windows_per_paragraph=5), device="cpu")
@@ -118,15 +120,15 @@ def _insert_more(idx, names, cites, paras, start):
         idx.insert_content(p + ["new", "words", f"x{row}"], row, 2)
 
 
+@pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("mmap_format", [True, False])
-def test_insert_after_load_matches_jax(tmp_path, mmap_format, monkeypatch):
-    """Both packages load the same saved tries, insert the same cases and
-    freeze: every frozen array and the vocab are equal (the JAX package's
-    Python builder, whose arrays the port follows). A bare round trip
-    (rehydrate, no insert, freeze) gives the loaded arrays back."""
-    import trie_semantic_search_tpu.native as jax_native
-
-    monkeypatch.setattr(jax_native, "available", lambda: False)
+def test_insert_after_load_matches_jax(tmp_path, mmap_format, backend, monkeypatch):
+    """Both packages, on the same trie backend, load the same saved tries,
+    insert the same cases and freeze: every frozen array and the vocab are
+    equal (the native backend rehydrates by replaying the paths). A bare
+    round trip (rehydrate, no insert, freeze) gives the loaded arrays
+    back."""
+    force_trie_backend(monkeypatch, backend)
     names, cites, paras = _corpus(seed=7, n_cases=80)
     jcfg = JaxTrieConfig(enable_memory_mapping=mmap_format, max_windows_per_paragraph=6)
     src = JaxTrieIndex(jcfg)
@@ -156,12 +158,12 @@ def test_insert_after_load_matches_jax(tmp_path, mmap_format, monkeypatch):
     np.testing.assert_array_equal(tidx.search_batch_rows(qs)[0], np.asarray(jidx.search_batch_rows(qs)[0]))
 
 
-def test_set_content_frozen_matches_jax(monkeypatch):
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_set_content_frozen_matches_jax(backend, monkeypatch):
     """An externally built content trie survives freeze(); a later content
-    insert rehydrates its builder first, in both packages."""
-    import trie_semantic_search_tpu.native as jax_native
-
-    monkeypatch.setattr(jax_native, "available", lambda: False)
+    insert rehydrates its builder first, in both packages, on either trie
+    backend."""
+    force_trie_backend(monkeypatch, backend)
     names, cites, paras = _corpus(seed=11, n_cases=30)
     jb, tb = JaxTrieBuilder(), TrieBuilder()
     for row, p in enumerate(paras):

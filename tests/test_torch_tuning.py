@@ -21,7 +21,6 @@ import torch
 
 import trie_semantic_search_tpu.index.tuning as jt
 import trie_semantic_search_tpu.models.minilm as jm
-import trie_semantic_search_tpu.native as jax_native
 import trie_semantic_search_tpu_torch.index.tuning as pt
 import trie_semantic_search_tpu_torch.models.minilm as tm
 from trie_semantic_search_tpu.core.config import Config as JaxConfig
@@ -41,6 +40,8 @@ from trie_semantic_search_tpu_torch.index.builder import build_indexes, save_art
 from trie_semantic_search_tpu_torch.models.embedder import Embedder
 from trie_semantic_search_tpu_torch.models.tokenizer import WordPieceTokenizer
 from trie_semantic_search_tpu_torch.storage.store import StorageManager
+
+from torch_trie_backend import BACKENDS, force_trie_backend
 
 torch.set_num_threads(1)
 
@@ -296,14 +297,15 @@ def _tuning_cases(long_sentences: bool):
     return out
 
 
+@pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("long_sentences", [True, False], ids=["case_level", "row_level"])
-def test_build_indexes_tune_recall_matches_jax(tmp_path, monkeypatch, caplog, long_sentences):
+def test_build_indexes_tune_recall_matches_jax(tmp_path, monkeypatch, caplog, long_sentences, backend):
     """The same store and encoder parameters through both builders with
     ``tune_recall=0.9``: the same tuned nprobe and the same saved
     ``num_probes`` (the case-level tuner with probes; the row-level
     ``tune_nprobe`` on 64 sampled rows without)."""
     monkeypatch.setattr(jm, "encode", functools.partial(jm.encode, compute_dtype=jnp.float32))
-    monkeypatch.setattr(jax_native, "available", lambda: False)
+    force_trie_backend(monkeypatch, backend)
     cases = _tuning_cases(long_sentences)
     cfgs = []
     for tag, cls in (("jax", JaxConfig), ("port", Config)):

@@ -117,6 +117,7 @@ def build_indexes(
     tp = text_processor or TextProcessor(config.text_processing)
     columns = MetadataColumns.build(storage.fetch_filter_columns())
     trie = TrieIndex(config.trie, device=dev)
+    _log.info("trie builder: %s", trie.backend)
     report = BuildReport()
     if embedder is None:
         vocab = train_wordpiece_vocab(
@@ -265,6 +266,7 @@ def update_indexes(
             max_chunks_per_case=max_chunks_per_case, device=built.vector.device,
         )
     trie, vector = built.trie.fork(), built.vector.fork()
+    _log.info("trie builder: %s", trie.backend)
     for row, meta, text in new:
         _index_case(trie, vector, tp, report, row, meta, text, max_chunks_per_case)
     inserted = time.perf_counter()

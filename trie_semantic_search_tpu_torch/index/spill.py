@@ -15,14 +15,16 @@ content trie off the resident set:
   pooled builder).
 * **build**: the sorted order is the trie's DFS pre-order, so the CSR
   arrays come out of one pass over it, into memmaps under
-  ``work_dir/csr``: bitwise :meth:`~.trie.TrieBuilder.freeze` over the same
+  ``work_dir/csr`` (the native pass): bitwise :meth:`~.trie.TrieBuilder.freeze` over the same
   windows.
 
 The windowing replays ``TrieIndex.insert_content`` (``word_tokens``,
 ``_phrase_start_positions``, the window and per-paragraph caps). The pass
-is :func:`csr_from_sorted_windows_py`, the Python pass the JAX package
-falls back to and holds bitwise equal to its native library; this package
-binds no native library.
+is the native library's :func:`..native.csr_from_sorted_windows`, writing
+straight into the memmaps, as in the JAX package; where the library does
+not load, or no window was spilled, it is :func:`csr_from_sorted_windows_py`,
+bitwise the same, whose outputs stay in RAM, as there.
+:attr:`SpillContentBuilder.csr_route` says which ran.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .. import native as _native
 from ..core.config import TrieConfig
 from .trie import FrozenTrie, TrieBuilder, _phrase_start_positions, word_tokens
 
@@ -291,8 +294,10 @@ class SpillContentBuilder:
            gives its rows up to the pivot, the gathered block (runs in
            stream order) sorts stably and is appended to
            ``sorted_windows/rows/paras.npy``;
-        3. ``csr``: :func:`csr_from_sorted_windows_py` over the merged
-           arrays, its outputs written to memmaps under ``work_dir/csr``.
+        3. ``csr``: the native :func:`..native.csr_from_sorted_windows`
+           over the merged arrays, its outputs memmaps under
+           ``work_dir/csr`` (:func:`csr_from_sorted_windows_py`, in RAM,
+           where the library does not load or nothing was spilled).
         """
         L = self.window
         t0 = time.perf_counter()
@@ -365,25 +370,31 @@ class SpillContentBuilder:
             paras = np.zeros(0, np.int32)
         t2 = time.perf_counter()
 
-        computed = csr_from_sorted_windows_py(np.asarray(W), np.asarray(rows), np.asarray(paras))
+        # the native pass fills disk-backed memmaps (~21 B/node + 8 B/posting,
+        # GBs at CAP scale, stay off the resident set)
         csr_dir = self.work_dir / "csr"
         csr_dir.mkdir(parents=True, exist_ok=True)
-        arrays = {}
-        for name, a in computed.items():
-            if not a.size:  # an empty file cannot be mapped
-                arrays[name] = a
-                continue
-            out = np.lib.format.open_memmap(csr_dir / f"{name}.npy", mode="w+", dtype=a.dtype, shape=a.shape)
-            out[...] = a
-            out.flush()
-            arrays[name] = out
-        del computed
+
+        def _alloc(name: str, shape: tuple, dtype) -> np.ndarray:
+            return np.lib.format.open_memmap(csr_dir / f"{name}.npy", mode="w+", dtype=dtype, shape=shape)
+
+        arrays = None
+        if total:
+            arrays = _native.csr_from_sorted_windows(W, rows, paras, alloc=_alloc)
+        self.csr_route = "python" if arrays is None else "native"
+        if arrays is None:
+            arrays = csr_from_sorted_windows_py(np.asarray(W), np.asarray(rows), np.asarray(paras))
+        else:
+            for a in arrays.values():  # flush dirty pages; reopen lazily
+                if isinstance(a, np.memmap):
+                    a.flush()
         id_to_token = [""] * len(self.vocab)
         for tok, tid in self.vocab.items():
             id_to_token[tid] = tok
         self.finalize_seconds = {"run_sort": t1 - t0, "merge": t2 - t1, "csr": time.perf_counter() - t2}
         _log.info(
             "spill finalize: %d windows -> %d nodes, %d postings (run sort %.2fs, merge %.2fs, "
-            "csr %.2fs)", total, len(arrays["is_end"]), total, *self.finalize_seconds.values(),
+            "csr %.2fs, %s)", total, len(arrays["is_end"]), total, *self.finalize_seconds.values(),
+            self.csr_route,
         )
         return FrozenTrie(vocab=dict(self.vocab), id_to_token=id_to_token, **arrays)

@@ -230,6 +230,7 @@ class StreamingIndexBuilder:
                 shutil.rmtree(p)
         resumed_from = manifest.next_row
         trie = self._load_or_new_trie(manifest)
+        _log.info("trie builder: %s", trie.backend)
         spill = None
         if self.content_spill:
             from .spill import SpillContentBuilder

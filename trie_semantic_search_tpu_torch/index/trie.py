@@ -5,11 +5,20 @@ Port of ``trie_semantic_search_tpu/index/trie.py``: three token-level tries
 frozen into CSR arrays with DFS pre-order node ids and the same ``.npz`` /
 ``.mmap`` artifact format, so tries saved by the JAX package load here
 unchanged. The walk and postings gathers run in PyTorch
-(:mod:`..ops.trie_kernels`) on the index's device. This module freezes with
-the Python builder, which the JAX package holds bit-identical to its native
-one. After ``load_from_disk`` the builders are rehydrated from the frozen
-arrays at the first insert (``TrieBuilder.from_frozen``), so inserting into
-a loaded index and freezing gives what the JAX package gives.
+(:mod:`..ops.trie_kernels`) on the index's device.
+
+:class:`TrieIndex` builds through :class:`FastTrieBuilder`, as the JAX
+package does: the native C++ pool of :mod:`..native` whenever that library
+loads, the Python :class:`TrieBuilder` otherwise. The two backends freeze
+the same paths to the same arrays, but the native path assigns token ids
+to a whole paragraph before it inserts its windows, so where a paragraph's
+tokens run past its last window (``max_windows_per_paragraph +
+content_window - 1`` tokens) the backends' vocabularies differ; each
+matches the JAX package on the same backend.
+After ``load_from_disk`` the builders are rehydrated from the frozen
+arrays at the first insert (:meth:`FastTrieBuilder.load_frozen`), so
+inserting into a loaded index and freezing gives what the JAX package
+gives.
 """
 
 from __future__ import annotations
@@ -24,15 +33,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import native as _native
 from ..core.config import TrieConfig
 from ..core.errors import AutomatonCompilationFailed, IndexCorrupted
 from ..device import DeviceLike, resolve_device
-from ..ops.trie_kernels import (
-    batched_walk,
-    edge_keys,
-    gather_postings_ranked,
-    gather_range_postings_ranked,
-)
+from ..ops.trie_kernels import batched_walk, edge_keys, walk_and_gather
 
 #: word tokenization for the name/content tries: \w+ runs, lowercased
 _WORD_RE = _re.compile(r"\w+")
@@ -322,23 +327,36 @@ class FrozenTrie:
         max_postings: int = 64, prefix: bool = False,
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Batched walk + ranked postings gather → ``(nodes, rows, valid)``
-        on ``device``. ``prefix`` gathers the node's whole subtree."""
+        on ``device`` (:func:`..ops.trie_kernels.walk_and_gather` with the
+        postings' weights). ``prefix`` gathers the node's whole subtree."""
         a = self.device(device)
-        nodes = batched_walk(
-            a["edge_keys"], a["key_mult"], a["edge_targets"],
-            torch.as_tensor(token_ids, device=device),
+        return walk_and_gather(
+            None, None, a["edge_targets"], a["post_offsets"], a["post_rows"], a["is_end"],
+            torch.as_tensor(token_ids, device=device), max_postings,
+            keys=(a["edge_keys"], a["key_mult"]), post_weight=a["post_weight"],
+            subtree_end=a["subtree_end"] if prefix else None,
         )
-        if prefix:
-            rows, valid = gather_range_postings_ranked(
-                a["post_offsets"], a["subtree_end"], a["post_rows"],
-                a["post_weight"], nodes, max_postings,
-            )
-        else:
-            rows, valid = gather_postings_ranked(
-                a["post_offsets"], a["post_rows"], a["post_weight"],
-                a["is_end"], nodes, max_postings,
-            )
-        return nodes, rows, valid
+
+    def walk(self, token_ids: np.ndarray, device: DeviceLike = None) -> np.ndarray:
+        """Batched walk on ``device`` (default ``"cuda"``) → the final node
+        id of each query, -1 where the walk failed."""
+        dev = resolve_device(device)
+        a = self.device(dev)
+        nodes = batched_walk(a["edge_keys"], a["key_mult"], a["edge_targets"],
+                             torch.as_tensor(token_ids, device=dev))
+        return nodes.cpu().numpy()
+
+    def search_batch(
+        self, token_ids: np.ndarray, max_postings: int = 64, prefix: bool = False,
+        device: DeviceLike = None,
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Batched walk + ranked postings gather on ``device`` (default
+        ``"cuda"``) → ``(nodes, case_rows, valid)`` as host arrays.
+        ``prefix=False``: postings only at ``is_end`` nodes; ``prefix=True``:
+        every posting whose inserted path starts with the query (the
+        windowed content trie's phrase-anywhere match)."""
+        nodes, rows, valid = self.walk_and_gather(token_ids, resolve_device(device), max_postings, prefix)
+        return nodes.cpu().numpy(), rows.cpu().numpy(), valid.cpu().numpy()
 
     def postings_of(self, node: int) -> list[tuple[int, int]]:
         """``(case_row, paragraph)`` postings ending at ``node``."""
@@ -436,6 +454,102 @@ class FrozenTrie:
         return cls(vocab=vocab, id_to_token=cls._id_to_token(vocab), **arrays)
 
 
+class FastTrieBuilder:
+    """Trie builder backed by the native C++ pool when the library loads
+    (:class:`..native.NativeTrieBuilder`), with the Python
+    :class:`TrieBuilder` as the other backend. The string → token-id
+    vocabulary stays in Python (a dict lookup per token); path insertion
+    and the freeze run natively. Both backends freeze the same paths to
+    the same arrays (tested)."""
+
+    def __init__(self) -> None:
+        self.vocab: dict[str, int] = {}
+        self._py: Optional[TrieBuilder] = None
+        self._nat = None
+        if _native.available():
+            try:
+                self._nat = _native.NativeTrieBuilder()
+            except RuntimeError:
+                self._nat = None
+        if self._nat is None:
+            self._py = TrieBuilder()
+            self.vocab = self._py.vocab
+
+    @property
+    def is_native(self) -> bool:
+        return self._nat is not None
+
+    def _ids(self, tokens: Sequence[str]) -> np.ndarray:
+        vocab = self.vocab
+        out = np.empty(len(tokens), np.int32)
+        for i, t in enumerate(tokens):
+            tid = vocab.get(t)
+            if tid is None:
+                tid = len(vocab)
+                vocab[t] = tid
+            out[i] = tid
+        return out
+
+    def insert(self, tokens: Sequence[str], case_row: int, para_idx: int = 0) -> None:
+        if not tokens:
+            return
+        if self._nat is not None:
+            self._nat.insert(self._ids(tokens), case_row, para_idx)
+        else:
+            self._py.insert(tokens, case_row, para_idx)
+
+    def insert_windows(
+        self, tokens: Sequence[str], window: int, max_windows: int,
+        case_row: int, para_idx: int = 0,
+    ) -> None:
+        """Every suffix window (the first ``max_windows``) in one native
+        call: the content trie's inner loop. The native path assigns ids to
+        the whole paragraph first, as the JAX package's does."""
+        if not tokens:
+            return
+        if self._nat is not None:
+            self._nat.insert_windows(
+                self._ids(tokens), window, max_windows, case_row, para_idx
+            )
+        else:
+            for s in range(min(len(tokens), max_windows)):
+                self._py.insert(tokens[s : s + window], case_row, para_idx)
+
+    def freeze(self) -> FrozenTrie:
+        if self._nat is None:
+            return self._py.freeze()
+        arrays = self._nat.freeze_arrays()
+        return FrozenTrie(
+            vocab=dict(self.vocab), id_to_token=FrozenTrie._id_to_token(self.vocab), **arrays
+        )
+
+    def load_frozen(self, frozen: FrozenTrie) -> None:
+        """Rehydrate this builder from a frozen trie. Python backend: a
+        structural copy (:meth:`TrieBuilder.from_frozen`). Native backend:
+        a fresh pool that replays every path holding postings in DFS order,
+        so each node keeps its postings' order and a later freeze is
+        bit-identical."""
+        self.vocab.clear()
+        self.vocab.update(frozen.vocab)
+        if self._nat is None:
+            self._py = TrieBuilder.from_frozen(frozen)
+            self._py.vocab = self.vocab  # keep sharing the same dict
+            return
+        self._nat = _native.NativeTrieBuilder()
+        eo = frozen.edge_offsets
+        # iterative DFS carrying the token-id path
+        stack: list[tuple[int, list[int]]] = [(0, [])]
+        while stack:
+            n, path = stack.pop()
+            s, e = int(frozen.post_offsets[n]), int(frozen.post_offsets[n + 1])
+            if e > s and path:
+                ids = np.asarray(path, np.int32)
+                for p in range(s, e):
+                    self._nat.insert(ids, int(frozen.post_case[p]), int(frozen.post_para[p]))
+            for edge in range(int(eo[n]), int(eo[n + 1])):
+                stack.append((int(frozen.edge_targets[edge]), path + [int(frozen.edge_tokens[edge])]))
+
+
 class TrieIndex:
     """Three-trie facade: insert, freeze, batched serving lookup, save and
     load, on ``device`` (default ``"cuda"``)."""
@@ -446,9 +560,9 @@ class TrieIndex:
     def __init__(self, config: Optional[TrieConfig] = None, device: DeviceLike = None):
         self.config = config or TrieConfig()
         self.device = resolve_device(device)
-        self._name_builder = TrieBuilder()
-        self._content_builder = TrieBuilder()
-        self._citation_builder = TrieBuilder()
+        self._name_builder = FastTrieBuilder()
+        self._content_builder = FastTrieBuilder()
+        self._citation_builder = FastTrieBuilder()
         self._name: Optional[FrozenTrie] = None
         self._content: Optional[FrozenTrie] = None
         self._citation: Optional[FrozenTrie] = None
@@ -467,10 +581,17 @@ class TrieIndex:
         the first insert after ``load_from_disk``."""
         if not self._builders_stale:
             return
-        self._name_builder = TrieBuilder.from_frozen(self._name)
-        self._content_builder = TrieBuilder.from_frozen(self._content)
-        self._citation_builder = TrieBuilder.from_frozen(self._citation)
+        self._name_builder.load_frozen(self._name)
+        self._content_builder.load_frozen(self._content)
+        self._citation_builder.load_frozen(self._citation)
         self._builders_stale = False
+
+    @property
+    def backend(self) -> str:
+        """``"native"`` when the three builders run the native pool,
+        ``"python"`` otherwise (the line each build logs)."""
+        builders = (self._name_builder, self._content_builder, self._citation_builder)
+        return "native" if all(b.is_native for b in builders) else "python"
 
     def insert_case_name(self, case_name: str, case_row: int) -> None:
         if not self.config.index_case_names:
@@ -485,15 +606,16 @@ class TrieIndex:
             return
         self._ensure_builders()
         if self._content_external:
-            self._content_builder = TrieBuilder.from_frozen(self._content)
+            self._content_builder.load_frozen(self._content)
             self._content_external = False
         mode = self.config.content_windowing
         if mode == "all":
-            starts = range(min(len(toks), self.max_windows_per_paragraph))
+            self._content_builder.insert_windows(
+                toks, self.content_window, self.max_windows_per_paragraph, case_row, para_idx
+            )
         else:
-            starts = _phrase_start_positions(toks, mode)[: self.max_windows_per_paragraph]
-        for s in starts:
-            self._content_builder.insert(toks[s : s + self.content_window], case_row, para_idx)
+            for s in _phrase_start_positions(toks, mode)[: self.max_windows_per_paragraph]:
+                self._content_builder.insert(toks[s : s + self.content_window], case_row, para_idx)
         self._content = None
 
     def insert_citation(self, citation: str, case_row: int, para_idx: int = 0) -> None:

@@ -104,6 +104,15 @@ class VectorIndex:
         self._refs: "np.ndarray | list" = []
         self._vectors: Optional[np.ndarray] = None
 
+    def generate_embedding(self, text: str) -> np.ndarray:
+        """One text's embedding, through the memo."""
+        cached = self.cache.get(text)
+        if cached is not None:
+            return cached
+        emb = self.embedder.embed_one(text)
+        self.cache.put(text, emb)
+        return emb
+
     def generate_embeddings(self, texts: Sequence[str]) -> np.ndarray:
         """Batch embedding with the memo: ONE encode for all cache misses."""
         out: list[Optional[np.ndarray]] = [self.cache.get(t) for t in texts]

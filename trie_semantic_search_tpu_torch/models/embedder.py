@@ -83,6 +83,7 @@ class Embedder:
                         self.model.load_params(loaded)
         self.token_weights = None
         self.set_token_weights(token_weights)
+        self._stats = {"texts_embedded": 0, "batches": 0, "total_ms": 0.0}
 
     @property
     def dimension(self) -> int:
@@ -109,10 +110,22 @@ class Embedder:
             raise EmbeddingGenerationFailed(
                 text_preview=str(texts[0])[:60], reason=str(e)
             ) from e
-        return EmbeddingResult(out, (time.perf_counter() - t0) * 1000)
+        ms = (time.perf_counter() - t0) * 1000
+        self._stats["texts_embedded"] += len(texts)
+        self._stats["batches"] += 1
+        self._stats["total_ms"] += ms
+        return EmbeddingResult(out, ms)
 
     def embed_one(self, text: str) -> np.ndarray:
         return self.embed([text]).embedding[0]
+
+    def get_stats(self) -> dict:
+        """Texts embedded, ``embed`` calls and their milliseconds (and the
+        mean per call once there is one)."""
+        s = dict(self._stats)
+        if s["batches"]:
+            s["avg_batch_ms"] = s["total_ms"] / s["batches"]
+        return s
 
     def _embed_chunk(self, texts: list[str]) -> np.ndarray:
         enc = [self.tokenizer.encode(t, self.config.max_sequence_length) for t in texts]

@@ -29,6 +29,14 @@ the case of one column.
 same layout, as the JAX package's loader does (:331-403 there).
 :func:`count_token_ids` and :func:`sif_weights_from_counts` (numpy, :296-325
 there) give the SIF pooling weights.
+
+The JAX module's functional surface maps onto the module's methods here,
+with no second, functional copy: ``init_params(rng, config)`` is
+``MiniLM(config, seed=...)``, ``forward`` is :meth:`MiniLM.forward`,
+``encode`` is :meth:`MiniLM.sentence_embeddings` (:meth:`MiniLM.encode`
+without gradients), and a ``Params`` tree is the module's ``state_dict``
+(:func:`params_from_jax` converts one). :func:`count_params` counts
+either.
 """
 
 from __future__ import annotations
@@ -457,6 +465,12 @@ class MiniLM(nn.Module):
             for p in self.parameters():
                 p.requires_grad_(False)
                 p.grad = None
+
+
+def count_params(params: "MiniLM | Mapping[str, torch.Tensor]") -> int:
+    """Number of parameters of a model or of its ``state_dict``."""
+    tensors = params.state_dict().values() if isinstance(params, nn.Module) else params.values()
+    return sum(int(t.numel()) for t in tensors)
 
 
 def leaf_keys(c: MiniLMConfig) -> list[str]:

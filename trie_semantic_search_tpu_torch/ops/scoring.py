@@ -7,7 +7,8 @@ the ``[B, N]`` cosine products of the sharded exact scans
 gather-rescore that the rescore kernel
 (:func:`.scan_kernels.gather_rescore_kernel`) is held against.
 
-The products are plain matrix products outside any kernel. There is no
+The products are plain matrix products outside any kernel, and
+:func:`brute_force_topk` is one product and a top-k. There is no
 int8 product on CUDA in ``torch.matmul``, so int8 values multiply as f32:
 exact while ``127² · D < 2²⁴`` (``D <= 1040``) with TF32 off, hence equal
 to the JAX package's int32 accumulation.
@@ -18,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from .scan_kernels import exact_float32
+from .topk import exact_topk, fast_topk
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -60,6 +62,21 @@ def cosine_scores_int8(
     q_int = torch.clamp(torch.round(q / q_scale), -127, 127)
     acc = q_int @ corpus_q.to(torch.float32).T
     return acc * q_scale * corpus_scale.reshape(1, -1)
+
+
+def brute_force_topk(
+    queries: torch.Tensor,  # [B, D] (assumed L2-normalised)
+    corpus: torch.Tensor,  # [N, D] bf16/f32 (assumed L2-normalised)
+    k: int,
+    recall_target: float = 1.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Brute-force cosine top-k over the whole corpus:
+    :func:`cosine_scores`, then :func:`.topk.exact_topk`, or
+    :func:`.topk.fast_topk` when ``recall_target < 1`` (exact here too)."""
+    scores = cosine_scores(queries, corpus)
+    if recall_target >= 1.0:
+        return exact_topk(scores, k)
+    return fast_topk(scores, k, recall_target)
 
 
 def as_segments(corpus) -> tuple[torch.Tensor, ...]:

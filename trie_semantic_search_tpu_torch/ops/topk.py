@@ -10,6 +10,9 @@ no order among equal values, so every selection here is a stable sort:
     ``(-value, row)``: ``-0.0`` and ``+0.0`` compare equal there, so a
     stable sort on row followed by a stable sort on ``-value`` reproduces
     it.
+  * :func:`chunked_topk` (chunk-local top-k, then :func:`merge_topk`) and
+    :func:`segment_max_dedup` (each case's best candidate, by a
+    scatter-max into a dense ``[B, P]`` table) are plain torch ops too.
 """
 
 from __future__ import annotations
@@ -73,3 +76,46 @@ def merge_topk(
     flat_i = indices.reshape(*indices.shape[:-2], -1)
     top_v, pos = exact_topk(flat_v, k)
     return top_v, torch.gather(flat_i, -1, pos)
+
+
+def chunked_topk(
+    scores: torch.Tensor, k: int, num_chunks: int = 8
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-stage exact top-k: chunk-local top-k, then :func:`merge_topk`;
+    :func:`exact_topk` when ``N`` does not split into ``num_chunks`` chunks
+    of at least ``k``. The same values and indices as :func:`exact_topk`."""
+    B, N = scores.shape
+    if N % num_chunks != 0 or N // num_chunks < k:
+        return exact_topk(scores, k)
+    C = N // num_chunks
+    v, i = exact_topk(scores.reshape(B, num_chunks, C), k)  # [B, S, k] local
+    offsets = (torch.arange(num_chunks, device=i.device, dtype=i.dtype) * C)[None, :, None]
+    return merge_topk(v, i + offsets, k)
+
+
+def segment_max_dedup(
+    values: torch.Tensor,  # [B, M] candidate scores
+    segment_ids: torch.Tensor,  # [B, M] int case id per candidate (-1 = invalid)
+    num_segments_pad: int,
+) -> torch.Tensor:
+    """Keep only each segment's max-scoring candidate: ``values`` with
+    non-max duplicates and invalid ids (negative) replaced by ``-inf``;
+    among equal maxima the lowest candidate position stays. Ids must be
+    below ``num_segments_pad``."""
+    B, M = values.shape
+    dev = values.device
+    neg_inf = torch.tensor(float("-inf"), dtype=values.dtype, device=dev)
+    valid = segment_ids >= 0
+    safe = torch.where(valid, segment_ids, torch.zeros_like(segment_ids)).long()
+    masked = torch.where(valid, values, neg_inf)
+    # per-row segment max by a scatter-max into a dense [B, P] table
+    seg_max = torch.full((B, num_segments_pad), float("-inf"), dtype=values.dtype, device=dev)
+    seg_max = seg_max.scatter_reduce(1, safe, masked, "amax")
+    is_seg_max = masked >= torch.gather(seg_max, 1, safe)
+    # among equal-valued duplicates keep the lowest candidate position
+    pos = torch.arange(M, device=dev).expand(B, M)
+    pos_of_max = torch.where(is_seg_max & valid, pos, torch.full_like(pos, M))
+    first_pos = torch.full((B, num_segments_pad), M, dtype=torch.int64, device=dev)
+    first_pos = first_pos.scatter_reduce(1, safe, pos_of_max, "amin")
+    keep = valid & is_seg_max & (pos == torch.gather(first_pos, 1, safe))
+    return torch.where(keep, values, neg_inf)
