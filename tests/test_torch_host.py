@@ -424,19 +424,6 @@ def test_trie_search_matches_jax(tmp_path):
             (want.exact_matches, want.prefix_completions, want.total_matches), q
 
 
-def test_profile_trace_writes_a_chrome_trace(tmp_path):
-    import json
-
-    import torch
-
-    from trie_semantic_search_tpu_torch.core.metrics import profile_trace
-
-    with profile_trace(str(tmp_path / "prof")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
-    assert any("mm" in e.get("name", "") for e in trace["traceEvents"])
-
-
 def test_utils_match_jax():
     from trie_semantic_search_tpu import utils as ju
     from trie_semantic_search_tpu_torch import utils as tu

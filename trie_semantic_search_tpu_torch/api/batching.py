@@ -17,6 +17,11 @@ Under congestion:
   items retries each still-waiting item alone, so one poisoned request
   fails alone; larger failed batches fail fast.
 
+Each request's wait, from ``submit`` to the moment its batch's ``run_batch``
+starts on the worker thread (the window and the wait for an execution
+slot), goes into the ``core/metrics`` span ``batch.queue_wait``, one
+sample per request.
+
 ``inflight > 1`` pipelines batches: while one batch runs in its worker
 thread (device step and host hydration), the dispatcher assembles and
 launches the next. The engine's batch path is safe to call from two
@@ -30,7 +35,10 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from typing import Any, Callable, Optional, Sequence
+
+from ..core.metrics import metrics
 
 _log = logging.getLogger("tss_torch.api.batching")
 
@@ -57,7 +65,8 @@ class BatchingQueue:
         self.max_pending = max_pending
         self.inflight = max(1, inflight)
         self.single_retry_max = single_retry_max
-        self._queue: asyncio.Queue[tuple[Any, asyncio.Future]] = asyncio.Queue()
+        #: (item, its future, ``time.perf_counter`` when it was queued)
+        self._queue: asyncio.Queue[tuple[Any, asyncio.Future, float]] = asyncio.Queue()
         self._task: Optional[asyncio.Task] = None
         self._sem: Optional[asyncio.Semaphore] = None
         self._closed = False
@@ -106,7 +115,7 @@ class BatchingQueue:
                 f"{self._queue.qsize()} requests pending (max {self.max_pending})"
             )
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
-        await self._queue.put((item, fut))
+        await self._queue.put((item, fut, time.perf_counter()))
         return await fut
 
     async def _dispatch_loop(self) -> None:
@@ -139,7 +148,7 @@ class BatchingQueue:
             # Re-check liveness right before spending device time: under a
             # stall, most of the assembled batch may have timed out while
             # waiting for the slot.
-            alive = [(it, f) for it, f in batch if not f.done()]
+            alive = [p for p in batch if not p[1].done()]
             self.stats["ghosts_dropped"] += len(batch) - len(alive)
             if not alive:
                 self._sem.release()
@@ -148,17 +157,26 @@ class BatchingQueue:
             self._batch_tasks.add(task)
             task.add_done_callback(self._batch_tasks.discard)
 
-    async def _run_batch(self, batch: list[tuple[Any, asyncio.Future]]) -> None:
+    def _run_timed(self, items: list[Any], queued: list[float]) -> list[Any]:
+        """``run_batch`` on the worker thread, after recording each item's
+        queue wait."""
+        start = time.perf_counter()
+        h = metrics.histogram("batch.queue_wait")
+        for t in queued:
+            h.observe((start - t) * 1000)
+        return self.run_batch(items)
+
+    async def _run_batch(self, batch: list[tuple[Any, asyncio.Future, float]]) -> None:
         assert self._sem is not None
         items = [b[0] for b in batch]
         try:
             try:
-                results = await asyncio.to_thread(self.run_batch, items)
+                results = await asyncio.to_thread(self._run_timed, items, [b[2] for b in batch])
                 if len(results) != len(items):
                     raise RuntimeError(
                         f"batch returned {len(results)} results for {len(items)} items"
                     )
-                for (_, f), r in zip(batch, results):
+                for (_, f, _), r in zip(batch, results):
                     if not f.done():
                         f.set_result(r)
             except Exception as e:
@@ -168,7 +186,7 @@ class BatchingQueue:
                 # only for small batches (a serial retry of a big batch
                 # stalls the dispatcher for N × single_exec; observed as a
                 # 504 cascade in the round-4 TPU loadtest).
-                alive = [(it, f) for it, f in batch if not f.done()]
+                alive = [(it, f) for it, f, _ in batch if not f.done()]
                 if len(alive) > self.single_retry_max:
                     _log.warning(
                         "batch of %d failed (%s); failing %d items fast",

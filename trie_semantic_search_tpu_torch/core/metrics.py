@@ -1,7 +1,17 @@
 """Metrics registry (port of the JAX package's ``core/metrics.py``):
 counters and latency histograms (``metrics.inc``, ``metrics.timed``) that
-the engine feeds, the periodic :class:`MetricsReporter` of ``serve``, and
-:func:`profile_trace`, a ``torch.profiler`` trace around a block.
+the engine feeds, and the periodic :class:`MetricsReporter` of ``serve``.
+
+The served batch's spans live here. ``timed`` spans the parents
+(``search_batch``, ``fused_embed``, ``fused_device``); ``leaf`` spans the
+contiguous parts inside them and, while a ``torch.profiler`` records the
+calling thread, also opens a ``record_function`` range of the same name on
+the profiler's clock. Work interleaved per result (gunzip, the sentence
+split, the snippet) is summed by its caller and recorded once with
+``histogram(name).observe``. Each histogram also keeps its newest
+observations with their end times, so :meth:`MetricsRegistry.between`
+gives a span's count and total over any recent stretch of
+``time.perf_counter``, read after the stretch.
 """
 
 from __future__ import annotations
@@ -9,26 +19,37 @@ from __future__ import annotations
 import bisect
 import contextlib
 import logging
+import sys
 import threading
 import time
+from array import array
 from dataclasses import dataclass, field
-from pathlib import Path
 from typing import Callable, Iterator, Optional
 
 _log = logging.getLogger("tss_torch.metrics")
 
 
+#: observations a histogram keeps with their end times (a ring)
+RECENT = 16384
+
+
 @dataclass
 class LatencyHistogram:
-    """Bounded reservoir of latencies with percentile queries."""
+    """Bounded reservoir of latencies with percentile queries, and a ring of
+    the newest ``RECENT`` observations with their end times."""
 
     max_samples: int = 4096
     _samples: list[float] = field(default_factory=list)
     _lock: threading.Lock = field(default_factory=threading.Lock)
     count: int = 0
     total_ms: float = 0.0
+    _ends: array = field(default_factory=lambda: array("d"))
+    _ms: array = field(default_factory=lambda: array("d"))
 
-    def observe(self, ms: float) -> None:
+    def observe(self, ms: float, end: Optional[float] = None) -> None:
+        """Record ``ms`` that ended at ``end`` (``time.perf_counter``; now
+        by default)."""
+        end = time.perf_counter() if end is None else end
         with self._lock:
             self.count += 1
             self.total_ms += ms
@@ -36,6 +57,21 @@ class LatencyHistogram:
             if len(self._samples) > self.max_samples:
                 # drop alternating extremes to keep the distribution shape
                 del self._samples[0 if self.count % 2 else -1]
+            if len(self._ends) < RECENT:
+                self._ends.append(end)
+                self._ms.append(ms)
+            else:
+                i = (self.count - 1) % RECENT
+                self._ends[i], self._ms[i] = end, ms
+
+    def between(self, t0: float, t1: float) -> Optional[tuple[int, float]]:
+        """Count and total ms of the observations that ended in ``[t0,
+        t1]``; None where the ring has since dropped one that may have."""
+        with self._lock:
+            if len(self._ends) == RECENT and self._ends[self.count % RECENT] > t0:
+                return None
+            hits = [ms for end, ms in zip(self._ends, self._ms) if t0 <= end <= t1]
+        return len(hits), sum(hits)
 
     def percentile(self, p: float) -> Optional[float]:
         with self._lock:
@@ -79,7 +115,32 @@ class MetricsRegistry:
         try:
             yield
         finally:
-            self.histogram(name).observe((time.perf_counter() - t0) * 1000)
+            t1 = time.perf_counter()
+            self.histogram(name).observe((t1 - t0) * 1000, t1)
+
+    @contextlib.contextmanager
+    def leaf(self, name: str) -> Iterator[None]:
+        """:meth:`timed`, and a ``torch.profiler`` range of the same name
+        while a profiler records this thread (a ``user_annotation`` in its
+        trace). Without one it costs one check beyond the registry entry."""
+        rng = _profiler_range(name)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            t1 = time.perf_counter()
+            if rng is not None:
+                rng.__exit__(None, None, None)
+            self.histogram(name).observe((t1 - t0) * 1000, t1)
+
+    def between(self, t0: float, t1: float) -> dict[str, tuple[int, float]]:
+        """``{name: (count, total ms)}`` of each histogram's observations that
+        ended in ``[t0, t1]`` (``time.perf_counter``), for the names whose
+        ring still holds the whole stretch."""
+        with self._lock:
+            hs = dict(self._histograms)
+        out = {n: h.between(t0, t1) for n, h in hs.items()}
+        return {n: v for n, v in out.items() if v is not None}
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -91,6 +152,18 @@ class MetricsRegistry:
 
 #: process-wide default registry
 metrics = MetricsRegistry()
+
+
+def _profiler_range(name: str):
+    """An entered ``record_function(name)`` while a ``torch.profiler``
+    records the calling thread, else None (no profiler can run before torch
+    is imported, so this module does not import it)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rng = torch.autograd.profiler.record_function(name)
+    rng.__enter__()
+    return rng
 
 
 class MetricsReporter:
@@ -125,19 +198,3 @@ class MetricsReporter:
     def stop(self) -> None:
         self._task.stop()
 
-
-@contextlib.contextmanager
-def profile_trace(log_dir: str) -> Iterator[None]:
-    """A ``torch.profiler`` trace of the block, written as a Chrome trace
-    (``trace.json``) into ``log_dir``, with the card's activity when one is
-    visible."""
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    out = Path(log_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield
-    prof.export_chrome_trace(str(out / "trace.json"))

@@ -26,6 +26,7 @@ import torch
 
 from ..core.config import EmbeddingModelConfig
 from ..core.errors import EmbeddingGenerationFailed
+from ..core.metrics import metrics
 from ..device import DeviceLike, resolve_device
 from ..utils import batch_bucket
 from . import minilm
@@ -128,19 +129,24 @@ class Embedder:
         return s
 
     def _embed_chunk(self, texts: list[str]) -> np.ndarray:
-        enc = [self.tokenizer.encode(t, self.config.max_sequence_length) for t in texts]
-        true_len = max(max(sum(m) for _, m in enc), 2)
-        L = _bucket_len(true_len, self.config.max_sequence_length)
-        B = len(texts)
-        Bpad = batch_bucket(B)
-        ids = np.zeros((Bpad, L), np.int32)
-        mask = np.zeros((Bpad, L), np.int32)
-        for i, (a, m) in enumerate(enc):
-            ids[i] = a[:L]
-            mask[i] = m[:L]
-        emb = self.model.encode(
-            torch.as_tensor(ids, device=self.device),
-            torch.as_tensor(mask, device=self.device),
-            self.token_weights,
-        )
-        return emb[:B].cpu().numpy()
+        """Spans ``embed.tokenize`` (WordPiece and the padded id and mask
+        arrays) and ``embed.forward`` (the encoder and the copy of its
+        result to the host, which waits for it)."""
+        with metrics.leaf("embed.tokenize"):
+            enc = [self.tokenizer.encode(t, self.config.max_sequence_length) for t in texts]
+            true_len = max(max(sum(m) for _, m in enc), 2)
+            L = _bucket_len(true_len, self.config.max_sequence_length)
+            B = len(texts)
+            Bpad = batch_bucket(B)
+            ids = np.zeros((Bpad, L), np.int32)
+            mask = np.zeros((Bpad, L), np.int32)
+            for i, (a, m) in enumerate(enc):
+                ids[i] = a[:L]
+                mask[i] = m[:L]
+        with metrics.leaf("embed.forward"):
+            emb = self.model.encode(
+                torch.as_tensor(ids, device=self.device),
+                torch.as_tensor(mask, device=self.device),
+                self.token_weights,
+            )
+            return emb[:B].cpu().numpy()

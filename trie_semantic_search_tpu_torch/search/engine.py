@@ -29,6 +29,7 @@ from __future__ import annotations
 import datetime as _dt
 import logging
 import threading
+import time
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Optional, Sequence
@@ -367,7 +368,10 @@ class SearchEngine:
         in one ``query_batch`` step, then host hydration of at most
         max_results rows. The device returns k *distinct* cases, so k only
         needs slack for hydration failures, not a chunks-per-case
-        multiplier."""
+        multiplier. Hydration spans ``hydrate.meta_select``,
+        ``hydrate.text_select`` and ``hydrate.results``, and records the
+        sentence split's and the snippets' sums over the batch as
+        ``hydrate.sentences`` and ``hydrate.snippet``."""
         texts = [q.query for q in queries]
         with metrics.timed("fused_embed"):
             embs = self.vector_index.generate_embeddings(texts)
@@ -397,51 +401,58 @@ class SearchEngine:
         # batch-prefetch hydration state for every result row the device
         # returned: one sqlite IN(...) select for metadata and one for
         # texts instead of a round trip per result.
-        rows_needed = sorted({
-            int(r)
-            for b in range(len(queries))
-            for r, s in zip(cases[b], vals[b])
-            if r >= 0 and np.isfinite(s)
-        })
-        meta_miss = [
-            r for r in rows_needed
-            if r < len(self.columns) and self._meta_cache.get(r) is None
-        ]
-        if meta_miss:
-            fetched = self.storage.get_case_metadata_many(
-                [self.columns.case_ids[r] for r in meta_miss]
-            )
-            for r in meta_miss:
-                m = fetched.get(str(self.columns.case_ids[r]))
-                if m is not None:
-                    self._meta_cache.put(r, m)
-            text_miss = [
-                str(self.columns.case_ids[r]) for r in meta_miss
-                if self._text_cache.get(str(self.columns.case_ids[r])) is None
+        with metrics.leaf("hydrate.meta_select"):
+            rows_needed = sorted({
+                int(r)
+                for b in range(len(queries))
+                for r, s in zip(cases[b], vals[b])
+                if r >= 0 and np.isfinite(s)
+            })
+            meta_miss = [
+                r for r in rows_needed
+                if r < len(self.columns) and self._meta_cache.get(r) is None
             ]
-            for cid, txt in self.storage.get_case_texts_many(
-                text_miss
-            ).items():
-                self._text_cache.put(cid, txt)
+            if meta_miss:
+                fetched = self.storage.get_case_metadata_many(
+                    [self.columns.case_ids[r] for r in meta_miss]
+                )
+                for r in meta_miss:
+                    m = fetched.get(str(self.columns.case_ids[r]))
+                    if m is not None:
+                        self._meta_cache.put(r, m)
+        with metrics.leaf("hydrate.text_select"):
+            if meta_miss:
+                text_miss = [
+                    str(self.columns.case_ids[r]) for r in meta_miss
+                    if self._text_cache.get(str(self.columns.case_ids[r])) is None
+                ]
+                for cid, txt in self.storage.get_case_texts_many(
+                    text_miss
+                ).items():
+                    self._text_cache.put(cid, txt)
 
+        clock = [0.0, 0.0]  # seconds in the sentence split and in snippets
         results: list[list[SearchResult]] = []
-        for b, q in enumerate(queries):
-            limit = q.max_results or q.config.max_results
-            out: list[SearchResult] = []
-            for score, chunk, case_row, src in zip(
-                vals[b], chunks[b], cases[b], srcs[b]
-            ):
-                if case_row < 0 or not np.isfinite(score):
-                    continue
-                meta = self._hydrate(int(case_row))
-                if meta is None:
-                    continue
-                mtype = self._SRC_MATCH_TYPE.get(int(src), MatchType.SEMANTIC)
-                para = int(fused.chunk_para[int(chunk)]) if chunk >= 0 else -1
-                out.append(self._result(q, meta, score, mtype, para))
-                if len(out) >= limit:
-                    break
-            results.append(out)
+        with metrics.leaf("hydrate.results"):
+            for b, q in enumerate(queries):
+                limit = q.max_results or q.config.max_results
+                out: list[SearchResult] = []
+                for score, chunk, case_row, src in zip(
+                    vals[b], chunks[b], cases[b], srcs[b]
+                ):
+                    if case_row < 0 or not np.isfinite(score):
+                        continue
+                    meta = self._hydrate(int(case_row))
+                    if meta is None:
+                        continue
+                    mtype = self._SRC_MATCH_TYPE.get(int(src), MatchType.SEMANTIC)
+                    para = int(fused.chunk_para[int(chunk)]) if chunk >= 0 else -1
+                    out.append(self._result(q, meta, score, mtype, para, clock))
+                    if len(out) >= limit:
+                        break
+                results.append(out)
+        metrics.histogram("hydrate.sentences").observe(clock[0] * 1000)
+        metrics.histogram("hydrate.snippet").observe(clock[1] * 1000)
         return results
 
     def _execute_batch(self, queries: list[SearchQuery]) -> list[list[SearchResult]]:
@@ -521,25 +532,33 @@ class SearchEngine:
     }
 
     def _result(
-        self, q: SearchQuery, meta: CaseMetadata, score: float, mtype: MatchType, para: int
+        self, q: SearchQuery, meta: CaseMetadata, score: float, mtype: MatchType, para: int,
+        clock: Optional[list[float]] = None,
     ) -> SearchResult:
         """One hydrated hit with its snippet and highlights. Semantic hits
         anchor the snippet on the matched chunk: ``para`` indexes the
         *processed* sentence list (min-length filtered, wrapped,
         whitespace-collapsed), so the builder's normalize → sentences
         pipeline is replayed on the stored text; raw offsets would drift
-        whenever a short sentence was filtered out."""
+        whenever a short sentence was filtered out. ``clock`` gains the
+        seconds of the sentence split (``[0]``) and of the snippet
+        (``[1]``), which the caller records once a batch."""
+        clock = [0.0, 0.0] if clock is None else clock
         text = self._case_text_of(meta.id) or meta.full_text
         chunk_text = None
         if mtype == MatchType.SEMANTIC and text:
+            t0 = time.perf_counter()
             sents = self._sentences_of(meta.id, text)
+            clock[0] += time.perf_counter() - t0
             if 0 <= para < len(sents):
                 chunk_text = sents[para]
+        t0 = time.perf_counter()
         snippet, highlights = generate_snippet(
             text or meta.name, q.query,
             highlight_type=self._HIGHLIGHT.get(mtype, HighlightType.SEMANTIC_MATCH),
             chunk_text=chunk_text,
         )
+        clock[1] += time.perf_counter() - t0
         return SearchResult(
             case_metadata=meta, score=float(score), match_type=mtype,
             snippet=snippet, highlights=highlights,

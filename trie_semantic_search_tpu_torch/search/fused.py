@@ -42,6 +42,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.metrics import metrics
 from ..index.ann import PartitionedANN, _auto_partitions
 from ..index.kmeans import train_kmeans
 from ..index.sharded import build_sharded_partitions, slot_court_ids
@@ -423,96 +424,109 @@ class FusedHybridSearch:
         """Run the fused step → ``(scores, chunk_idx, case_rows, src)`` each
         ``[B, k]`` (-inf/-1 padded): k distinct cases per query, filtered
         and boosted, with MatchType provenance. The batch pads to the
-        serving ladder with inert queries (+inf threshold, no hits)."""
+        serving ladder with inert queries (+inf threshold, no hits).
+
+        Unsharded, it spans ``step.trie_walk``, ``step.inputs`` (padding,
+        the court table, the date codes, the host→device tensors),
+        ``step.run`` (the stage's call until its results are on the host)
+        and, after the probe, ``step.escalate``."""
         B0 = B = len(queries_text)
         Bp = batch_bucket(B)
-        trie_rows, trie_valid = self.trie_index.search_batch_rows(list(queries_text))
-        trie_rows = np.where(trie_valid, trie_rows, -1).astype(np.int32)
-        if Bp != B:
-            pad = Bp - B
-            query_embs = np.concatenate(
-                [query_embs, np.zeros((pad, query_embs.shape[1]), query_embs.dtype)]
+        with metrics.leaf("step.trie_walk"):
+            trie_rows, trie_valid = self.trie_index.search_batch_rows(list(queries_text))
+            trie_rows = np.where(trie_valid, trie_rows, -1).astype(np.int32)
+        sharded = self.ann_mode in ("sharded", "sharded-partitioned")
+        with metrics.leaf("step.inputs"):
+            if Bp != B:
+                pad = Bp - B
+                query_embs = np.concatenate(
+                    [query_embs, np.zeros((pad, query_embs.shape[1]), query_embs.dtype)]
+                )
+                trie_rows = np.concatenate(
+                    [trie_rows, np.full((pad, trie_rows.shape[1]), -1, np.int32)]
+                )
+                court_filters = list(court_filters) + [None] * pad
+                date_ranges = list(date_ranges) + [None] * pad
+                min_similarity = list(min_similarity) + [np.float32(np.inf)] * pad
+                exact_weight = list(exact_weight) + [0.0] * pad
+                B = Bp
+            trie_src = np.ascontiguousarray(
+                np.broadcast_to(self._trie_src(trie_rows.shape[1]), trie_rows.shape)
             )
-            trie_rows = np.concatenate(
-                [trie_rows, np.full((pad, trie_rows.shape[1]), -1, np.int32)]
+            V = self.num_courts
+            court_table = np.ones((B, V), bool)
+            for b, courts in enumerate(court_filters):
+                if courts:
+                    allowed = {self.columns.court_vocab.get(c.strip(), -1) for c in courts}
+                    court_table[b] = False
+                    for cid in allowed:
+                        if 0 <= cid < V:
+                            court_table[b, cid] = True
+            lo = np.empty(B, np.int32)
+            hi = np.empty(B, np.int32)
+            for b, dr in enumerate(date_ranges):
+                lo[b], hi[b] = self.columns.encode_date_range(dr)
+            use_filters = any(bool(c) for c in court_filters) or any(bool(dr) for dr in date_ranges)
+            hostq = dict(
+                q=np.asarray(query_embs, np.float32), court_table=court_table,
+                lo=lo, hi=hi, trie_rows=trie_rows, trie_src=trie_src,
+                min_sim=np.asarray(min_similarity, np.float32),
+                exact_w=np.asarray(exact_weight, np.float32),
             )
-            court_filters = list(court_filters) + [None] * pad
-            date_ranges = list(date_ranges) + [None] * pad
-            min_similarity = list(min_similarity) + [np.float32(np.inf)] * pad
-            exact_weight = list(exact_weight) + [0.0] * pad
-            B = Bp
-        trie_src = np.ascontiguousarray(
-            np.broadcast_to(self._trie_src(trie_rows.shape[1]), trie_rows.shape)
-        )
-        V = self.num_courts
-        court_table = np.ones((B, V), bool)
-        for b, courts in enumerate(court_filters):
-            if courts:
-                allowed = {self.columns.court_vocab.get(c.strip(), -1) for c in courts}
-                court_table[b] = False
-                for cid in allowed:
-                    if 0 <= cid < V:
-                        court_table[b, cid] = True
-        lo = np.empty(B, np.int32)
-        hi = np.empty(B, np.int32)
-        for b, dr in enumerate(date_ranges):
-            lo[b], hi[b] = self.columns.encode_date_range(dr)
-        use_filters = any(bool(c) for c in court_filters) or any(bool(dr) for dr in date_ranges)
-        hostq = dict(
-            q=np.asarray(query_embs, np.float32), court_table=court_table,
-            lo=lo, hi=hi, trie_rows=trie_rows, trie_src=trie_src,
-            min_sim=np.asarray(min_similarity, np.float32),
-            exact_w=np.asarray(exact_weight, np.float32),
-        )
-        dev = self.device
-        t = lambda a: torch.tensor(np.asarray(a), device=dev)  # noqa: E731
-        if self.ann_mode in ("sharded", "sharded-partitioned"):
+            if not sharded:
+                dev = self.device
+                t = lambda a: torch.tensor(np.asarray(a), device=dev)  # noqa: E731
+                common = dict(
+                    court_table=t(court_table), date_lo=t(lo), date_hi=t(hi),
+                    trie_rows=t(trie_rows), trie_src=t(trie_src),
+                    trie_chunk_of_case=self.trie_chunk_of_case,
+                    min_similarity=t(hostq["min_sim"]), exact_weight=t(hostq["exact_w"]),
+                    k=k, overfetch=overfetch,
+                )
+                q = t(hostq["q"])
+        if sharded:
             return self._query_sharded(hostq, use_filters, k, overfetch, recall_target, B, B0)
-        common = dict(
-            court_table=t(court_table), date_lo=t(lo), date_hi=t(hi),
-            trie_rows=t(trie_rows), trie_src=t(trie_src),
-            trie_chunk_of_case=self.trie_chunk_of_case,
-            min_similarity=t(hostq["min_sim"]), exact_weight=t(hostq["exact_w"]),
-            k=k, overfetch=overfetch,
-        )
-        q = t(hostq["q"])
         if self.ann_mode == "partitioned":
             if self._layout_brute_batch(B):
-                v, i, cases, src = self._dispatch_stream(
-                    hostq["q"], court_table, lo, hi, trie_rows, trie_src,
-                    hostq["min_sim"], hostq["exact_w"], use_filters, k,
-                    overfetch, recall_target,
-                )
+                with metrics.leaf("step.run"):
+                    v, i, cases, src = self._dispatch_stream(
+                        hostq["q"], court_table, lo, hi, trie_rows, trie_src,
+                        hostq["min_sim"], hostq["exact_w"], use_filters, k,
+                        overfetch, recall_target,
+                    )
                 return v[:B0], i[:B0], cases[:B0], src[:B0]
-            pcw, pcb, pdt = self._part_cols
-            upk, _ = resolve_probe_kernel(
-                recall_target, int(self.ann.part_rows.shape[1]),
-                int(self.ann.part_int8.shape[-1]),
-            )
-            out = fused_partitioned_topk(
-                q, self.ann.centroids, self.ann.part_rows, self.ann.part_int8,
-                self.ann.part_scale, self.ann.corpus_bf16, self.chunk_case,
-                self.chunk_court, self.chunk_date,
-                nprobe=self.ann.default_nprobe,
-                rescore_factor=max(1, self.ann.config.rescore_factor),
-                recall_target=recall_target, part_cword=pcw, part_cbit=pcb,
-                part_date=pdt, use_probe_kernel=upk, **common,
-            )
-            v, i, cases, src = self._escalate_flat(
-                hostq, use_filters, k, overfetch, recall_target, *_host(out), B0,
-            )
+            with metrics.leaf("step.run"):
+                pcw, pcb, pdt = self._part_cols
+                upk, _ = resolve_probe_kernel(
+                    recall_target, int(self.ann.part_rows.shape[1]),
+                    int(self.ann.part_int8.shape[-1]),
+                )
+                out = _host(fused_partitioned_topk(
+                    q, self.ann.centroids, self.ann.part_rows, self.ann.part_int8,
+                    self.ann.part_scale, self.ann.corpus_bf16, self.chunk_case,
+                    self.chunk_court, self.chunk_date,
+                    nprobe=self.ann.default_nprobe,
+                    rescore_factor=max(1, self.ann.config.rescore_factor),
+                    recall_target=recall_target, part_cword=pcw, part_cbit=pcb,
+                    part_date=pdt, use_probe_kernel=upk, **common,
+                ))
+            with metrics.leaf("step.escalate"):
+                v, i, cases, src = self._escalate_flat(
+                    hostq, use_filters, k, overfetch, recall_target, *out, B0,
+                )
             return v[:B0], i[:B0], cases[:B0], src[:B0]
-        N = int(self.corpus_q.shape[0])
-        num_chunks = pick_num_chunks(N, B, k * max(1, overfetch))
-        args = (q, self.corpus_q, self.corpus_scale, self.chunk_case,
-                self.chunk_court, self.chunk_date)
-        kw = dict(recall_target=recall_target, use_court=use_filters,
-                  use_date=use_filters, **common)
-        if num_chunks > 1:
-            out = fused_hybrid_topk_chunked(*args, num_chunks=num_chunks, **kw)
-        else:
-            out = fused_hybrid_topk(*args, **kw)
-        v, i, cases, src = _host(out)
+        with metrics.leaf("step.run"):
+            N = int(self.corpus_q.shape[0])
+            num_chunks = pick_num_chunks(N, B, k * max(1, overfetch))
+            args = (q, self.corpus_q, self.corpus_scale, self.chunk_case,
+                    self.chunk_court, self.chunk_date)
+            kw = dict(recall_target=recall_target, use_court=use_filters,
+                      use_date=use_filters, **common)
+            if num_chunks > 1:
+                out = fused_hybrid_topk_chunked(*args, num_chunks=num_chunks, **kw)
+            else:
+                out = fused_hybrid_topk(*args, **kw)
+            v, i, cases, src = _host(out)
         return v[:B0], i[:B0], cases[:B0], src[:B0]
 
     def _query_sharded(

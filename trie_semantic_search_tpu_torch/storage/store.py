@@ -24,6 +24,7 @@ from pathlib import Path
 from typing import Iterator, Optional, Sequence
 
 from ..core.config import StorageConfig
+from ..core.metrics import metrics
 from ..core.errors import (
     DatabaseConnectionFailed,
     DatabaseError,
@@ -192,11 +193,14 @@ class StorageManager:
     def get_case_texts_many(
         self, case_ids: "Sequence[CaseId]"
     ) -> dict[str, str]:
-        """Batch :meth:`get_case_text` (see ``get_case_metadata_many``)."""
+        """Batch :meth:`get_case_text` (see ``get_case_metadata_many``). The
+        decompress and decode of every row are summed into one
+        ``store.gunzip`` sample."""
         ids = [str(c) for c in case_ids]
         if not ids:
             return {}
         out: dict[str, str] = {}
+        unzip_s = 0.0
         with self._lock:
             for lo in range(0, len(ids), 512):
                 chunk = ids[lo : lo + 512]
@@ -206,6 +210,7 @@ class StorageManager:
                     chunk,
                 ).fetchall()
                 for cid, compressed, blob in rows:
+                    t0 = time.perf_counter()
                     try:
                         raw = gzip.decompress(blob) if compressed else blob
                         out[cid] = raw.decode("utf-8")
@@ -213,6 +218,8 @@ class StorageManager:
                         raise StorageCorruption(
                             location=f"case_text/{cid}", details=str(e)
                         ) from e
+                    unzip_s += time.perf_counter() - t0
+        metrics.histogram("store.gunzip").observe(unzip_s * 1000)
         return out
 
     def store_case_text(self, case_id: CaseId, text: str) -> None:
@@ -233,13 +240,16 @@ class StorageManager:
         if row is None:
             return None
         compressed, blob = row
+        t0 = time.perf_counter()
         try:
             raw = gzip.decompress(blob) if compressed else blob
-            return raw.decode("utf-8")
+            text = raw.decode("utf-8")
         except (OSError, UnicodeDecodeError) as e:
             raise StorageCorruption(
                 location=f"case_text/{case_id}", details=str(e)
             ) from e
+        metrics.histogram("store.gunzip").observe((time.perf_counter() - t0) * 1000)
+        return text
 
     def list_case_ids(self) -> list[CaseId]:
         with self._lock:
