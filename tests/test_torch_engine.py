@@ -40,6 +40,7 @@ from trie_semantic_search_tpu.index.builder import load_artifacts as jax_load_ar
 from trie_semantic_search_tpu.search.engine import SearchQuery as JaxQuery
 from trie_semantic_search_tpu_torch.core.config import Config
 from trie_semantic_search_tpu_torch.core.errors import IndexCorrupted, InvalidSearchQuery
+from trie_semantic_search_tpu_torch.core.metrics import metrics
 from trie_semantic_search_tpu_torch.core.types import SearchConfig
 from trie_semantic_search_tpu_torch.index.builder import load_artifacts
 from trie_semantic_search_tpu_torch.search.engine import MatchType, SearchQuery
@@ -112,6 +113,43 @@ def test_engine_matches_jax(art, mode, fused, kernels_interpret):
         assert r.case_metadata.court in (COURTS[1], COURTS[2])
     for r in got[5]:
         assert dt.date(1960, 1, 1) <= r.case_metadata.decision_date <= dt.date(1968, 1, 1)
+
+
+#: name, citation and phrase queries whose terms hit the fixture's texts:
+#: mixed case, punctuation that does (``self-incrimination``) and does not
+#: (``people,`` before a space) end on a word boundary, repeated terms
+SNIPPET_QUERIES = [
+    "Smith v. Jones Lumber Co.",
+    "347 U.S. 483 (1954)",
+    "NEGLIGENCE in maintaining the Gangway",
+    "The Fourth Amendment protects people, not places",
+    "self-incrimination privilege Self-Incrimination",
+    "separate but equal doctrine in public education",
+    "counsel for the indigent defendant",
+    "contract breach contract damages",
+]
+
+
+@pytest.mark.parametrize("mode", ["brute", "partitioned"])
+def test_engine_snippets_match_jax(art, mode, kernels_interpret):
+    """The fused path's snippets and highlights for queries whose terms
+    hit the texts: identical to the JAX engine's, matched without a regex
+    (the fixture's texts are ASCII)."""
+    jeng, peng = engines(art, fused_ann_mode=mode, use_fused_device_path=True,
+                          enable_query_cache=False)
+    share_embeddings(jeng, peng, SNIPPET_QUERIES)
+    cfg = dict(min_similarity=0.0)
+    want = jeng.search_batch([JaxQuery(query=q, config=JaxSearchConfig(**cfg)) for q in SNIPPET_QUERIES])
+    before = metrics.snapshot()["counters"]
+    got = peng.search_batch([SearchQuery(query=q, config=SearchConfig(**cfg)) for q in SNIPPET_QUERIES])
+    after = metrics.snapshot()["counters"]
+    _assert_same(got, want, bitwise=mode == "brute")
+    served = sum(len(r) for r in got)
+    assert after.get("snippet.terms_fast", 0) - before.get("snippet.terms_fast", 0) == served
+    assert after.get("snippet.terms_regex", 0) == before.get("snippet.terms_regex", 0)
+    lit = {r.snippet[h.start:h.end].lower() for g in got for r in g for h in r.highlights}
+    assert {"lumber", "negligence", "gangway", "self-incrimination", "counsel", "contract"} <= lit
+    assert "people," not in lit
 
 
 @pytest.mark.parametrize("use_brute", [True, False])

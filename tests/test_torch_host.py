@@ -6,6 +6,8 @@ maintenance tasks, the one-query trie search and the utils."""
 
 import dataclasses
 import datetime as dt
+import random
+import re
 import time
 import uuid
 
@@ -19,6 +21,7 @@ from trie_semantic_search_tpu.storage.store import StorageManager as JaxStorage
 from trie_semantic_search_tpu.text.processor import TextProcessor as JaxTextProcessor
 from trie_semantic_search_tpu_torch.core.config import Config, StorageConfig
 from trie_semantic_search_tpu_torch.core.errors import ConfigError, ValidationFailed
+from trie_semantic_search_tpu_torch.core.metrics import metrics
 from trie_semantic_search_tpu_torch.core.types import CaseMetadata, Jurisdiction
 from trie_semantic_search_tpu_torch.search.snippets import HighlightType, generate_snippet
 from trie_semantic_search_tpu_torch.storage.store import StorageManager
@@ -66,11 +69,80 @@ def test_text_processor_matches_jax(i):
 ])
 def test_generate_snippet_matches_jax(query, chunk, htype):
     for text in TEXTS:
-        got = generate_snippet(text, query, highlight_type=HighlightType(htype), chunk_text=chunk)
-        want = jax_snippet(text, query, highlight_type=JaxHighlightType(htype), chunk_text=chunk)
-        assert got[0] == want[0]
-        assert [(h.start, h.end, h.highlight_type.value) for h in got[1]] == \
-            [(h.start, h.end, h.highlight_type.value) for h in want[1]]
+        _assert_snippet_matches_jax(text, query, htype=htype, chunk_text=chunk)
+
+
+def _assert_snippet_matches_jax(text, query, htype="exact_match", **kw):
+    """The port's snippet and highlights equal the JAX package's; returns
+    the port's."""
+    got = generate_snippet(text, query, highlight_type=HighlightType(htype), **kw)
+    want = jax_snippet(text, query, highlight_type=JaxHighlightType(htype), **kw)
+    assert got[0] == want[0], (text, query, kw)
+    assert [(h.start, h.end, h.highlight_type.value) for h in got[1]] == \
+        [(h.start, h.end, h.highlight_type.value) for h in want[1]], (text, query, kw)
+    return got
+
+
+def _snippet_counters():
+    c = metrics.snapshot()["counters"]
+    return c.get("snippet.terms_fast", 0), c.get("snippet.terms_regex", 0)
+
+
+#: words of the random cases: punctuation terms, terms that are prefixes of
+#: one another in mixed case, digits and ``_``
+SNIPPET_WORDS = ["v.", "U.S.", "U.S", "(1973)", "-", "a", "ab", "ab.", "abc", "Ab", "AB", "the",
+                 "The", "THE", "co.", "Co", "x_1", "_", "1", "12", "123", "..", ","]
+#: letters that ``re``'s case folding maps to ASCII ones (``ſ`` to ``s``, the
+#: Kelvin sign to ``k``, ``İ``/``ı`` to ``i``), and others that it does not
+SNIPPET_NON_ASCII = ["ſ", "K", "İ", "ı", "é", "café", "§", "s", "k", "i", "I"]
+SNIPPET_SEPS = [" ", " ", " ", "", "", ", ", ". ", "\n", "  ", "-", "_"]
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_generate_snippet_random_cases_match_jax(seed):
+    """Seeded random texts and queries, on the ASCII fast path and on the
+    regex fallback: repeated terms, matches at the text's and the window's
+    edges (windows down to 8 characters), texts with no match with and
+    without ``chunk_text``."""
+    rng = random.Random(seed)
+    fast0, regex0 = _snippet_counters()
+    for _ in range(1000):
+        words = SNIPPET_WORDS + (SNIPPET_NON_ASCII if rng.random() < 0.3 else [])
+        text = "".join(rng.choice(words) + rng.choice(SNIPPET_SEPS) for _ in range(rng.randint(0, 60)))
+        query = " ".join(rng.choice(words) for _ in range(rng.randint(0, 6)))
+        chunk = rng.choice([None, text[rng.randint(0, len(text)):][:30] or None, "zzz not there"])
+        _assert_snippet_matches_jax(text, query, htype=rng.choice(list(HighlightType)).value,
+                                    window=rng.choice([8, 20, 40, 240]), chunk_text=chunk)
+    fast1, regex1 = _snippet_counters()
+    assert fast1 - fast0 > 400 and regex1 - regex0 > 100
+
+
+def test_generate_snippet_fast_path_compiles_nothing(monkeypatch):
+    """A phrase query of the benchmark's shape over ASCII text counts on
+    ``snippet.terms_fast`` and compiles no regex; non-ASCII text counts on
+    ``snippet.terms_regex`` and compiles the terms' pattern."""
+    compiled = []
+    compile_ = re.compile
+    monkeypatch.setattr(re, "compile", lambda *a, **k: compiled.append(a[0]) or compile_(*a, **k))
+    text = ("Zobaku lenavi tarupe misoda kelavo rutina in part 0 of case 4711. "
+            "Lomeka visaru denobi fasuke tolimo garupe in part 1 of case 4711. "
+            "Nivaro pedusa kolime zabutu lenavi sorake in part 2 of case 4711.")
+    phrase = "melota karuse LENAVI bidosa pakume tivoru case dinabe folaru nekasi 4711 rovate"
+    fast0, regex0 = _snippet_counters()
+    snippet, highlights = _assert_snippet_matches_jax(text, phrase, htype="semantic_match",
+                                                      chunk_text="Lomeka visaru denobi")
+    assert [snippet[h.start:h.end] for h in highlights] == \
+        ["lenavi", "case", "4711", "case", "4711", "lenavi", "case", "4711"]
+    _assert_snippet_matches_jax(text, "Gaborin v. Tesuka", htype="case_name")
+    _assert_snippet_matches_jax(text, "12 U.S. 345", htype="citation")
+    assert _snippet_counters() == (fast0 + 3, regex0)
+    n_jax = len(compiled)  # the JAX package's generate_snippet compiles per query
+    for query, htype in ((phrase, "semantic_match"), ("Gaborin v. Tesuka", "case_name"), ("12 U.S. 345", "citation")):
+        generate_snippet(text, query, highlight_type=HighlightType(htype))
+    assert len(compiled) == n_jax
+    _assert_snippet_matches_jax("Café " + text, phrase + " sfr-only-here", htype="exact_match")
+    assert _snippet_counters() == (fast0 + 6, regex0 + 1)
+    assert len(compiled) > n_jax
 
 
 def test_config_from_file_matches_jax(tmp_path, monkeypatch):
