@@ -18,8 +18,8 @@ from pathlib import Path
 
 import numpy as np
 
-from . import check, data, drivers, store, sut, trace, weights
-from .reference import bert, search, wordpiece
+from . import check, data, drivers, encoders, store, sut, trace
+from .reference import search, wordpiece
 
 ROOT = Path(__file__).resolve().parent.parent
 #: top-level module names a run may not load (the port's own name begins
@@ -67,19 +67,23 @@ def load_spec(name: str, root: Path = ROOT) -> Spec:
 
 
 def listing(root: Path = ROOT) -> list[str]:
-    """One line per cell: its configuration and traffic files and its
-    metrics with their readers; raises where a file is missing."""
+    """One line per cell: its configuration and traffic files, its
+    encoder's architecture and plug-in file, and its metrics with their
+    readers; raises where a file is missing."""
     bench = json.loads((root / "BENCHMARK.json").read_text())
     out = []
     for wl in bench["workloads"]:
         spec = load_spec(wl["name"], root)
         files = [next(c["file"] for c in bench["configs"] if c["name"] == wl["config"]),
                  f"benchmark/traffic/{wl['traffic']}.json"]
+        enc = spec.config["encoder"]
+        plugin = Path(encoders.load(enc).__file__).resolve().relative_to(root.resolve())
         metrics = [m["name"] for m in spec.end_to_end + spec.per_layer]
         for m in metrics:
             if not (root / "benchmark" / "metrics" / f"{m}.py").is_file():
                 raise FileNotFoundError(f"{wl['name']}: no reader for {m}")
-        out.append(f"{wl['name']}: {' '.join(files)} driver={spec.traffic['driver']} metrics={','.join(metrics)}")
+        out.append(f"{wl['name']}: {' '.join(files)} arch={enc['arch']} encoder={plugin} "
+                   f"driver={spec.traffic['driver']} metrics={','.join(metrics)}")
     return out
 
 
@@ -178,15 +182,14 @@ def prepare(spec: Spec, seed: int, seconds: float, trace_on: bool, device: str, 
         prep.queries = queries = data.make_queries(traffic, n, cases, seed)
         prep.warm_queries = data.make_queries(traffic, int(traffic["warm_queries"]), cases, seed + 1)
         timings["inputs_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        prep.weights = w = weights.make_weights(torch, enc, seed, device)
-        timings["weights_s"] = time.perf_counter() - t0
+        prep.encoder = plugin = encoders.load(enc)
 
-        # the reference's own work (its tokens and embeddings of the pool,
-        # which the planting needs) is timed apart and left out of setup_s
+        # the reference's own work (its weights, tokens and embeddings of
+        # the pool, which the planting needs) is timed apart and left out of
+        # setup_s
         t0 = time.perf_counter()
         prep.token_ids = [wordpiece.token_ids(q.text, vocab, enc["max_position_embeddings"]) for q in queries]
-        prep.ref_emb = ref_emb = bert.encode(torch, w, enc, prep.token_ids)
+        prep.ref_emb = ref_emb = plugin.reference_embeddings(torch, enc, seed, prep.token_ids, device)
         if device == "cuda":
             torch.cuda.synchronize()
         timings["reference_s"] = time.perf_counter() - t0
@@ -203,7 +206,7 @@ def prepare(spec: Spec, seed: int, seconds: float, trace_on: bool, device: str, 
         trie = sut.build_trie(cases, device)
         timings["trie_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        embedder = sut.build_embedder(torch, enc, w, vocab, device)
+        embedder = sut.build_embedder(plugin.build_model(torch, enc, seed, device), vocab, device)
         timings["encoder_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         timings.update(store.finish(writer, db))
@@ -281,8 +284,8 @@ def judge(prep: Session, answers: dict, control: bool = False):
                "bad_results": {"value": v.bad_results, "limit": limits["bad_results"]}}
     ctrl = None
     if control:
-        emb = bert.encode(torch, prep.weights, prep.cfg["encoder"], [prep.token_ids[i] for i in sample],
-                          precision="fp8")
+        emb = prep.encoder.reference_embeddings(torch, prep.cfg["encoder"], prep.seed,
+                                                [prep.token_ids[i] for i in sample], prep.device, "fp8")
         cv = check.judge(prep.queries, check.as_answers(expected_for(emb), prep.cases), expected, prep.cases,
                          limits["score_gap"])
         ctrl = {"score_gap": cv.score_gap, "bad_results": cv.bad_results, "recall": cv.recall}

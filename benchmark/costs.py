@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import math
 
+from . import encoders
+
 #: NVIDIA H100 SXM peaks (NVIDIA's data sheet, dense): bytes/s of HBM3 and
 #: bf16 tensor-core FLOP/s, at the 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -15,12 +17,9 @@ BF16_FLOP_PER_S = 989e12
 
 def encoder_flops(enc: dict, tokens: list[int]) -> float:
     """FLOPs of the encoder over queries of ``tokens`` real tokens each
-    (``[CLS]`` and ``[SEP]`` included, padding not): per layer the four
-    H×H projections and the two H×I FFN products (2 FLOPs a multiply-add
-    per token), plus the attention's scores and context (2·n²·H each)."""
-    H, I_, L = enc["hidden_size"], enc["intermediate_size"], enc["num_hidden_layers"]
-    per_token = 2 * (4 * H * H + 2 * H * I_)
-    return float(L * sum(n * per_token + 4 * n * n * H for n in tokens))
+    (``[CLS]`` and ``[SEP]`` included, padding not), as the plug-in of its
+    architecture counts them."""
+    return encoders.load(enc).flops(enc, tokens)
 
 
 def partition_bytes(slots: int, dim: int) -> int:

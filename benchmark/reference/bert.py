@@ -9,28 +9,9 @@ activation per row), the step below bf16."""
 
 from __future__ import annotations
 
-import contextlib
 import math
 
-
-@contextlib.contextmanager
-def exact_f32(torch):
-    """Matrix products in full float32 (no TF32) inside the block."""
-    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
-           torch.get_float32_matmul_precision())
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old[:2]
-        torch.set_float32_matmul_precision(old[2])
-
-
-def _fp8(torch, x, dim: int):
-    scale = x.abs().amax(dim=dim, keepdim=True).clamp(min=1e-12) / 448.0
-    return (x / scale).to(torch.float8_e4m3fn).to(torch.float32) * scale
+from . import encode_batches, fp8
 
 
 def _ln(torch, x, scale, bias, eps: float):
@@ -46,10 +27,10 @@ def _encode_batch(torch, w: dict, enc: dict, ids, mask, precision: str):
     B, L = ids.shape
 
     def r(x):  # a rounding site of the compute precision
-        return _fp8(torch, x, -1) if precision == "fp8" else x
+        return fp8(torch, x, -1) if precision == "fp8" else x
 
     def linear(x, kernel, bias):
-        kernel = _fp8(torch, kernel, -2) if precision == "fp8" else kernel
+        kernel = fp8(torch, kernel, -2) if precision == "fp8" else kernel
         return r(x @ kernel + bias)
 
     h = w["embeddings.word"][ids] + w["embeddings.position"][:L][None] + w["embeddings.token_type"][0]
@@ -72,20 +53,6 @@ def _encode_batch(torch, w: dict, enc: dict, ids, mask, precision: str):
 
 def encode(torch, w: dict, enc: dict, id_lists: list[list[int]], precision: str = "f32", batch: int = 512):
     """Sentence embeddings ``[Q, H]`` (f32, on the weights' device) of
-    token-id lists; each batch pads to its longest list under the mask,
-    which leaves every embedding as it is alone."""
-    dev = w["embeddings.word"].device
-    order = sorted(range(len(id_lists)), key=lambda i: len(id_lists[i]))
-    out = torch.empty((len(id_lists), enc["hidden_size"]), device=dev)
-    with exact_f32(torch), torch.no_grad():
-        for s in range(0, len(order), batch):
-            sel = order[s : s + batch]
-            L = max(len(id_lists[i]) for i in sel)
-            ids = torch.zeros((len(sel), L), dtype=torch.long)
-            mask = torch.zeros((len(sel), L), dtype=torch.long)
-            for r, i in enumerate(sel):
-                ids[r, : len(id_lists[i])] = torch.as_tensor(id_lists[i])
-                mask[r, : len(id_lists[i])] = 1
-            out[torch.as_tensor(sel, device=dev)] = _encode_batch(
-                torch, w, enc, ids.to(dev), mask.to(dev), precision)
-    return out
+    token-id lists."""
+    return encode_batches(torch, lambda ids, mask: _encode_batch(torch, w, enc, ids, mask, precision), id_lists,
+                          enc["hidden_size"], w["embeddings.word"].device, batch)

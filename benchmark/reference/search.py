@@ -23,7 +23,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from .. import data
-from .bert import exact_f32
+from . import exact_f32
 
 _WORD = re.compile(r"\w+")
 

@@ -2,7 +2,8 @@
 inputs, assembled the way the repository's chip smoke script assembles it
 (the partition-major layout is attached to a ``PartitionedANN``; the port
 has no public call for that yet). Every object here is the port's; the
-benchmark only hands it the seeded rows, cases, vocabulary and weights."""
+benchmark only hands it the seeded rows, cases, vocabulary and the encoder
+module its plug-in built (``benchmark/encoders/``)."""
 
 from __future__ import annotations
 
@@ -36,26 +37,12 @@ def build_trie(cases: data.Cases, device):
     return trie
 
 
-def encoder_config(enc: dict):
-    from trie_semantic_search_tpu_torch.models.minilm import MiniLMConfig
-
-    return MiniLMConfig(
-        vocab_size=enc["vocab_size"], hidden_size=enc["hidden_size"], num_layers=enc["num_hidden_layers"],
-        num_heads=enc["num_attention_heads"], intermediate_size=enc["intermediate_size"],
-        max_position=enc["max_position_embeddings"], type_vocab_size=enc["type_vocab_size"],
-        layer_norm_eps=enc["layer_norm_eps"],
-    )
-
-
-def build_embedder(torch, enc: dict, weights: dict, vocab: dict, device):
+def build_embedder(model, vocab: dict, device):
+    """The port's ``Embedder``: WordPiece over ``vocab`` and the encoder
+    module that the configuration's plug-in built."""
     from trie_semantic_search_tpu_torch.models.embedder import Embedder
-    from trie_semantic_search_tpu_torch.models.minilm import MiniLM
     from trie_semantic_search_tpu_torch.models.tokenizer import WordPieceTokenizer
 
-    model = MiniLM(encoder_config(enc), device=device)
-    with torch.no_grad():
-        for key, p in model.named_parameters():
-            p.copy_(weights[key])
     return Embedder(tokenizer=WordPieceTokenizer(vocab), model=model, device=device)
 
 

@@ -91,7 +91,7 @@ def test_rates_are_whole_window():
 
 
 def test_counts_from_shapes():
-    enc = {"hidden_size": 384, "intermediate_size": 1536, "num_hidden_layers": 6}
+    enc = {"arch": "bert", "hidden_size": 384, "intermediate_size": 1536, "num_hidden_layers": 6}
     # one 10-token query: per layer 2*(4*384^2 + 2*384*1536) per token plus 4*n^2*H
     want = 6 * (10 * 2 * (4 * 384 * 384 + 2 * 384 * 1536) + 4 * 100 * 384)
     assert costs.encoder_flops(enc, [10]) == want
