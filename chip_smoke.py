@@ -50,6 +50,21 @@ What it does, in order (any failure exits non-zero before the last line):
    ``torch._int_mm`` of the same int8 product beside them, then once
    through each variant's path, the public op ``fused_int8_topk`` at
    D=384 and at D=48. Launch counts are reset just before each path.
+4W. The DeepSeek-V2-Lite cell's kernels at D=2048 (``wide_phase``): the
+   fused scan's tensor-core variant, a row in parts of K, over the B=256
+   stream slab of 163,840 random rows at T = 2, 3 and 5, filters on and
+   off, and the probe at B=64, nprobe 64 over 5,120 partitions of 1,024
+   slots (filtered, padding slots), each bitwise against its plain
+   version and timed; the scan counts (path ``wide D=2048``) must show no
+   dp4a launch. The routed experts' grouped products (``ops/moe.py``,
+   ``torch._grouped_mm``) against the plain per-expert loop at 2,048 x
+   1,408, top 6, over 3,395 tokens routed with a skew, at 64 experts and
+   at 60, and over 20 tokens (most experts idle), within ``MOE_TOL`` of
+   the output's norm; the grouped GEMM timed, its kernel found by
+   ``moe.KERNEL_NAME``. Then ``Embedder.embed`` of 256 queries through
+   ``DeepseekV2.encode`` at the published widths, three layers (one
+   dense, two MoE): ``moe.LAUNCHES``, reset just before, must read one
+   grouped call a MoE layer, and the rows unit norm.
 5. Build, ANN at full size: the corpus rows of phase 3, in generation
    order, as f32 on the host, through ``PartitionedANN(AnnConfig(),
    device="cuda").build`` (P=5120 by ``_auto_partitions``; k-means on a
@@ -323,10 +338,11 @@ call held on the ``build``, ``case_tuner``, ``stream_ann``,
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 
-``python3 chip_smoke.py --only kernels`` runs phases 1, 2 and 4 (and the
-card state of 3) and skips the builds, serving, the profile, the store and
+``python3 chip_smoke.py --only kernels`` runs phases 1, 2, 4 and 4W (and
+the card state of 3) and skips the builds, serving, the profile, the store and
 the engine: about a minute, for iterating on a kernel. Its serving kernels
-print ``"launches": null``. ``--only int8-ablations`` builds the ablation
+print ``"launches": null``. ``--only wide`` runs phases 1, 2 and 4W alone
+(about two minutes). ``--only int8-ablations`` builds the ablation
 variants of the int8 top-k's wgmma kernel (``TSS_INT8_TOPK_ABLATE``) and
 prints the device time of each at B=256, k=32 over the corpus of phase 3.
 ``--only stream`` runs phases 1, 2, 5, 5b, 6 and 6a: the builds and their
@@ -1074,6 +1090,186 @@ def kernel_phases(torch, np, fused, vi, report):
     )
     report(out["gather_rescore"])
     return out
+
+
+#: the DeepSeek-V2-Lite bulk cell's shapes: rows of its hidden size, the
+#: stream's 256-query slab, the probe's 64 queries x 64 probes over 5,120
+#: partitions of 1,024 slots, and its routed experts (64 of 1,408, top 6)
+#: over a B=256 batch's real tokens
+WIDE_D, WIDE_SLAB, WIDE_P, WIDE_M = 2048, 163_840, 5120, 1024
+MOE_E, MOE_F, MOE_K, MOE_TOKENS = 64, 1408, 6, 3395
+#: the grouped products against the plain loop, relative to the output's
+#: norm: the grouped GEMM sums in another order, so a projection's bf16
+#: rounding moves by a unit in the last place now and then (not bitwise)
+MOE_TOL = 2e-3
+
+
+def wide_scan_inputs(torch, g, dev, B, D, N):
+    """Random int8 queries and rows with their scales and filter columns
+    (courts 0-39, dates 0-999), for the stream at ``D``."""
+    from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
+
+    q8 = torch.randint(-128, 128, (B, D), generator=g, device=dev, dtype=torch.int16).to(torch.int8)
+    rows = torch.randint(-128, 128, (N, D), generator=g, device=dev, dtype=torch.int16).to(torch.int8)
+    qs = torch.rand((B, 1), generator=g, device=dev) * 1e-3 + 1e-4
+    cs = torch.rand((N, 1), generator=g, device=dev) * 1e-3 + 1e-4
+    court = torch.randint(0, 40, (N,), generator=g, device=dev, dtype=torch.int32)
+    date = torch.randint(0, 1000, (N,), generator=g, device=dev, dtype=torch.int32)
+    table = torch.rand((B, 40), generator=g, device=dev) < 0.7
+    lo = torch.randint(0, 300, (B,), generator=g, device=dev, dtype=torch.int32)
+    hi = torch.randint(600, 1000, (B,), generator=g, device=dev, dtype=torch.int32)
+    mins = torch.full((B,), -1e30, device=dev)
+    return q8, rows, sk.fused_scan_inputs(qs, court, date, table, lo, hi, mins, cs)
+
+
+def wide_phase(torch, np, seed: int, dev: str = "cuda") -> tuple[dict, dict]:
+    """The DeepSeek-V2-Lite bulk cell's kernels at its shapes. The fused
+    scan's tensor-core variant (a row in parts of K) over the B=256 stream
+    slab at D=2048, T = 2, 3 and 5, filters on and off, and the probe at
+    B=64, nprobe 64, filtered, some slots padding, both bitwise against
+    their plain versions and timed (the scan counts reset just before,
+    read just after: the dp4a variant must not run). Then the routed
+    experts' grouped products against the plain per-expert loop at 64
+    experts and at 60 (no power of two), under a skewed routing, timed,
+    and the grouped GEMM's kernel found by ``moe.KERNEL_NAME``. Then the
+    main path, ``Embedder.embed`` of 256 queries through
+    ``DeepseekV2.encode`` at the published widths over three layers (one
+    dense, two MoE), with ``moe.LAUNCHES`` reset just before and read just
+    after. Returns the figures and the scan launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from trie_semantic_search_tpu_torch.models import deepseek_v2 as dsv2
+    from trie_semantic_search_tpu_torch.models.embedder import Embedder
+    from trie_semantic_search_tpu_torch.models.tokenizer import SPECIALS, WordPieceTokenizer
+    from trie_semantic_search_tpu_torch.ops import moe
+    from trie_semantic_search_tpu_torch.ops import scan_kernels as sk
+
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 2048)
+    out: dict = {}
+    sk.reset_launch_counts()
+    q8, slab, inp = wide_scan_inputs(torch, g, dev, 256, WIDE_D, WIDE_SLAB)
+    for T in (2, 3, 5):
+        if sk.fused_scan_variant(WIDE_D, T) != "wgmma":
+            raise AssertionError(f"the fused scan at D={WIDE_D} T={T} is not on the tensor-core variant")
+        for filt in (False, True):
+            kw = dict(corpus_q=slab, n_keep=T, use_court=filt, use_date=filt, **inp)
+            kv, ki = sk.fused_scan_cuda(q8, **kw)
+            pv, pi = sk.fused_scan_plain(q8, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(kv.view(torch.int32), pv.view(torch.int32)) and torch.equal(ki, pi)):
+                raise AssertionError(f"fused scan differs from plain at D={WIDE_D} T={T} filters={filt}")
+    kw = dict(corpus_q=slab, n_keep=2, use_court=False, use_date=False, **inp)
+    ms, _ = device_ms(torch, lambda: sk.fused_scan_cuda(q8, **kw), 20, "fused_scan")
+    nbytes = WIDE_SLAB * (WIDE_D + 4)
+    out["fused_scan_ms"], out["fused_scan_roofline"] = ms, 100.0 * nbytes / HBM_BPS * 1e3 / ms
+    log(f"  fused scan D={WIDE_D}: 6 cases (T = 2, 3, 5, filters on/off) over the B=256 slab of {WIDE_SLAB} "
+        f"rows bitwise equal to the plain version; device {ms:.4f} ms a slab at T=2, "
+        f"{out['fused_scan_roofline']:.1f}% of the slab's byte bound")
+    del slab, inp
+
+    B, NP = 64, 64
+    part = torch.randint(-128, 128, (WIDE_P, WIDE_M, WIDE_D), generator=g, device=dev,
+                         dtype=torch.int16).to(torch.int8)
+    q8 = q8[:B].contiguous()
+    qs = torch.rand((B,), generator=g, device=dev) * 1e-3 + 1e-4
+    ps = torch.rand((WIDE_P, WIDE_M), generator=g, device=dev) * 1e-3 + 1e-4
+    top_p = torch.randint(0, WIDE_P, (B, NP), generator=g, device=dev, dtype=torch.int32)
+    rows = torch.arange(WIDE_P * WIDE_M, dtype=torch.int32, device=dev).reshape(WIDE_P, WIDE_M)
+    rows[:, -7:] = -1
+    court = torch.randint(0, 40, (WIDE_P, WIDE_M), generator=g, device=dev, dtype=torch.int32)
+    pdate = torch.randint(0, 1000, (WIDE_P, WIDE_M), generator=g, device=dev, dtype=torch.int32)
+    args = (q8, qs, top_p, part, ps, rows, court // 32, (1 << (court % 32)).to(torch.int32), pdate,
+            sk.pack_court_words(torch.rand((B, 40), generator=g, device=dev) < 0.7),
+            torch.randint(0, 300, (B,), generator=g, device=dev, dtype=torch.int32),
+            torch.randint(600, 1000, (B,), generator=g, device=dev, dtype=torch.int32),
+            torch.full((B,), -1e30, device=dev))
+    kv, ks = sk.probe_candidates_cuda(*args)
+    pv, ps_ = sk.probe_candidates_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(kv.view(torch.int32), pv.view(torch.int32)) and torch.equal(ks, ps_)):
+        raise AssertionError(f"probe differs from plain at D={WIDE_D}")
+    ms, kernels = device_ms(torch, lambda: sk.probe_candidates_cuda(*args), 10, "probe_candidates")
+    uniq = int(torch.unique(top_p).numel())
+    out["probe_ms"], out["probe_kernels"] = ms, kernels
+    log(f"  probe D={WIDE_D}: B={B} nprobe={NP} over {WIDE_P} x {WIDE_M} slots ({uniq} distinct partitions, "
+        f"filtered, 7 padding slots each) bitwise equal to the plain version; device {ms:.4f} ms")
+    del part, args, kv, pv
+    launches = dict(sk.LAUNCHES)
+    if launches["fused_scan"] <= 0 or launches["probe_candidates"] <= 0 or launches["fused_scan_dp4a"]:
+        raise AssertionError(f"scan launches at D={WIDE_D}: {launches}")
+    torch.cuda.empty_cache()
+
+    H = WIDE_D
+    out["moe"] = {}
+    for E, n in ((MOE_E, MOE_TOKENS), (60, MOE_TOKENS), (MOE_E, 20)):
+        gm = torch.Generator(device=dev).manual_seed(seed + E * n)
+        wg, wu = ((torch.randn((E, H, MOE_F), generator=gm, device=dev) / H ** 0.5).to(torch.bfloat16)
+                  for _ in "gu")
+        wd = (torch.randn((E, MOE_F, H), generator=gm, device=dev) / MOE_F ** 0.5).to(torch.bfloat16)
+        x = torch.randn((n, H), generator=gm, device=dev).to(torch.bfloat16)
+        logits = torch.randn((n, E), generator=gm, device=dev) + 1.5 * torch.randn((E,), generator=gm, device=dev)
+        w, idx = torch.topk(torch.softmax(logits, -1), MOE_K, dim=-1)
+        moe.reset_launch_counts()
+        got = moe.grouped_expert_ffn(x, idx, w, wg, wu, wd)
+        want = moe.grouped_expert_ffn_plain(x, idx, w, wg, wu, wd)
+        rel = float((got - want).norm() / want.norm())
+        if moe.LAUNCHES["grouped_expert_ffn"] != 1 or not rel < MOE_TOL:
+            raise AssertionError(f"grouped experts E={E} n={n}: {moe.LAUNCHES}, rel {rel:.3g} (tolerance {MOE_TOL})")
+        counts = torch.bincount(idx.reshape(-1), minlength=E)
+        rec = dict(rel=rel, busiest_over_mean=float(counts.max()) * E / (n * MOE_K),
+                   idle_experts=int((counts == 0).sum()))
+        if (E, n) == (MOE_E, MOE_TOKENS):
+            fn = lambda: moe.grouped_expert_ffn(x, idx, w, wg, wu, wd)  # noqa: E731
+            fn()
+            torch.cuda.synchronize()
+            reps = 10
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            by_name = {e.key: dev_us(e) / 1e3 / reps for e in prof.key_averages() if on_device(e)}
+            gemm = {k: v for k, v in by_name.items() if moe.KERNEL_NAME in k}
+            if not gemm:
+                raise AssertionError(f"no device kernel holds {moe.KERNEL_NAME!r}: {sorted(by_name)}")
+            least = max(2.0 * 3 * H * MOE_F * MOE_K * n / BF16_FLOPS, 3.0 * E * H * MOE_F * 2 / HBM_BPS) * 1e3
+            rec.update(device_ms=sum(by_name.values()), grouped_gemm_ms=sum(gemm.values()), least_ms=least,
+                       grouped_gemm_roofline=100.0 * least / sum(gemm.values()),
+                       call_ms=cuda_ms(torch, fn, reps), plain_ms=cuda_ms(torch, lambda: moe.grouped_expert_ffn_plain(
+                           x, idx, w, wg, wu, wd), 2),
+                       kernels={k[:160]: v for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])})
+            log(f"  grouped experts E={E} n={n}: device {rec['device_ms']:.4f} ms a layer, of it the grouped "
+                f"GEMMs {rec['grouped_gemm_ms']:.4f} ms ({rec['grouped_gemm_roofline']:.1f}% of the least "
+                f"{least:.4f} ms); call {rec['call_ms']:.4f} ms, plain loop {rec['plain_ms']:.4f} ms")
+            for k, v in list(rec["kernels"].items())[:8]:
+                log(f"    {v:8.4f} ms  {k}")
+        out["moe"][f"E={E} n={n}"] = rec
+        log(f"  grouped experts E={E} n={n}: within {rel:.3g} of the plain loop (tolerance {MOE_TOL}); "
+            f"busiest expert {rec['busiest_over_mean']:.2f}x the mean, {rec['idle_experts']} idle")
+        del wg, wu, wd, x, got, want
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(dsv2.DeepseekV2Config(), num_hidden_layers=3)
+    vocab = {t: i for i, t in enumerate([*SPECIALS, *WORDS])}
+    emb = Embedder(tokenizer=WordPieceTokenizer(vocab), model=dsv2.DeepseekV2(cfg, device=dev, seed=seed),
+                   device=dev)
+    rng = np.random.default_rng(seed)
+    texts = [" ".join(rng.choice(WORDS, rng.integers(4, 25))) for _ in range(256)]
+    emb.embed(texts)  # warm
+    moe.reset_launch_counts()
+    t0 = time.perf_counter()
+    e = emb.embed(texts).embedding
+    out["encode_s"] = time.perf_counter() - t0
+    out["main_path_launches"] = dict(moe.LAUNCHES)
+    norms = np.linalg.norm(e, axis=1)
+    if moe.LAUNCHES["grouped_expert_ffn"] != cfg.n_moe_layers or not np.allclose(norms, 1.0, atol=1e-3):
+        raise AssertionError(f"Embedder -> DeepseekV2.encode: launches {moe.LAUNCHES} (want "
+                             f"{cfg.n_moe_layers}), norms {norms.min():.4f}-{norms.max():.4f}")
+    log(f"  Embedder.embed of 256 queries through DeepseekV2.encode (published widths, 3 layers): "
+        f"launches {out['main_path_launches']}, {out['encode_s'] * 1e3:.1f} ms, unit-norm rows")
+    del emb
+    torch.cuda.empty_cache()
+    return out, launches
 
 
 #: small int8 top-k cases (B, D, N, k, share of scale-0 rows, duplicate
@@ -4629,9 +4825,10 @@ def cli_fresh_lifecycle(root: Path) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["kernels", "int8-ablations", "stream", "train", "mesh", "build"],
+    ap.add_argument("--only", choices=["kernels", "wide", "int8-ablations", "stream", "train", "mesh", "build"],
                     help="kernels: the device, kernel build, small-reference and kernel phases "
-                         "only (no index builds, serving, profile, store or engine); "
+                         "only (no index builds, serving, profile, store or engine); wide: phase 4W "
+                         "alone (the DeepSeek-V2-Lite cell's kernels at D=2048 and its routed experts); "
                          "int8-ablations: the device time of each ablation build of the int8 "
                          "top-k's wgmma variant at its timed case; stream: the build phases only "
                          "(A with S1, B with S2 and the evaluation), with no kernel timing, "
@@ -4664,7 +4861,7 @@ def main() -> int:
 
     if args.m5_rank is not None:
         return m5_child(torch, np, sk, args.m5_rank, args.m5_port, Path(args.m5_dir), args.seed)
-    if args.only in ("kernels", "int8-ablations"):
+    if args.only in ("kernels", "wide", "int8-ablations"):
         return run(torch, np, sk, args.seed, "", None, only=args.only)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         if args.only:
@@ -4794,6 +4991,11 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None,
         note_errs(kernels, detail["train"]["t2"]["plain_err"])
         log(f"  {card}: phase T {detail['train']['seconds']:.1f} s")
 
+    if only == "wide":
+        log(f"phase: W, the DeepSeek-V2-Lite cell's kernels at D={WIDE_D}")
+        paths = {}
+        detail["wide"], paths[f"wide D={WIDE_D}"] = wide_phase(torch, np, seed)
+        return finish(torch, detail, {}, paths, out_dir, card, t_start)
     if only in ("stream", "build"):
         paths: dict = {}
         build_phases({}, paths, full=only == "stream")
@@ -4842,6 +5044,13 @@ def run(torch, np, sk, seed: int, db_path: str, store, only: str | None = None,
     log(f"  launches on the fused_int8_topk path: {i8launches}; at D=48: {i8dp4a_launches}")
     paths = {"fused_int8_topk": i8launches, "fused_int8_topk D=48": i8dp4a_launches,
              "fused_scan_topk T=17": dp4a_launches}
+    log(f"phase: W, the DeepSeek-V2-Lite cell's kernels at D={WIDE_D} (probe and fused scan vs plain, the "
+        "routed experts' grouped products vs the plain loop, then Embedder -> DeepseekV2.encode with the "
+        "counts reset just before, read just after)")
+    t0 = time.perf_counter()
+    detail["wide"], paths[f"wide D={WIDE_D}"] = wide_phase(torch, np, seed)
+    detail["wide"]["seconds"] = time.perf_counter() - t0
+    log(f"  {card}: phase W {detail['wide']['seconds']:.1f} s")
     if only == "kernels":
         for k in SERVING_KERNELS:
             kernels[k]["launches"] = None

@@ -92,9 +92,11 @@ def test_fused_scan_matches_pallas(tile_n, lanes, V, k, use_court, use_date, dup
     (384, 3, "wgmma"),   # the engine's k=64 bucket
     (384, 5, "wgmma"),   # the engine's k=128 bucket
     (80, 1, "wgmma"),    # D % 32 == 16
-    (896, 16, "wgmma"),  # the longest list and widest row it takes
+    (896, 16, "wgmma"),  # the longest list, the widest row a stage holds whole
     (384, 17, "dp4a"),   # T beyond the tensor-core lists
-    (912, 2, "dp4a"),    # a row wider than two ring stages
+    (912, 2, "wgmma"),   # a row the ring takes in parts of K
+    (2048, 2, "wgmma"),  # the widest row it takes (DeepSeek-V2-Lite's)
+    (2064, 2, "dp4a"),   # a row wider than that
     (1024, 64, "dp4a"),  # the longest list the wrapper takes
 ])
 def test_fused_scan_variant(D, T, variant):

@@ -6,8 +6,9 @@ The served batch's spans live here. ``timed`` spans the parents
 (``search_batch``, ``fused_embed``, ``fused_device``); ``leaf`` spans the
 contiguous parts inside them and, while a ``torch.profiler`` records the
 calling thread, also opens a ``record_function`` range of the same name on
-the profiler's clock. Work interleaved per result (gunzip, the sentence
-split, the snippet) is summed by its caller and recorded once with
+the profiler's clock; ``profile_range`` opens only the range, for device
+work the host merely enqueues. Work interleaved per result (gunzip, the
+sentence split, the snippet) is summed by its caller and recorded once with
 ``histogram(name).observe``. Each histogram also keeps its newest
 observations with their end times, so :meth:`MetricsRegistry.between`
 gives a span's count and total over any recent stretch of
@@ -132,6 +133,18 @@ class MetricsRegistry:
             if rng is not None:
                 rng.__exit__(None, None, None)
             self.histogram(name).observe((t1 - t0) * 1000, t1)
+
+    @contextlib.contextmanager
+    def profile_range(self, name: str) -> Iterator[None]:
+        """A ``torch.profiler`` range of ``name`` while a profiler records
+        this thread, and no histogram: for device work the host only
+        enqueues (an encoder's layers), whose host time says nothing."""
+        rng = _profiler_range(name)
+        try:
+            yield
+        finally:
+            if rng is not None:
+                rng.__exit__(None, None, None)
 
     def between(self, t0: float, t1: float) -> dict[str, tuple[int, float]]:
         """``{name: (count, total ms)}`` of each histogram's observations that

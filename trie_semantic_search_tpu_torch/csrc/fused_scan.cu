@@ -22,7 +22,7 @@
 // Two variants. The caller picks one by T and D (fused_scan_variant in
 // ops/scan_kernels.py), explicitly and never as a fallback:
 //
-// * tss_fused_scan_wgmma, T <= 16 and D <= 896 (every serving T: the
+// * tss_fused_scan_wgmma, T <= 16 and D <= 2048 (every serving T: the
 //   engine's k buckets give T = 2, 3, 5). The products run on the int8
 //   tensor cores (wgmma m64n64k32 .s32.s8.s8).
 // * tss_fused_scan_dp4a, any T up to 64: products as __dp4a on CUDA cores
@@ -47,12 +47,20 @@
 //   box is 8 tiles x 8 lanes x 128 bytes of K (128B swizzle; bytes past D
 //   and tiles past N/128 read 0), so shared row c = 8 j + i holds lane
 //   l0 + i of tile 8 step + j; the row columns (scale, court word and
-//   bit, date) come with it, 8 x 8 values each.
+//   bit, date) come with it, 8 x 8 values each. Up to D = 896 a stage
+//   holds a whole step; wider, the query tile takes most of shared memory
+//   (128 KB at D = 2048) and a stage holds one box of K, so a step goes
+//   through the ring in ceil(D / 128) parts (six stages at D = 2048), its
+//   columns with the first part. Such a block takes 4 lanes and 16 tiles a
+//   step (still 64 rows, the wgmma N), so twice the blocks (128 for B=256)
+//   keep twice the copies in flight, with 8 updater warps each.
 // * scorers (warps 0-3, one warpgroup): wgmma multiplies the 64 queries
 //   (operand A, K-major as they lie) by the 64 rows (operand B, K-major as
 //   the corpus lies) in ceil(D/32) k32 steps into 32 int32 registers a
 //   thread, and writes them raw, with the step's row columns, into one of
 //   two buffers in shared memory; then the stage goes back to the loader.
+//   A step in parts chains each part's products onto the accumulators and
+//   hands a part's stage back once the next part's products are issued.
 // * list updaters (warps 5-20): thread u keeps the list of query u / 8 and
 //   lane l0 + u % 8 in registers and takes its 8 products of each step in
 //   row order: scale, filter (a dropped row scores -inf) and a strict '>'
@@ -78,19 +86,18 @@ constexpr int MAX_T = 64;       // longest lane list of the dp4a variant
 constexpr int DP4A_QB = 8;      // queries per block of the dp4a variant
 
 constexpr int WG_MAX_T = 16;    // longest lane list the wgmma variant holds
-constexpr int WG_MAX_D = 896;   // widest row two ring stages hold
+constexpr int WG_MAX_D = 2048;  // widest row (beyond 896 the ring holds parts of K)
 constexpr int QT = 64;          // queries per block (wgmma M)
-constexpr int LG = 8;           // lanes per block
-constexpr int TPS = 8;          // row tiles per step (wgmma N = LG * TPS = 64)
+constexpr int STEP_ROWS = 64;   // rows per step (wgmma N): LG lanes x STEP_ROWS / LG tiles
+constexpr int LG = 8;           // lanes per block where a stage holds a whole step
+constexpr int SPLIT_LG = 4;     // lanes per block where a step goes in parts: twice the blocks
 constexpr int KBOX = 128;       // bytes of K per TMA box (the 128B swizzle span)
 constexpr int BOX_BYTES = 64 * KBOX;  // 64 rows (queries, or one step's rows) x 128 B
-constexpr int COL_BYTES = TPS * LG * 4;   // one row column of a step: 8 tiles x 8 lanes
+constexpr int COL_BYTES = STEP_ROWS * 4;  // one row column of a step
 constexpr int COLS_BYTES = 4 * COL_BYTES;  // scale, court word, court bit, date
 constexpr int MAX_STAGES = 6;
 constexpr int SCORERS = 128;          // the wgmma warpgroup
-constexpr int UPDATERS = QT * LG;     // one thread per (query, lane) list
-constexpr int WG_THREADS = SCORERS + 32 + UPDATERS;
-constexpr int SROW = TPS * LG + 8;    // words per query row of the product buffer (padded)
+constexpr int SROW = STEP_ROWS + 8;   // words per query row of the product buffer (padded)
 constexpr int SCORE_BYTES = QT * SROW * 4 + COLS_BYTES;  // products, then the row columns
 constexpr int NBUF = 2;               // score buffers between the scorers and the updaters
 constexpr int SMEM_LIMIT = 232448;
@@ -115,38 +122,73 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
 // wgmma variant
 // ---------------------------------------------------------------------------
 
-// Ring stages that fit beside the query tile (0: the width does not fit).
-__host__ __device__ inline int wgmma_stages(int D) {
+// The ring: each stage holds kp of a step's ceil(D / 128) boxes of K, and
+// `stages` of them fit beside the whole query tile. A whole step a stage
+// where two such stages fit (D <= 896, the layout this kernel had before
+// it took wider rows); past that one box (128 bytes of K) a stage and as
+// many stages as fit, at least three, so that one part's products run
+// while the next part's copy lands. kp 0: the width does not fit.
+struct WgPlan {
+  int kp, stages;
+};
+
+__host__ inline WgPlan wgmma_plan(int D) {
   const int kb = (D + KBOX - 1) / KBOX;
   const int fixed = 1024 /* alignment */ + 256 /* barriers */ + kb * BOX_BYTES + NBUF * SCORE_BYTES;
-  const int s = (SMEM_LIMIT - fixed) / (kb * BOX_BYTES + COLS_BYTES);
-  return s < 2 ? 0 : (s > MAX_STAGES ? MAX_STAGES : s);
+  const int whole = (SMEM_LIMIT - fixed) / (kb * BOX_BYTES + COLS_BYTES);
+  if (whole >= 2) return {kb, whole > MAX_STAGES ? MAX_STAGES : whole};
+  const int part = (SMEM_LIMIT - fixed) / (BOX_BYTES + COLS_BYTES);
+  return part >= 3 ? WgPlan{1, part > MAX_STAGES ? MAX_STAGES : part} : WgPlan{0, 0};
 }
 
-__host__ __device__ inline size_t wgmma_smem_bytes(int D, int stages) {
+__host__ inline size_t wgmma_smem_bytes(int D, WgPlan plan) {
   const int kb = (D + KBOX - 1) / KBOX;
   return 1024 + 256 + (size_t)kb * BOX_BYTES + NBUF * SCORE_BYTES +
-         (size_t)stages * (kb * BOX_BYTES + COLS_BYTES);
+         (size_t)plan.stages * (plan.kp * BOX_BYTES + COLS_BYTES);
 }
 
-template <int TM>
-__global__ void __launch_bounds__(WG_THREADS, 1) fused_scan_wgmma(
+// One part's k32 steps of the 64 x 64 product into `acc`, chained onto
+// what it holds unless this is the step's first part, and committed:
+// the queries' part at `a`, the rows' at `b` (128-byte boxes BOX_BYTES
+// apart). No register fence: products into one accumulator chain in
+// order, so only the step's first part needs one.
+__device__ __forceinline__ void wgmma_part(int (&acc)[32], uint32_t a, uint32_t b, int ksteps,
+                                           bool chain) {
+  for (int k = 0; k < ksteps; ++k) {
+    const uint32_t off = (k >> 2) * BOX_BYTES + (k & 3) * 32;
+    tss_mma_64x64x32(acc, tss_sw128_desc(a + off), tss_sw128_desc(b + off), chain || k > 0);
+  }
+  tss_wgmma_commit();
+}
+
+// Wait until at most one committed group of products is still running.
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
+
+// LGT lanes a block (one updater thread per query and lane), STEP_ROWS / LGT
+// row tiles a step.
+template <int TM, int LGT>
+__global__ void __launch_bounds__(SCORERS + 32 + QT * LGT, 1) fused_scan_wgmma(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap cmap,
     const __grid_constant__ CUtensorMap smap, const __grid_constant__ CUtensorMap wmap,
     const __grid_constant__ CUtensorMap bmap, const __grid_constant__ CUtensorMap dmap,
     const float* __restrict__ qscale, const int32_t* __restrict__ qwords,
     const float* __restrict__ qdlo, const float* __restrict__ qdhi,
     const float* __restrict__ qmins, float* __restrict__ out_v, int32_t* __restrict__ out_i,
-    int B, int D, int N, int W, int use_date, int T, int stages) {
+    int B, int D, int N, int W, int use_date, int T, int kp, int stages) {
+  constexpr int TPS = STEP_ROWS / LGT;  // row tiles per step
+  constexpr int UPDATERS = QT * LGT;    // one thread per (query, lane) list
+  constexpr bool SPLIT = LGT == SPLIT_LG;  // a step in parts of K (else kp = kb)
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = tss_smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const int kb = (D + KBOX - 1) / KBOX;
-  const int ksteps = (D + 31) / 32;
-  const uint32_t step_bytes = kb * BOX_BYTES;
+  const int np = (kb + kp - 1) / kp;  // parts of K a step goes through the ring in
+  const uint32_t part_bytes = kp * BOX_BYTES;
   const uint32_t q_base = base;                          // [kb][64 queries][128 B]
-  const uint32_t c_base = q_base + step_bytes;           // [stages][kb][64 rows][128 B]
-  const uint32_t s_base = c_base + stages * step_bytes;  // [stages][4 columns][8 tiles][8 lanes]
+  const uint32_t c_base = q_base + kb * BOX_BYTES;       // [stages][kp][64 rows][128 B]
+  const uint32_t s_base = c_base + stages * part_bytes;  // [stages][4 columns][8 tiles][8 lanes], by step
   const uint32_t f_base = s_base + stages * COLS_BYTES;  // [NBUF] products and columns
   const uint32_t bars = f_base + NBUF * SCORE_BYTES;     // full[s], empty[s], query
   const uint32_t qbar = bars + 16 * stages;
@@ -159,7 +201,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fused_scan_wgmma(
   // and keeps the wgmma code on a convergent path
   const int role = __shfl_sync(0xffffffffu, tid < SCORERS ? 0 : tid < SCORERS + 32 ? 1 : 2, 0);
   const int b0 = blockIdx.x * QT;
-  const int l0 = blockIdx.y * LG;
+  const int l0 = blockIdx.y * LGT;
   const int nj = N / TSS_LANES;
   const int nsteps = (nj + TPS - 1) / TPS;
 
@@ -174,24 +216,32 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fused_scan_wgmma(
   __syncthreads();
 
   if (role == 1) {
-    // loader: the query tile once, then every step of this lane group
+    // loader: the query tile once, then every part of every step of this
+    // lane group; a step's row columns come with its first part, into the
+    // column slot of the step (it % stages), which the scorers read after
+    // its last part
     if (tid == SCORERS) {
-      tss_mbar_expect_tx(qbar, step_bytes);
+      tss_mbar_expect_tx(qbar, kb * BOX_BYTES);
       for (int c = 0; c < kb; ++c) tss_tma_load_2d(q_base + c * BOX_BYTES, &qmap, qbar, c * KBOX, b0);
-      for (int it = 0; it < nsteps; ++it) {
-        const int s = it % stages;
-        if (it >= stages) tss_mbar_wait(bars + 8 * (stages + s), ((it / stages) & 1) ^ 1);
-        const uint32_t full = bars + 8 * s;
-        const uint32_t cols = s_base + s * COLS_BYTES;
-        tss_mbar_expect_tx(full, step_bytes + (filtered ? COLS_BYTES : COL_BYTES));
-        for (int c = 0; c < kb; ++c)
-          tma_load_3d(c_base + s * step_bytes + c * BOX_BYTES, &cmap, full, c * KBOX, l0,
-                      it * TPS);
-        tss_tma_load_2d(cols, &smap, full, l0, it * TPS);
-        if (filtered) {
-          tss_tma_load_2d(cols + COL_BYTES, &wmap, full, l0, it * TPS);
-          tss_tma_load_2d(cols + 2 * COL_BYTES, &bmap, full, l0, it * TPS);
-          tss_tma_load_2d(cols + 3 * COL_BYTES, &dmap, full, l0, it * TPS);
+      for (int it = 0, g = 0; it < nsteps; ++it) {
+        for (int p = 0; p < (SPLIT ? np : 1); ++p, ++g) {
+          const int s = g % stages;
+          if (g >= stages) tss_mbar_wait(bars + 8 * (stages + s), ((g / stages) & 1) ^ 1);
+          const uint32_t full = bars + 8 * s;
+          const int nbox = SPLIT ? min(kp, kb - p * kp) : kb;
+          tss_mbar_expect_tx(full, nbox * BOX_BYTES + (p ? 0 : filtered ? COLS_BYTES : COL_BYTES));
+          for (int c = 0; c < nbox; ++c)
+            tma_load_3d(c_base + s * part_bytes + c * BOX_BYTES, &cmap, full, (p * kp + c) * KBOX,
+                        l0, it * TPS);
+          if (p == 0) {
+            const uint32_t cols = s_base + (it % stages) * COLS_BYTES;
+            tss_tma_load_2d(cols, &smap, full, l0, it * TPS);
+            if (filtered) {
+              tss_tma_load_2d(cols + COL_BYTES, &wmap, full, l0, it * TPS);
+              tss_tma_load_2d(cols + 2 * COL_BYTES, &bmap, full, l0, it * TPS);
+              tss_tma_load_2d(cols + 3 * COL_BYTES, &dmap, full, l0, it * TPS);
+            }
+          }
         }
       }
     }
@@ -205,7 +255,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fused_scan_wgmma(
     // per step it scales its 8 products, drops filtered rows to -inf and
     // bubbles the scores in row order (strict '>', as selects)
     const int u = tid - SCORERS - 32;
-    const int q = u / LG, l = u % LG;
+    const int q = u / LGT, l = u % LGT;
     const int b = b0 + q;
     const bool ok = b < B;
     const float qs = ok ? qscale[b] : 0.0f;
@@ -233,13 +283,13 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fused_scan_wgmma(
       float v[TPS];
 #pragma unroll
       for (int j = 0; j < TPS; ++j)
-        v[j] = __fmul_rn(__fmul_rn(__int2float_rn(a[j * LG]), qs), cols[j * LG]);
+        v[j] = __fmul_rn(__fmul_rn(__int2float_rn(a[j * LGT]), qs), cols[j * LGT]);
       if (filtered) {
 #pragma unroll
         for (int j = 0; j < TPS; ++j) {
-          const int cw = __float_as_int(cols[COL_BYTES / 4 + j * LG]);
-          const int cb = __float_as_int(cols[2 * COL_BYTES / 4 + j * LG]);
-          const float dt = cols[3 * COL_BYTES / 4 + j * LG];
+          const int cw = __float_as_int(cols[COL_BYTES / 4 + j * LGT]);
+          const int cb = __float_as_int(cols[2 * COL_BYTES / 4 + j * LGT]);
+          const float dt = cols[3 * COL_BYTES / 4 + j * LGT];
           const bool in = (unsigned)cw < (unsigned)W;
           const bool court = (W == 0) | (in & ((__ldg(words + (in ? cw : 0)) & cb) != 0));
           const bool date = !use_date | ((dt >= lo) & (dt <= hi));
@@ -297,18 +347,48 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fused_scan_wgmma(
   // raw for the updaters
   int acc[32] = {};
   tss_mbar_wait(qbar, 0);
-  for (int it = 0; it < nsteps; ++it) {
-    const int s = it % stages;
-    tss_mbar_wait(bars + 8 * s, (it / stages) & 1);
-    tss_wgmma_issue<BOX_BYTES, BOX_BYTES>(acc, q_base, c_base + s * step_bytes, ksteps);
-    tss_wgmma_wait_all();
-    tss_fence_regs(acc);
-    // the raw products (the list updaters scale and filter them) and the
-    // step's row columns into score buffer it % NBUF
-    tss_dump_step<NBUF, SROW, SCORE_BYTES / 4, QT, SCORERS + UPDATERS>(
-        acc, sbuf, cols_generic + s * COLS_BYTES, (filtered ? 4 : 1) * COL_BYTES, it, warp, lane);
-    __syncwarp();
-    if (lane == 0) tss_mbar_arrive(bars + 8 * (stages + s));  // products and columns taken
+  if constexpr (!SPLIT) {
+    const int ksteps = (D + 31) / 32;
+    for (int it = 0; it < nsteps; ++it) {
+      const int s = it % stages;
+      tss_mbar_wait(bars + 8 * s, (it / stages) & 1);
+      tss_wgmma_issue<BOX_BYTES, BOX_BYTES>(acc, q_base, c_base + s * part_bytes, ksteps);
+      tss_wgmma_wait_all();
+      tss_fence_regs(acc);
+      // the raw products (the list updaters scale and filter them) and the
+      // step's row columns into score buffer it % NBUF
+      tss_dump_step<NBUF, SROW, SCORE_BYTES / 4, QT, SCORERS + UPDATERS>(
+          acc, sbuf, cols_generic + s * COLS_BYTES, (filtered ? 4 : 1) * COL_BYTES, it, warp, lane);
+      __syncwarp();
+      if (lane == 0) tss_mbar_arrive(bars + 8 * (stages + s));  // products and columns taken
+    }
+  } else {
+    // a step's parts chain into one accumulator; each part's stage goes
+    // back to the loader once the next part's products are issued and its
+    // own are done, the last one after the dump (which reads the step's
+    // columns)
+    for (int it = 0, g = 0; it < nsteps; ++it) {
+      tss_wgmma_fence();
+      tss_fence_regs(acc);
+      for (int p = 0; p < np; ++p, ++g) {
+        const int s = g % stages;
+        tss_mbar_wait(bars + 8 * s, (g / stages) & 1);
+        const int ksteps = min(4 * kp, (D - p * kp * KBOX + 31) / 32);
+        wgmma_part(acc, q_base + p * part_bytes, c_base + s * part_bytes, ksteps, p > 0);
+        if (p > 0) {
+          wgmma_wait_one();
+          __syncwarp();
+          if (lane == 0) tss_mbar_arrive(bars + 8 * (stages + (g - 1) % stages));
+        }
+      }
+      tss_wgmma_wait_all();
+      tss_fence_regs(acc);
+      tss_dump_step<NBUF, SROW, SCORE_BYTES / 4, QT, SCORERS + UPDATERS>(
+          acc, sbuf, cols_generic + (it % stages) * COLS_BYTES, (filtered ? 4 : 1) * COL_BYTES, it,
+          warp, lane);
+      __syncwarp();
+      if (lane == 0) tss_mbar_arrive(bars + 8 * (stages + (g - 1) % stages));
+    }
   }
 }
 
@@ -411,25 +491,42 @@ struct ScanArgs {
   int B, D, N, W, use_date, T;
 };
 
-template <int TM>
-cudaError_t launch_wgmma(const CUtensorMap (&maps)[6], const ScanArgs& a, cudaStream_t st) {
-  const int stages = wgmma_stages(a.D);
-  const size_t smem = wgmma_smem_bytes(a.D, stages);
-  auto kernel = fused_scan_wgmma<TM>;
+template <int TM, int LGT>
+cudaError_t launch_wgmma(const CUtensorMap (&maps)[6], const ScanArgs& a, WgPlan plan,
+                         cudaStream_t st) {
+  const size_t smem = wgmma_smem_bytes(a.D, plan);
+  auto kernel = fused_scan_wgmma<TM, LGT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.B + QT - 1) / QT, TSS_LANES / LG);
-  kernel<<<grid, WG_THREADS, smem, st>>>(maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
-                                         a.qscale, a.qwords, a.qdlo, a.qdhi, a.qmins, a.out_v,
-                                         a.out_i, a.B, a.D, a.N, a.W, a.use_date, a.T, stages);
+  const dim3 grid((a.B + QT - 1) / QT, TSS_LANES / LGT);
+  kernel<<<grid, SCORERS + 32 + QT * LGT, smem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], a.qscale, a.qwords, a.qdlo, a.qdhi,
+      a.qmins, a.out_v, a.out_i, a.B, a.D, a.N, a.W, a.use_date, a.T, plan.kp, plan.stages);
   return cudaGetLastError();
+}
+
+// The list length's instantiation: T itself for the engine's T = 2, 3, 5
+// (and 4), else the next of 8 and 16.
+template <int LGT>
+cudaError_t launch_for_t(const CUtensorMap (&maps)[6], const ScanArgs& a, WgPlan plan,
+                         cudaStream_t st) {
+  switch (a.T) {
+    case 1:
+    case 2: return launch_wgmma<2, LGT>(maps, a, plan, st);
+    case 3: return launch_wgmma<3, LGT>(maps, a, plan, st);
+    case 4: return launch_wgmma<4, LGT>(maps, a, plan, st);
+    case 5: return launch_wgmma<5, LGT>(maps, a, plan, st);
+    default:
+      return a.T <= 8 ? launch_wgmma<8, LGT>(maps, a, plan, st)
+                      : launch_wgmma<16, LGT>(maps, a, plan, st);
+  }
 }
 
 }  // namespace
 
 // out_v/out_i: [B, T*128] with element (b, t*128 + l) slot t of lane l's
-// list. Grid (ceil(B / 64), 16). Returns a cudaError_t, or 1000 when a TMA
+// list. Grid (ceil(B / 64), 16), or (ceil(B / 64), 32) for a step in parts. Returns a cudaError_t, or 1000 when a TMA
 // tensor map could not be made.
 extern "C" int tss_fused_scan_wgmma(
     const int8_t* q8, const float* qscale, const int32_t* qwords,
@@ -445,15 +542,20 @@ extern "C" int tss_fused_scan_wgmma(
       B < 1 || !aligned)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const WgPlan plan = wgmma_plan(D);
+  if (plan.kp < 1) return (int)cudaErrorInvalidValue;
+  // a step in parts streams its rows slower a block: twice the blocks
+  // (half the lanes each) keep twice the copies in flight
+  const int lg = plan.kp == (D + KBOX - 1) / KBOX ? LG : SPLIT_LG;
   const int nj = N / TSS_LANES;
   // queries [B, D]; rows as [tiles, 128 lanes, D]; row columns as [tiles, 128]
   const cuuint64_t qdims[2] = {(cuuint64_t)D, (cuuint64_t)B}, qstr[1] = {(cuuint64_t)D};
   const cuuint32_t qbox[2] = {KBOX, QT};
   const cuuint64_t cdims[3] = {(cuuint64_t)D, TSS_LANES, (cuuint64_t)nj};
   const cuuint64_t cstr[2] = {(cuuint64_t)D, (cuuint64_t)D * TSS_LANES};
-  const cuuint32_t cbox[3] = {KBOX, LG, TPS};
+  const cuuint32_t cbox[3] = {KBOX, (cuuint32_t)lg, (cuuint32_t)(STEP_ROWS / lg)};
   const cuuint64_t sdims[2] = {TSS_LANES, (cuuint64_t)nj}, sstr[1] = {TSS_LANES * 4};
-  const cuuint32_t sbox[2] = {LG, TPS};
+  const cuuint32_t sbox[2] = {(cuuint32_t)lg, (cuuint32_t)(STEP_ROWS / lg)};
   const CUtensorMapDataType col_type[4] = {
       CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_DATA_TYPE_INT32,
       CU_TENSOR_MAP_DATA_TYPE_INT32, CU_TENSOR_MAP_DATA_TYPE_FLOAT32};
@@ -467,16 +569,8 @@ extern "C" int tss_fused_scan_wgmma(
                             CU_TENSOR_MAP_SWIZZLE_NONE);
   if (!ok) return 1000;
   const ScanArgs a{qscale, qwords, qdlo, qdhi, qmins, out_v, out_i, B, D, N, W, use_date, T};
-  // list slots held: T itself for the engine's T = 2, 3, 5 (and 4), else
-  // the next of 8 and 16
-  switch (T) {
-    case 1:
-    case 2: return (int)launch_wgmma<2>(maps, a, st);
-    case 3: return (int)launch_wgmma<3>(maps, a, st);
-    case 4: return (int)launch_wgmma<4>(maps, a, st);
-    case 5: return (int)launch_wgmma<5>(maps, a, st);
-    default: return T <= 8 ? (int)launch_wgmma<8>(maps, a, st) : (int)launch_wgmma<16>(maps, a, st);
-  }
+  return (int)(lg == LG ? launch_for_t<LG>(maps, a, plan, st)
+                         : launch_for_t<SPLIT_LG>(maps, a, plan, st));
 }
 
 // Shared memory one block of the dp4a variant needs.

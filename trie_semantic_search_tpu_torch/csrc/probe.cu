@@ -52,7 +52,13 @@
 //     queries h, h+2, ... with __dp4a from shared memory (the query rows are
 //     broadcast reads), keeps their top-2 in registers across the
 //     sub-blocks and writes them after the last one. The filter columns are
-//     read once per group, not once per query.
+//     read once per group, not once per query. A row wider than one stage
+//     holds (D > 1,664: at D = 2,048 a whole sub-block and its queries take
+//     281,600 bytes) goes through the ring in parts of K (four of 512
+//     bytes at D = 2,048, three stages): the consumers carry their dot
+//     products across a sub-block's parts and score after the last, which
+//     brings the columns. Every narrower width keeps one stage a
+//     sub-block, as before.
 //
 // What bounds it now: the memory rate. The scan moves the distinct
 // partitions' bytes at about 2.9 TB/s, 86% of the bound with the plan
@@ -77,21 +83,49 @@ constexpr int COL_BYTES = TSS_LANES * 4;
 constexpr int KBOX = 128;                // bytes of a row per TMA box (the 128B swizzle span)
 constexpr int BOX_BYTES = TSS_LANES * KBOX;
 constexpr int SMEM_BLOCK = 232448;       // shared memory of one block per SM
+constexpr int SPLIT_STAGES = 3;          // ring stages a row split into parts keeps
 
-// One stage, 1024-byte aligned: the 128 rows as ceil(D / 128) boxes of
-// [128 rows][128 B] in the 128B swizzle | columns | query rows | query
-// scalars | header.
+// One stage, 1024-byte aligned: kp of the rows' 128-byte boxes for the
+// sub-block's 128 rows ([128 rows][128 B] each, in the 128B swizzle) |
+// columns | the group's query rows, the same part of them | query scalars
+// | header. A stage holds the whole row (kp = kb) at every width where
+// one such stage fits (up to D = 1,664); wider rows go through the ring
+// in np parts of K, the consumers' dot products carried in registers
+// across a sub-block's parts and the columns loaded with its last part.
 struct Layout {
-  int kb, cols, q, par, hdr, bytes;
-  __host__ __device__ explicit Layout(int D) {
+  int kb, kp, np, qw, cols, q, par, hdr, bytes;
+  __host__ __device__ Layout(int D, int kp_) {
     kb = (D + KBOX - 1) / KBOX;
-    cols = kb * BOX_BYTES;
+    kp = kp_;
+    np = (kb + kp - 1) / kp;
+    qw = kp == kb ? D : kp * KBOX;  // bytes of a query row in a stage (its stride)
+    cols = kp * BOX_BYTES;
     q = cols + NCOLS * COL_BYTES;
-    par = q + G * D;
+    par = q + G * qw;
     hdr = par + 5 * G * 4;
     bytes = (hdr + 16 + 1023) / 1024 * 1024;
   }
+  // bytes of part p of a row
+  __host__ __device__ int part_bytes(int D, int p) const {
+    const int lo = p * kp * KBOX;
+    return (D - lo < kp * KBOX ? D - lo : kp * KBOX);
+  }
 };
+
+__host__ __device__ inline int stages_for(const Layout& L) {
+  const int s = (SMEM_BLOCK - 1024) / (L.bytes + 16);
+  return s < MAX_STAGES ? s : MAX_STAGES;
+}
+
+// Boxes of K a stage holds at width D: the whole row where one stage of it
+// fits, else the widest part that leaves SPLIT_STAGES stages (0: none).
+__host__ inline int stage_boxes(int D) {
+  const int kb = (D + KBOX - 1) / KBOX;
+  if (stages_for(Layout(D, kb)) >= 1) return kb;
+  for (int kp = kb - 1; kp >= 1; --kp)
+    if (stages_for(Layout(D, kp)) >= SPLIT_STAGES) return kp;
+  return 0;
+}
 
 // Wait until the phase of parity `parity` of the barrier has completed; a
 // wait that never ends (a lost copy) traps instead of hanging the card.
@@ -212,9 +246,9 @@ __global__ void __launch_bounds__(THREADS, 1) probe_scan(
     const int32_t* __restrict__ dhi, const float* __restrict__ mins,
     float* __restrict__ out_v, int32_t* __restrict__ out_s,
     const int4* __restrict__ groups, int32_t* __restrict__ meta,
-    const int32_t* __restrict__ pairs, int NP, int m, int D, int W, int stages) {
+    const int32_t* __restrict__ pairs, int NP, int m, int D, int W, int kp, int stages) {
   extern __shared__ unsigned char smem_raw[];
-  const Layout L(D);
+  const Layout L(D, kp);
   const uint32_t raw = tss_smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // the 128B swizzle's alignment
   unsigned char* smem = smem_raw + (base - raw);
@@ -272,38 +306,45 @@ __global__ void __launch_bounds__(THREADS, 1) probe_scan(
     int it = 0;
     for (; cur.grp.z >= 0; cur = nxt) {
       const int pid = cur.grp.x, cnt = cur.grp.z;
-      const uint32_t tx = L.kb * BOX_BYTES + NCOLS * COL_BYTES + cnt * D;
       int g_next = 0;
-      for (int j = 0; j < nb; ++j, ++it) {
+      for (int j = 0; j < nb; ++j) {
         if (j == 0) g_next = fetch_index();
         if (j == jB) fetch_group(nxt, g_next);
         if (j == jC) fetch_pair(nxt);
         if (j == jD) fetch_scalars(nxt);
-        const int s = it % stages;
-        if (it >= stages) mbar_wait(bars + 8 * (stages + s), ((it / stages) & 1) ^ 1);
-        unsigned char* st = smem + s * L.bytes;
-        const uint32_t sb = base + s * L.bytes;
-        const uint32_t full = bars + 8 * s;
-        if (l < cnt) {
-          int* par = reinterpret_cast<int*>(st + L.par);
-          par[l] = cur.pair;
-          par[G + l] = __float_as_int(cur.qsc);
-          par[2 * G + l] = __float_as_int(cur.qmin);
-          par[3 * G + l] = cur.qlo;
-          par[4 * G + l] = cur.qhi;
+        for (int p = 0; p < L.np; ++p, ++it) {
+          const int s = it % stages;
+          if (it >= stages) mbar_wait(bars + 8 * (stages + s), ((it / stages) & 1) ^ 1);
+          unsigned char* st = smem + s * L.bytes;
+          const uint32_t sb = base + s * L.bytes;
+          const uint32_t full = bars + 8 * s;
+          const bool last = p == L.np - 1;
+          const int pb = L.part_bytes(D, p);
+          const int nbox = (pb + KBOX - 1) / KBOX;
+          if (l < cnt) {
+            int* par = reinterpret_cast<int*>(st + L.par);
+            par[l] = cur.pair;
+            par[G + l] = __float_as_int(cur.qsc);
+            par[2 * G + l] = __float_as_int(cur.qmin);
+            par[3 * G + l] = cur.qlo;
+            par[4 * G + l] = cur.qhi;
+          }
+          if (l == 0)
+            *reinterpret_cast<int4*>(st + L.hdr) = make_int4(pid, cur.grp.y, cnt, j * L.np + p);
+          __syncwarp();
+          if (l == 0)
+            tss_mbar_expect_tx(full, nbox * BOX_BYTES + (last ? NCOLS * COL_BYTES : 0) + cnt * pb);
+          __syncwarp();
+          const int row0 = pid * m + j * TSS_LANES;
+          for (int k = l; k < nbox && l < 16; k += 16)
+            tss_tma_load_2d(sb + k * BOX_BYTES, &rows_map, full, (p * L.kp + k) * KBOX, row0);
+          if (last && l >= 16 && l < 16 + NCOLS)
+            bulk_load(sb + L.cols + (l - 16) * COL_BYTES, col + row0, COL_BYTES, full);
+          // the query rows' part: lane 21 + q carries query q's (its scalars sit in lane q)
+          const int qb = __shfl_sync(0xffffffffu, cur.b, (l - 21) & 31);
+          if (l >= 21 && l - 21 < cnt)
+            bulk_load(sb + L.q + (l - 21) * L.qw, q8 + (size_t)qb * D + p * L.kp * KBOX, pb, full);
         }
-        if (l == 0) *reinterpret_cast<int4*>(st + L.hdr) = make_int4(pid, cur.grp.y, cnt, j);
-        __syncwarp();
-        if (l == 0) tss_mbar_expect_tx(full, tx);
-        __syncwarp();
-        const int row0 = pid * m + j * TSS_LANES;
-        for (int k = l; k < L.kb && l < 16; k += 16)
-          tss_tma_load_2d(sb + k * BOX_BYTES, &rows_map, full, k * KBOX, row0);
-        if (l >= 16 && l < 16 + NCOLS)
-          bulk_load(sb + L.cols + (l - 16) * COL_BYTES, col + row0, COL_BYTES, full);
-        // the query rows: lane 21 + q carries query q's row (its scalars sit in lane q)
-        const int qb = __shfl_sync(0xffffffffu, cur.b, (l - 21) & 31);
-        if (l >= 21 && l - 21 < cnt) bulk_load(sb + L.q + (l - 21) * D, q8 + (size_t)qb * D, D, full);
       }
     }
     // no more groups: an empty stage tells the consumers to stop
@@ -319,8 +360,8 @@ __global__ void __launch_bounds__(THREADS, 1) probe_scan(
   // consumers: lane `lane` of the sub-block, queries half, half + 2, ...
   const int lane = tid & (TSS_LANES - 1);
   const int half = tid >> 7;
-  const int dw = D / 16;
-  // 16-byte chunk c of this lane's row in the swizzled boxes
+  const int qw16 = L.qw / 16;
+  // 16-byte chunk c of this lane's row part in the swizzled boxes
   const int row_off = lane * KBOX;
   const int sw = lane & 7;
   auto chunk = [&](const unsigned char* rows, int c) {
@@ -329,17 +370,21 @@ __global__ void __launch_bounds__(THREADS, 1) probe_scan(
   };
   float v1[QPT], v2[QPT];
   int j1[QPT], j2[QPT], pair[QPT];
+  int acc0[QPT], acc1[QPT];
   for (int it = 0;; ++it) {
     const int s = it % stages;
     mbar_wait(bars + 8 * s, (it / stages) & 1);
     const unsigned char* st = smem + s * L.bytes;
     const int4 hdr = *reinterpret_cast<const int4*>(st + L.hdr);
-    const int cnt = hdr.z, j = hdr.w;
+    const int cnt = hdr.z, j = hdr.w / L.np, p = hdr.w % L.np;
     if (cnt < 0) break;
+    const bool last = p == L.np - 1;
     if (half < cnt) {
-      int acc0[QPT], acc1[QPT];
+      if (p == 0) {
 #pragma unroll
-      for (int k = 0; k < QPT; ++k) acc0[k] = acc1[k] = 0;
+        for (int k = 0; k < QPT; ++k) acc0[k] = acc1[k] = 0;
+      }
+      const int dw = L.part_bytes(D, p) / 16;
       const int4* qr = reinterpret_cast<const int4*>(st + L.q);
       int c = 0;
       for (; c + 1 < dw; c += 2) {
@@ -348,8 +393,8 @@ __global__ void __launch_bounds__(THREADS, 1) probe_scan(
         for (int k = 0; k < QPT; ++k) {
           const int qi = half + 2 * k;
           if (qi < cnt) {
-            acc0[k] = tss_dot16(r0, qr[qi * dw + c], acc0[k]);
-            acc1[k] = tss_dot16(r1, qr[qi * dw + c + 1], acc1[k]);
+            acc0[k] = tss_dot16(r0, qr[qi * qw16 + c], acc0[k]);
+            acc1[k] = tss_dot16(r1, qr[qi * qw16 + c + 1], acc1[k]);
           }
         }
       }
@@ -358,46 +403,48 @@ __global__ void __launch_bounds__(THREADS, 1) probe_scan(
 #pragma unroll
         for (int k = 0; k < QPT; ++k) {
           const int qi = half + 2 * k;
-          if (qi < cnt) acc0[k] = tss_dot16(r0, qr[qi * dw + c], acc0[k]);
+          if (qi < cnt) acc0[k] = tss_dot16(r0, qr[qi * qw16 + c], acc0[k]);
         }
       }
-      const int* col = reinterpret_cast<const int*>(st + L.cols);
-      const float slot_scale = __int_as_float(col[lane]);
-      const int prow = col[TSS_LANES + lane];
-      const int cw = col[2 * TSS_LANES + lane];
-      const int cb = col[3 * TSS_LANES + lane];
-      const int dt = col[4 * TSS_LANES + lane];
-      const int* par = reinterpret_cast<const int*>(st + L.par);
+      if (last) {
+        const int* col = reinterpret_cast<const int*>(st + L.cols);
+        const float slot_scale = __int_as_float(col[lane]);
+        const int prow = col[TSS_LANES + lane];
+        const int cw = col[2 * TSS_LANES + lane];
+        const int cb = col[3 * TSS_LANES + lane];
+        const int dt = col[4 * TSS_LANES + lane];
+        const int* par = reinterpret_cast<const int*>(st + L.par);
 #pragma unroll
-      for (int k = 0; k < QPT; ++k) {
-        const int qi = half + 2 * k;
-        if (qi < cnt) {
-          pair[k] = par[qi];
-          const float qsc = __int_as_float(par[G + qi]);
-          const float qmin = __int_as_float(par[2 * G + qi]);
-          float sc = __fmul_rn(__fmul_rn(__int2float_rn(acc0[k] + acc1[k]), qsc), slot_scale);
-          const int b = pair[k] / NP;
-          const int qw = (cw >= 0 && cw < W) ? __ldg(qwords + (size_t)b * W + cw) : 0;
-          const bool keep = (qw & cb) != 0 && dt >= par[3 * G + qi] && dt <= par[4 * G + qi] &&
-                            prow >= 0 && sc >= qmin;
-          if (!keep) sc = tss_neg_inf();
-          if (j == 0) {
-            v1[k] = sc;
-            j1[k] = 0;
-            v2[k] = tss_neg_inf();
-            j2[k] = 0;
-          } else {
-            // the loser of the slot-1 contest competes for slot 2
-            const bool gt1 = sc > v1[k];
-            const float c2v = gt1 ? v1[k] : sc;
-            const int c2j = gt1 ? j1[k] : j;
-            if (gt1) {
+        for (int k = 0; k < QPT; ++k) {
+          const int qi = half + 2 * k;
+          if (qi < cnt) {
+            pair[k] = par[qi];
+            const float qsc = __int_as_float(par[G + qi]);
+            const float qmin = __int_as_float(par[2 * G + qi]);
+            float sc = __fmul_rn(__fmul_rn(__int2float_rn(acc0[k] + acc1[k]), qsc), slot_scale);
+            const int b = pair[k] / NP;
+            const int qw = (cw >= 0 && cw < W) ? __ldg(qwords + (size_t)b * W + cw) : 0;
+            const bool keep = (qw & cb) != 0 && dt >= par[3 * G + qi] && dt <= par[4 * G + qi] &&
+                              prow >= 0 && sc >= qmin;
+            if (!keep) sc = tss_neg_inf();
+            if (j == 0) {
               v1[k] = sc;
-              j1[k] = j;
-            }
-            if (c2v > v2[k]) {
-              v2[k] = c2v;
-              j2[k] = c2j;
+              j1[k] = 0;
+              v2[k] = tss_neg_inf();
+              j2[k] = 0;
+            } else {
+              // the loser of the slot-1 contest competes for slot 2
+              const bool gt1 = sc > v1[k];
+              const float c2v = gt1 ? v1[k] : sc;
+              const int c2j = gt1 ? j1[k] : j;
+              if (gt1) {
+                v1[k] = sc;
+                j1[k] = j;
+              }
+              if (c2v > v2[k]) {
+                v2[k] = c2v;
+                j2[k] = c2j;
+              }
             }
           }
         }
@@ -405,7 +452,7 @@ __global__ void __launch_bounds__(THREADS, 1) probe_scan(
     }
     __syncwarp();
     if ((tid & 31) == 0) tss_mbar_arrive(bars + 8 * (stages + s));
-    if (j == nb - 1 && half < cnt) {
+    if (last && j == nb - 1 && half < cnt) {
 #pragma unroll
       for (int k = 0; k < QPT; ++k) {
         if (half + 2 * k < cnt) {
@@ -445,9 +492,10 @@ extern "C" int tss_probe_candidates(
   if (D % 16 || D <= 0 || m % TSS_LANES || m <= 0 || P <= 0 || B <= 0 || NP <= 0 ||
       max_groups <= 0 || (long long)B * NP >= (1LL << 31) || (long long)P * m >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const Layout L(D);
-  const int stages = std::min(MAX_STAGES, (SMEM_BLOCK - 1024) / (L.bytes + 16));
-  if (stages < 1) return (int)cudaErrorInvalidValue;
+  const int kp = stage_boxes(D);
+  if (kp < 1) return (int)cudaErrorInvalidValue;
+  const Layout L(D, kp);
+  const int stages = stages_for(L);
   const size_t smem = 1024 + (size_t)stages * (L.bytes + 16);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -482,6 +530,6 @@ extern "C" int tss_probe_candidates(
   const int grid = std::min(g_sms[dev], max_groups);
   probe_scan<<<grid, THREADS, smem, st>>>(rows_map, q8, qscale, pscale, prows, pcword, pcbit,
                                          pdate, qwords, dlo, dhi, mins, out_v, out_s, groups, meta,
-                                         pairs, NP, m, D, W, stages);
+                                         pairs, NP, m, D, W, kp, stages);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,12 @@
-"""Tokenizer, MiniLM encoder, the serving embedder and training.
+"""Tokenizer, encoders, the serving embedder and training.
+
+The serving embedder (:class:`~.embedder.Embedder`) runs any module of the
+encoder interface (:class:`~.embedder.Encoder`): :class:`~.minilm.MiniLM`,
+BERT's post-norm encoder (the ``minilm.MODEL_FAMILIES`` model types), or
+:class:`~.deepseek_v2.DeepseekV2`, DeepSeek-V2 used as a last-token pooled
+encoder (the ``deepseek_v2.MODEL_TYPES`` model type ``"deepseek-v2-lite"``;
+seeded weights only, no checkpoint loader yet). Training and the
+checkpoints are MiniLM's.
 
 The JAX package's functional ``init_params`` / ``forward`` / ``encode`` are
 the :class:`~.minilm.MiniLM` module's constructor and methods here (see

@@ -1,25 +1,32 @@
-"""Embedding model runtime: tokenizer + MiniLM + shape bucketing.
+"""Embedding model runtime: tokenizer + encoder + shape bucketing.
 
 Port of ``trie_semantic_search_tpu/models/embedder.py``: text → WordPiece
-ids (host) → MiniLM encode on the device → L2-normalised ``[B, D]`` f32.
+ids (host) → the encoder on the device → L2-normalised ``[B, D]`` f32.
 Sequences pad to the next power of two (>= 16, <= the configured maximum)
 and batches to the shared serving ladder (``utils.batch_bucket``), the same
 shapes the JAX embedder runs (:162-184).
 
-Weights come from a :class:`~.minilm.MiniLM` the caller passes (for
-example one loaded with :func:`~.minilm.params_from_jax`), else from the
-HuggingFace checkpoint at ``config.model_path`` when that path exists, else
-a seeded init (also when the checkpoint cannot be read: a warning is
+The encoder is any module of the :class:`Encoder` interface:
+:class:`~.minilm.MiniLM` (BERT's post-norm layers, mean pooled) or
+:class:`~.deepseek_v2.DeepseekV2` (a decoder, last-token pooled). One
+passed in is used as it is (for example a MiniLM loaded with
+:func:`~.minilm.params_from_jax`, or the benchmark's seeded DeepSeek-V2).
+Else ``config.model_type`` names it: a ``deepseek_v2.MODEL_TYPES`` name
+builds a seeded DeepSeek-V2 (no checkpoint loader exists for it yet),
+anything else a MiniLM of ``minilm.MODEL_FAMILIES``' geometry, from the
+HuggingFace checkpoint at ``config.model_path`` when that path exists,
+else a seeded init (also when the checkpoint cannot be read: a warning is
 logged, as the JAX embedder does, :79-93).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Any, Optional, Protocol, Sequence
 
 import numpy as np
 import torch
@@ -29,10 +36,27 @@ from ..core.errors import EmbeddingGenerationFailed
 from ..core.metrics import metrics
 from ..device import DeviceLike, resolve_device
 from ..utils import batch_bucket
-from . import minilm
+from . import deepseek_v2, minilm
 from .tokenizer import WordPieceTokenizer, load_tokenizer
 
 _log = logging.getLogger("tss_torch.embedder")
+
+
+class Encoder(Protocol):
+    """What ``Embedder`` needs of an encoder module: ``config.hidden_size``
+    (the embedding's width) and ``encode(ids, mask, token_weights)`` →
+    ``[B, hidden_size]`` f32, L2-normalised, for right-padded ``[B, L]``
+    ids and mask. A module with ``packs_tokens`` also takes
+    ``real_tokens=`` (the mask's sum, known on the host here); one with
+    ``take_stats`` hands back a small device vector after each forward,
+    which ``Embedder`` copies to the host with the embedding and gives to
+    its ``observe_stats``."""
+
+    config: Any
+
+    def encode(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+               token_weights: Optional[torch.Tensor] = None) -> torch.Tensor: ...
+
 
 @dataclass
 class EmbeddingResult:
@@ -54,7 +78,7 @@ class Embedder:
         self,
         config: Optional[EmbeddingModelConfig] = None,
         tokenizer: Optional[WordPieceTokenizer] = None,
-        model: Optional[minilm.MiniLM] = None,
+        model: Optional[Encoder] = None,
         model_config: Optional[minilm.MiniLMConfig] = None,
         seed: int = 0,
         token_weights: Optional[np.ndarray] = None,
@@ -63,9 +87,17 @@ class Embedder:
         self.config = config or EmbeddingModelConfig()
         self.device = resolve_device(device)
         self.tokenizer = tokenizer or load_tokenizer(self.config.tokenizer_path)
+        family = self.config.model_type.lower()
         if model is not None:
             self.model = model.to(self.device)
             self.model_config = model.config
+        elif family in deepseek_v2.MODEL_TYPES:
+            base = deepseek_v2.MODEL_TYPES[family]
+            self.model_config = dataclasses.replace(
+                base, vocab_size=max(base.vocab_size, len(self.tokenizer)))
+            self.model = deepseek_v2.DeepseekV2(self.model_config, device=self.device, seed=seed)
+            if Path(self.config.model_path).exists():
+                _log.warning("no checkpoint loader for %s yet; seeded init", family)
         else:
             self.model_config = model_config or minilm.config_for_model_type(
                 self.config.model_type,
@@ -144,9 +176,17 @@ class Embedder:
                 ids[i] = a[:L]
                 mask[i] = m[:L]
         with metrics.leaf("embed.forward"):
+            kw = {"real_tokens": int(mask.sum())} if getattr(self.model, "packs_tokens", False) else {}
             emb = self.model.encode(
                 torch.as_tensor(ids, device=self.device),
                 torch.as_tensor(mask, device=self.device),
                 self.token_weights,
+                **kw,
             )
-            return emb[:B].cpu().numpy()
+            stats = self.model.take_stats() if hasattr(self.model, "take_stats") else None
+            if stats is None:
+                return emb[:B].cpu().numpy()
+            # the module's device statistics ride on the embedding's copy
+            flat = torch.cat([emb[:B].reshape(-1), stats.to(emb.dtype)]).cpu().numpy()
+            self.model.observe_stats(flat[B * emb.shape[1]:])
+            return flat[: B * emb.shape[1]].reshape(B, emb.shape[1])

@@ -74,6 +74,8 @@ class MiniLMConfig:
         return self.hidden_size // self.num_heads
 
 
+#: model types of this encoder; ``deepseek_v2.MODEL_TYPES`` lists the other
+#: encoder's ("deepseek-v2-lite"), which ``Embedder`` checks first
 MODEL_FAMILIES: dict[str, MiniLMConfig] = {
     "minilm-l6": MiniLMConfig(),
     "all-minilm-l6-v2": MiniLMConfig(),

@@ -27,9 +27,11 @@ one process per source, into one shared library with a plain C interface
 (:func:`load_library`). Every launch adds one to :data:`LAUNCHES`.
 
 The plain versions are the reference the kernels are held against: the
-int8 products run as an f32 matrix product of int8 values, exact for
-``D <= 1040`` (every partial sum stays below 2^24) provided TF32 is off,
-which :func:`exact_float32` sets.
+int8 products run as f32 matrix products of int8 values over parts of K of
+at most 1,024 (:func:`int8_products`; each part's sums stay within 2^24,
+so each is exact provided TF32 is off, which :func:`exact_float32` sets),
+the parts added exactly in f64 and rounded once to f32, as the kernels
+round their int32 sums: exact at every width.
 """
 
 from __future__ import annotations
@@ -111,6 +113,27 @@ def exact_float32() -> None:
     int8 values is exact and f32 reference products keep full precision."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+#: widest part of K whose int8 products an f32 sum holds exactly
+#: (1,024 × 128² = 2^24)
+EXACT_K = 1024
+
+
+def int8_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (int8 values, any real dtype, ``b`` ``[..., K, N]``) as
+    f32: the exact integer sums rounded once to f32. Parts of K of at
+    most :data:`EXACT_K` are exact f32 products (TF32 off); where there
+    are several they are added in f64, exact too."""
+    K = a.shape[-1]
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    if K <= EXACT_K:
+        return a @ b
+    out = None
+    for k0 in range(0, K, EXACT_K):
+        part = (a[..., k0 : k0 + EXACT_K] @ b[..., k0 : k0 + EXACT_K, :]).to(torch.float64)
+        out = part if out is None else out + part
+    return out.to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -377,7 +400,7 @@ def int8_topk_plain(
     last_pos_zero = torch.full((B,), -1, dtype=torch.int64, device=dev)
     for lo in range(0, N, INT8_TOPK_PLAIN_CHUNK):
         hi = min(lo + INT8_TOPK_PLAIN_CHUNK, N)
-        s = (qf @ corpus_q[lo:hi].to(torch.float32).T) * qs * cs[lo:hi].reshape(1, -1)
+        s = int8_products(qf, corpus_q[lo:hi].T) * qs * cs[lo:hi].reshape(1, -1)
         rows = torch.arange(lo, hi, device=dev).expand(B, -1)
         pos_zero = (s == 0) & ~torch.signbit(s)
         last_pos_zero = torch.maximum(
@@ -541,7 +564,7 @@ def fused_scan_plain(
     exact_float32()
     B = q8.shape[0]
     N = corpus_q.shape[0]
-    acc = q8.to(torch.float32) @ corpus_q.to(torch.float32).T
+    acc = int8_products(q8, corpus_q.T)
     s = acc * q_scale.reshape(B, 1) * corpus_scale.reshape(1, N)
     keep = s >= mins.reshape(B, 1)
     if use_court:
@@ -569,12 +592,12 @@ def fused_scan_plain(
 #: longest lane list (T) and widest row (D, bytes) the tensor-core
 #: variant of the fused scan takes; beyond either the dp4a variant runs
 FUSED_SCAN_WGMMA_MAX_T = 16
-FUSED_SCAN_WGMMA_MAX_D = 896
+FUSED_SCAN_WGMMA_MAX_D = 2048
 
 
 def fused_scan_variant(D: int, n_keep: int) -> str:
     """The CUDA fused scan's variant for rows of D bytes and lane lists of
-    length ``n_keep``: ``"wgmma"`` (tensor cores) up to 16 slots and 896
+    length ``n_keep``: ``"wgmma"`` (tensor cores) up to 16 slots and 2048
     bytes, ``"dp4a"`` beyond either."""
     if n_keep <= FUSED_SCAN_WGMMA_MAX_T and D <= FUSED_SCAN_WGMMA_MAX_D:
         return "wgmma"
@@ -748,7 +771,7 @@ def probe_candidates_plain(
     ninf = -float("inf")
     for p in range(NP):
         pid = top_p[:, p].long()
-        acc = torch.einsum("bd,bmd->bm", q, part_int8[pid].to(torch.float32))
+        acc = int8_products(q[:, None, :], part_int8[pid].transpose(1, 2))[:, 0]
         s = acc * qs * part_scale[pid]
         cw = part_cword[pid].to(torch.int64)
         qw = torch.gather(qwords, 1, torch.clamp(cw, 0, W - 1))
